@@ -16,11 +16,21 @@ Phases (any failure exits non-zero):
      seed 0), k = 27, -ci2, default -m 12, on the card;
   6. the same run under torch.profiler: device busy time against the wall
      (the idle share) and the kernels that take the most device time;
-  7. a {"kernels": [...]} line with each kernel's launches in phase 5 and
-     its times from phases 2 and 3.
-The last line is {"ok": true, "device": {...}}.  Imports neither jax nor
-kmc_tpu.  Times come from CUDA events around repeated launches after a
-warm-up; bounds use the H100 SXM's 3.35 TB/s.
+  7. the exchange kernel (ragged and dense all-to-all) against its plain
+     version: 4 shards, segments of 2^24 rows, 2 and 3 words a row;
+  8. the sharded count (distributed_count, 4 shards) on phase 4's FASTQ
+     with small shards that compact: the card's database must equal the
+     CPU's and phase 4's single-device one, byte for byte;
+  9. the sharded count at full size (phase 5's FASTQ and knobs, the -m 12
+     plan per shard): its database must equal phase 5's byte for byte;
+     then the same run under torch.profiler, as phase 6.
+Then a {"kernels": [...]} line with each kernel's launches on the path
+(phase 9; the dense all-to-all, which no path calls, from phase 7) and its
+times from phases 2, 3 and 7.  Shards sit on distinct cards when the
+machine has two or more, else all on card 0.  The last line is {"ok": true,
+"device": {...}}.  Imports neither jax nor kmc_tpu.  Times come from CUDA
+events around repeated launches after a warm-up; bounds use the H100 SXM's
+3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_chip_smoke_work"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 M = 9
 
 
@@ -215,20 +226,29 @@ def run_count(fq, out, device, profiler=None, **kw):
     return r1, r2, runner.n_compactions, wall
 
 
+def _wrappers():
+    from kmc_tpu_torch.ops.extract_kernel import extract_splitter_scan
+    from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
+    from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
+                                                        ragged_all_to_all)
+
+    return {"splitter_scan": extract_splitter_scan,
+            "radix_sort": radix_sort_columns,
+            "ragged_all_to_all": ragged_all_to_all,
+            "all_to_all": all_to_all}
+
+
 def reset_counts():
-    from kmc_tpu_torch.ops.extract_kernel import extract_splitter_scan
-    from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
-
-    extract_splitter_scan.launches = 0
-    radix_sort_columns.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def read_counts():
-    from kmc_tpu_torch.ops.extract_kernel import extract_splitter_scan
-    from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
+def read_counts(names=("splitter_scan", "radix_sort")):
+    wrappers = _wrappers()
+    return {name: wrappers[name].launches for name in names}
 
-    return {"splitter_scan": extract_splitter_scan.launches,
-            "radix_sort": radix_sort_columns.launches}
+
+SHARDED_PATH = ("splitter_scan", "radix_sort", "ragged_all_to_all")
 
 
 def phase_card_vs_cpu():
@@ -289,7 +309,7 @@ def phase_full():
         f"{r2.time_finalize_d2h:.3f} compactions {n_comp} "
         f"max_memory_allocated {peak} launches {launches} "
         f"kmers_per_s {r2.n_total_kmers / wall:.0f}")
-    return fq, launches
+    return fq, n_reads
 
 
 def _union_us(spans):
@@ -301,6 +321,39 @@ def _union_us(spans):
             total += b - max(a, end)
             end = b
     return total
+
+
+def _device_time(prof, label, wall, also=()):
+    """Device busy time (union of kernel, copy and memset spans) of a
+    profiled run against its wall, and the items that take the most device
+    time, plus those whose names hold a string of `also`; logged under
+    `label`."""
+    trace = WORK / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    trace.unlink()
+    dev = [e for e in events if e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        log(f"{label} the profiler saw no device events: device busy "
+            "share not measured")
+        return
+    busy_us = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                        for e in dev)
+    by_cat = {}
+    by_name = {}
+    for e in dev:
+        by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + float(e["dur"])
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + float(e["dur"]))
+    log(f"{label} profiled run: wall_s {wall:.3f}, device busy_s "
+        f"{busy_us / 1e6:.3f} (" + ", ".join(
+            f"{c} {t / 1e6:.3f}" for c, t in sorted(by_cat.items()))
+        + f"), idle share {1 - busy_us / 1e6 / wall:.3f}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, t)) in enumerate(ranked):
+        if i < 12 or any(a in name for a in also):
+            log(f"  {t / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
 
 
 def phase_profile(fq):
@@ -317,31 +370,244 @@ def phase_profile(fq):
                 != (WORK / f"bench_out{suf}").read_bytes()):
             raise SystemExit(f"phase 6: the repeated full run's {suf} "
                              "differs from phase 5's")
-    trace = WORK / "bench_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text()).get("traceEvents", [])
-    dev = [e for e in events if e.get("cat") in
-           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if not dev:
-        log("[phase 6] the profiler saw no device events: device busy "
-            "share not measured")
-        return
-    busy_us = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                        for e in dev)
-    by_cat = {}
-    by_name = {}
-    for e in dev:
-        by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + float(e["dur"])
-        n, t = by_name.get(e["name"], (0, 0.0))
-        by_name[e["name"]] = (n + 1, t + float(e["dur"]))
-    log(f"[phase 6] profiled full run: wall_s {wall:.3f}, device busy_s "
-        f"{busy_us / 1e6:.3f} (" + ", ".join(
-            f"{c} {t / 1e6:.3f}" for c, t in sorted(by_cat.items()))
-        + f"), idle share {1 - busy_us / 1e6 / wall:.3f}, n_total_kmers "
-        f"{r2.n_total_kmers}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    for name, (n, t) in top:
-        log(f"  {t / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    log(f"[phase 6] n_total_kmers {r2.n_total_kmers}")
+    _device_time(prof, "[phase 6]", wall)
+
+
+def shard_devices():
+    """Four shards: on distinct cards when there are two or more (up to
+    four), else all on card 0."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(min(4, n))]
+    return ["cuda:0"] * 4
+
+
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_exchange():
+    """The exchange kernel against its plain version on card 0, 4 shards of
+    [4, 2^24, C]: bit-exact delivered prefixes, then times."""
+    from kmc_tpu_torch.parallel.exchange_kernel import (
+        all_to_all, all_to_all_plain, ragged_all_to_all,
+        ragged_all_to_all_plain)
+
+    D, cap = 4, 1 << 24
+    rows = {}
+    for C in (2, 3):
+        gen = torch.Generator(device="cuda").manual_seed(C)
+        xs = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), generator=gen,
+                            dtype=torch.int32, device="cuda")
+              for _ in range(D)]
+        rng = np.random.default_rng(C)
+        n_rows = rng.integers(0, cap + 1, size=(D, D))
+        n_rows[0, 1] = 0
+        n_rows[1, 2] = cap
+        n_rows[2, 3] = 12345
+        outs, rr = ragged_all_to_all(xs, n_rows)
+        ref, rr_ref = ragged_all_to_all_plain(xs, n_rows)
+        torch.cuda.synchronize()
+        if not np.array_equal(rr, rr_ref) or not np.array_equal(rr, n_rows.T):
+            raise SystemExit(f"phase 7: recv_rows differ (C={C})")
+        err = 0
+        for r in range(D):
+            for j in range(D):
+                m = int(rr[r, j])
+                err = max(err, max_abs_err(outs[r][j, :m], ref[r][j, :m]))
+                if not torch.equal(outs[r][j, :m], ref[r][j, :m]):
+                    raise SystemExit(f"phase 7: ragged exchange C={C} owner "
+                                     f"{r} sender {j} differs from plain "
+                                     f"(max_abs_err {err})")
+        del outs, ref
+        dense = all_to_all(xs)
+        dense_ref = all_to_all_plain(xs)
+        torch.cuda.synchronize()
+        for got, want in zip(dense, dense_ref):
+            err = max(err, max_abs_err(got, want))
+            if not torch.equal(got, want):
+                raise SystemExit(f"phase 7: dense exchange C={C} differs "
+                                 f"from plain (max_abs_err {err})")
+        del dense, dense_ref
+        r_bytes = 2 * 4 * C * int(n_rows.sum())
+        d_bytes = 2 * 4 * C * D * D * cap
+        all_to_all.launches = 0
+        row = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ragged_all_to_all(xs, n_rows), 10),
+            plain_ms=cuda_ms(lambda: ragged_all_to_all_plain(xs, n_rows), 3),
+            bound_ms=r_bytes / HBM_BYTES_PER_S * 1e3,
+            dense_ms=cuda_ms(lambda: all_to_all(xs), 10),
+            dense_plain_ms=cuda_ms(lambda: all_to_all_plain(xs), 3),
+            dense_bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3,
+            library_ms=cuda_ms(
+                lambda: torch.stack(xs).transpose(0, 1).contiguous(), 3),
+            dense_launches=all_to_all.launches)
+        rows[C] = row
+        log(f"[phase 7] exchange D={D} cap=2^24 C={C}: bit-exact; ragged "
+            f"({int(n_rows.sum())} rows, {r_bytes} bytes) kernel_ms "
+            f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
+            f"{row['bound_ms']:.4f}; dense ({d_bytes} bytes) kernel_ms "
+            f"{row['dense_ms']:.4f} plain_ms {row['dense_plain_ms']:.4f} "
+            f"bound_ms {row['dense_bound_ms']:.4f}; library_ms (stack + "
+            f"transpose, every padded row) {row['library_ms']:.4f}; dense "
+            f"launches {row['dense_launches']}")
+        del xs
+        torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        phase_exchange_cross_cards()
+    return rows
+
+
+def phase_exchange_cross_cards():
+    """The exchange with each shard on its own card (peer reads over
+    NVLink): bit-exact against the plain version, timed on the host clock
+    around whole exchanges (events do not span cards)."""
+    from kmc_tpu_torch.parallel.exchange_kernel import (
+        ragged_all_to_all, ragged_all_to_all_plain)
+
+    devices = shard_devices()
+    D, cap, C = len(devices), 1 << 24, 2
+    xs = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), dtype=torch.int32,
+                        device=d) for d in devices]
+    n_rows = np.random.default_rng(7).integers(0, cap + 1, size=(D, D))
+    outs, rr = ragged_all_to_all(xs, n_rows)
+    ref, _ = ragged_all_to_all_plain(xs, n_rows)
+    _sync_all()
+    for r in range(D):
+        for j in range(D):
+            m = int(rr[r, j])
+            if not torch.equal(outs[r][j, :m], ref[r][j, :m]):
+                raise SystemExit(f"phase 7: cross-card exchange owner {r} "
+                                 f"sender {j} differs from plain")
+    del outs, ref
+
+    def host_ms(fn, reps):
+        fn()
+        _sync_all()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync_all()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    row_b = 4 * C
+    peer = n_rows * (1 - np.eye(D, dtype=np.int64))  # rows crossing cards
+    link_b = max(peer.sum(0).max(), peer.sum(1).max()) * row_b
+    ms = host_ms(lambda: ragged_all_to_all(xs, n_rows), 10)
+    plain_ms = host_ms(lambda: ragged_all_to_all_plain(xs, n_rows), 3)
+    log(f"[phase 7] cross-card exchange on {devices}, cap=2^24 C={C}: "
+        f"bit-exact; {int(n_rows.sum())} rows, {int(peer.sum()) * row_b} "
+        f"bytes over NVLink (busiest link direction {int(link_b)} bytes); "
+        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} (host clock) "
+        f"bound_ms {link_b / NVLINK_BYTES_PER_S * 1e3:.4f} (450 GB/s each "
+        "way)")
+    del xs
+    for d in devices:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+
+
+def _same_db(a: Path, b: Path) -> bool:
+    return all((a.parent / (a.name + suf)).read_bytes()
+               == (b.parent / (b.name + suf)).read_bytes()
+               for suf in (".kmc_pre", ".kmc_suf"))
+
+
+def run_sharded(fq, out, devices, **kw):
+    from kmc_tpu_torch import distributed_count
+
+    t0 = time.perf_counter()
+    stats = distributed_count([str(fq)], str(out), k=27, cutoff_min=2,
+                              devices=devices, **kw)
+    if devices[0].startswith("cuda"):
+        _sync_all()
+    return stats, time.perf_counter() - t0
+
+
+def phase_sharded_mid():
+    """distributed_count on phase 4's FASTQ, card vs CPU and vs phase 4's
+    single-device card DB.  Phase 4's batches (2^20 positions) make only 3
+    groups of 4, too few to compact twice; 2^18-position batches into
+    shards of 1.5 M rows compact every shard at least twice."""
+    fq = WORK / "mid.fastq"
+    devices = shard_devices()
+    kw = dict(batch_positions=1 << 18, capacity_rows_per_device=3 << 19)
+    reset_counts()
+    st, wall = run_sharded(fq, WORK / "mid_sharded_cuda", devices, **kw)
+    launches = read_counts(SHARDED_PATH)
+    c_st, c_wall = run_sharded(fq, WORK / "mid_sharded_cpu",
+                               ["cpu"] * len(devices), **kw)
+    if not _same_db(WORK / "mid_sharded_cuda", WORK / "mid_sharded_cpu"):
+        raise SystemExit("phase 8: sharded card and CPU databases differ")
+    if not _same_db(WORK / "mid_sharded_cuda", WORK / "mid_cuda"):
+        raise SystemExit("phase 8: sharded database differs from phase 4's "
+                         "single-device one")
+    keys = ("n_unique", "n_total", "n_below", "n_above", "n_super_kmers",
+            "n_reads", "n_compactions")
+    if any(st[key] != c_st[key] for key in keys):
+        raise SystemExit(f"phase 8: card and CPU stats differ: {st} {c_st}")
+    if st["n_compactions"] < 2:
+        raise SystemExit(f"phase 8: expected >= 2 compactions per shard, got "
+                         f"{st['n_compactions']}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"phase 8: a kernel never launched: {launches}")
+    log(f"[phase 8] sharded 1 Mbp x10 k=27 -ci2 on {devices}: card DB == CPU "
+        f"DB == phase 4 DB byte for byte; {st['n_compactions']} compactions "
+        f"per shard; n_total {st['n_total']} n_unique {st['n_unique']}; "
+        f"launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
+
+
+def phase_sharded_full(fq, n_reads):
+    """distributed_count at full size: phase 5's input and knobs, the -m 12
+    plan per shard."""
+    devices = shard_devices()
+    kind = ("distinct cards" if len(set(devices)) > 1
+            else "4 shards on card 0")
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    reset_counts()
+    st, wall = run_sharded(fq, WORK / "bench_sharded", devices,
+                           batch_positions=1 << 22,
+                           capacity_rows_per_device=None)
+    launches = read_counts(SHARDED_PATH)
+    want = n_reads * (150 - 27 + 1)
+    if st["n_total"] != want:
+        raise SystemExit(f"phase 9: n_total {st['n_total']} != {n_reads} "
+                         f"reads x 124 = {want}")
+    if not _same_db(WORK / "bench_sharded", WORK / "bench_out"):
+        raise SystemExit("phase 9: sharded database differs from phase 5's")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"phase 9: a kernel never launched: {launches}")
+    peaks = {i: torch.cuda.max_memory_allocated(i)
+             for i in range(torch.cuda.device_count())}
+    t = st["timings"]
+    log(f"[phase 9] sharded full size on {devices} ({kind}): DB == phase 5 "
+        f"DB byte for byte; n_total {st['n_total']} (= {n_reads} x 124), "
+        f"n_unique {st['n_unique']}, wall_s {wall:.3f}, " + ", ".join(
+            f"{key} {t[key]:.3f}" for key in (
+                "ingest_wall_s", "owner_hist_s", "exchange_groupsort_s",
+                "finalize_exec_s", "finalize_d2h_s", "finalize_wall_s"))
+        + f", compactions {st['n_compactions']}, max_memory_allocated "
+        f"{peaks}, launches {launches}, exchange_bytes "
+        f"{st['exchange_bytes']}, kmers_per_s {st['n_total'] / wall:.0f}")
+
+    # where the device time of the sharded run goes: the same run again,
+    # under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, p_wall = run_sharded(fq, WORK / "bench_sharded_prof", devices,
+                                batch_positions=1 << 22,
+                                capacity_rows_per_device=None)
+    if not _same_db(WORK / "bench_sharded_prof", WORK / "bench_out"):
+        raise SystemExit("phase 9: the profiled sharded database differs "
+                         "from phase 5's")
+    _device_time(prof, "[phase 9]", p_wall, also=("ragged_a2a",))
+    return launches
 
 
 def main() -> int:
@@ -363,19 +629,29 @@ def main() -> int:
     phase_card_vs_cpu()
     log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    fq, launches = phase_full()
+    fq, n_reads = phase_full()
     log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_profile(fq)
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    exchange = phase_exchange()
+    log(f"[phase 7] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sharded_mid()
+    log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = phase_sharded_full(fq, n_reads)
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
 
     s27 = scan[(27, True)]
     s26 = sort[(1 << 26, 2)]
+    x2 = exchange[2]  # the unit exchange of k <= 27 moves 2 words a row
     kernels = [
         {"name": "splitter_scan", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/pallas_extract.py:312",
-         "launches": launches["splitter_scan"],
+         "launches": sharded["splitter_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in scan.values()),
          "ms": s27["ms"], "plain_ms": s27["plain_ms"],
          "bound_ms": s27["bound_ms"], "bound_by": "bytes",
@@ -383,11 +659,27 @@ def main() -> int:
         {"name": "radix_sort", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/radix_sort.cu",
          "replaces": "kmc_tpu/ops/pallas_sort.py:170",
-         "launches": launches["radix_sort"],
+         "launches": sharded["radix_sort"],
          "max_abs_err": max(r["max_abs_err"] for r in sort.values()),
          "ms": s26["ms"], "plain_ms": s26["plain_ms"],
          "bound_ms": s26["bound_ms"], "bound_by": "bytes",
          "library_ms": s26["library_ms"]},
+        {"name": "ragged_all_to_all", "route": "cuda",
+         "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
+         "replaces": "kmc_tpu/parallel/pallas_a2a.py:164",
+         "launches": sharded["ragged_all_to_all"],
+         "max_abs_err": max(r["max_abs_err"] for r in exchange.values()),
+         "ms": x2["ms"], "plain_ms": x2["plain_ms"],
+         "bound_ms": x2["bound_ms"], "bound_by": "bytes",
+         "library_ms": x2["library_ms"]},
+        {"name": "all_to_all", "route": "cuda",
+         "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
+         "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",
+         "launches": x2["dense_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in exchange.values()),
+         "ms": x2["dense_ms"], "plain_ms": x2["dense_plain_ms"],
+         "bound_ms": x2["dense_bound_ms"], "bound_by": "bytes",
+         "library_ms": x2["library_ms"]},
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,14 @@ SIGNATURES = {
         "kmc_radix_sort_columns": [ctypes.POINTER(_P), ctypes.POINTER(_P),
                                    _I32, _I32, _I64, _P, _P, _P, _P, _P, _P],
     },
+    "ragged_a2a": {
+        # device, peer
+        "kmc_enable_peer_access": [_I32, _I32],
+        # device, table, n_dev, owner, cap, n_words_row, chunk_rows,
+        # n_chunks, out, stream
+        "kmc_ragged_a2a_owner": [_I32, _P, _I32, _I32, _I64, _I32, _I64,
+                                 _I64, _P, _P],
+    },
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

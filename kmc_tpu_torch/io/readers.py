@@ -347,6 +347,53 @@ def _file_shards(path: str, fmt: str, n_threads: int,
     return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
 
 
+def process_input_shards(paths, fmt: str, n_parts: int, *,
+                         min_shard_bytes: int = 32 << 20,
+                         units_per_part: int = 4):
+    """Partition the input into n_parts disjoint, record-aligned work lists
+    (mirrors kmc_tpu's process_input_shards): a list of n_parts lists of
+    (path, start, end, last_of_file) tuples in stream order, contiguous and
+    balanced by bytes.  Plain gz files are atomic units; plain files and
+    BGZF files split at verified record starts."""
+    import os as _os
+
+    units = []  # (path, start, end, last_of_file, nbytes)
+    for path in paths:
+        ranges = _file_shards(path, fmt, n_parts * units_per_part,
+                              min_shard_bytes=min_shard_bytes)
+        size = _os.path.getsize(path)
+        for i, (a, b) in enumerate(ranges):
+            if isinstance(a, GzShard):
+                nb = a.cbytes  # compressed extent balances BGZF shards
+            else:
+                nb = (b if b >= 0 else size) - a
+            units.append((path, a, b, i == len(ranges) - 1, nb))
+    total = sum(u[4] for u in units)
+    parts: list[list] = [[] for _ in range(n_parts)]
+    acc = 0
+    for u in units:
+        # contiguous partition by byte midpoint: a unit goes to the part
+        # whose byte window holds its centre
+        mid = acc + u[4] / 2
+        p = min(int(mid * n_parts / total) if total else 0, n_parts - 1)
+        parts[p].append(u[:4])
+        acc += u[4]
+    return parts
+
+
+def shard_code_stream(shards, fmt: str, state: ParseState | None = None,
+                      n_threads: int = 1) -> Iterator[np.ndarray]:
+    """Code-chunk stream over an explicit shard list [(path, start, end,
+    last_of_file)] (one element of process_input_shards), parsed by
+    n_threads native parsers (mirrors kmc_tpu's shard_code_stream without
+    its NumPy fallback)."""
+    from .native import NativeParser
+
+    NativeParser(fmt)  # build the runtime, check fmt before threads start
+    return _parallel_chunks(list(shards), fmt, state or ParseState(),
+                            max(1, n_threads))
+
+
 def parallel_code_stream(paths, fmt: str, state: ParseState | None = None,
                          n_threads: int = 2) -> Iterator[np.ndarray]:
     """file_code_stream with N parser threads (the native C parsers release
@@ -516,6 +563,20 @@ def homopolymer_compress_codes(codes: np.ndarray) -> np.ndarray:
     keep[0] = True
     np.not_equal(codes[1:], codes[:-1], out=keep[1:])
     return codes[keep]
+
+
+def homopolymer_compress_stream(chunks) -> Iterator[np.ndarray]:
+    """homopolymer_compress_codes over a code-chunk stream: a run spanning a
+    chunk boundary collapses to one code at the head of the next chunk,
+    which is dropped when it continues the previous chunk's run."""
+    prev_last = -1
+    for chunk in chunks:
+        chunk = homopolymer_compress_codes(chunk)
+        if len(chunk) and chunk[0] == prev_last:
+            chunk = chunk[1:]
+        if len(chunk):
+            prev_last = int(chunk[-1])
+        yield chunk
 
 
 class BatchStream:

@@ -32,7 +32,7 @@ from .io.readers import (
     BatchStream,
     ParseState,
     file_code_stream,
-    homopolymer_compress_codes,
+    homopolymer_compress_stream,
     parallel_code_stream,
     set_chunk_bytes,
 )
@@ -191,7 +191,7 @@ class Stage2Results:
     n_unique_kmers: int = 0
 
 
-def _n_cpus() -> int:
+def n_cpus() -> int:
     try:  # respect cgroup/affinity limits, not the physical count
         return len(os.sched_getaffinity(0))
     except AttributeError:
@@ -229,7 +229,7 @@ class Runner:
         plan = plan_memory(
             params.max_ram_gb, k=params.kmer_len,
             batch_positions=params.batch_positions,
-            n_threads=params.n_threads or _n_cpus(),
+            n_threads=params.n_threads or n_cpus(),
             strict_memory=params.strict_memory_mode,
             requested_rows=params.device_store_rows)
         set_chunk_bytes(plan.parse_chunk_bytes)
@@ -239,7 +239,7 @@ class Runner:
         state = ParseState()
         fmt = params.input_file_type.value
         # -sf bounds the reader pool independently of -t
-        n_th = params.n_reader_threads or params.n_threads or _n_cpus()
+        n_th = params.n_reader_threads or params.n_threads or n_cpus()
         if n_th > 1:
             # N parser threads over record-aligned shards; the chunk stream
             # is a boundary refinement of the serial one
@@ -247,16 +247,9 @@ class Runner:
                                           n_threads=n_th)
         else:
             source = file_code_stream(params.input_files, fmt, state)
-        prev_last = -1
+        if params.homopolymer_compressed:
+            source = homopolymer_compress_stream(source)
         for chunk in source:
-            if params.homopolymer_compressed:
-                chunk = homopolymer_compress_codes(chunk)
-                # a run spanning the chunk boundary collapses to one code at
-                # the head of this chunk; drop it if it continues prev run
-                if len(chunk) and chunk[0] == prev_last:
-                    chunk = chunk[1:]
-                if len(chunk):
-                    prev_last = int(chunk[-1])
             yield chunk, state
         self._n_reads = state.n_reads
 

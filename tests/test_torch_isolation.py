@@ -8,8 +8,9 @@ import pytest
 import torch
 
 import kmc_tpu_torch
-from kmc_tpu_torch import Runner, count
+from kmc_tpu_torch import Runner, count, distributed_count, make_mesh
 from kmc_tpu_torch.ops.store import DeviceKmerStore
+from kmc_tpu_torch.parallel.multihost import ShardedKmerStore
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -28,6 +29,10 @@ bad = sorted(m for m in sys.modules
              or m.startswith("kmc_tpu."))
 print(len(names), bad)
 assert not bad, bad
+for name in ("kmc_tpu_torch.parallel.distributed",
+             "kmc_tpu_torch.parallel.exchange_kernel",
+             "kmc_tpu_torch.parallel.multihost"):
+    assert name in names, name
 """
 
 
@@ -36,7 +41,7 @@ def test_no_jax_or_kmc_tpu_import():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 14  # every module of the package was imported
+    assert n_modules >= 18  # every module of the package was imported
 
 
 def _no_card(monkeypatch):
@@ -56,11 +61,27 @@ def test_count_without_device_raises_without_card(tmp_path, monkeypatch):
     lambda: Runner(),
     lambda: DeviceKmerStore(64, k=27, sig_len=9, both_strands=True,
                             n_bins=512),
+    lambda: make_mesh(),
+    lambda: make_mesh(2),
+    lambda: ShardedKmerStore(None, 64, k=27),
 ])
 def test_entry_points_default_to_cuda(monkeypatch, make):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
+
+
+def test_distributed_count_without_devices_raises_without_card(
+        tmp_path, monkeypatch):
+    _no_card(monkeypatch)
+    fq = tmp_path / "in.fastq"
+    fq.write_text("@r\nACGTACGTACGTACGTACGTACGTACGTAC\n+\n" + "I" * 30 + "\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        distributed_count([str(fq)], str(tmp_path / "db"), k=27)
+    with pytest.raises(RuntimeError, match="cuda"):
+        distributed_count([str(fq)], str(tmp_path / "db"), k=27,
+                          devices=["cuda:0"] * 2)
+    assert not (tmp_path / "db.kmc_pre").exists()
 
 
 def test_cli_without_card_fails(tmp_path, monkeypatch, capsys):

@@ -13,6 +13,10 @@ from kmc_tpu_torch.io.readers import batch_len
 from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
                                               splitter_scan_plain)
 from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns, radix_sort_plain
+from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
+                                                    all_to_all_plain,
+                                                    ragged_all_to_all,
+                                                    ragged_all_to_all_plain)
 
 M = 9
 
@@ -96,3 +100,83 @@ def test_count_on_card_matches_cpu(tmp_path):
         assert (tmp_path / f"gpu{suf}").read_bytes() == \
             (tmp_path / f"cpu{suf}").read_bytes()
     assert r_gpu[1].n_unique_kmers == r_cpu[1].n_unique_kmers > 0
+
+
+def _exchange_shards(devices, cap, C, seed):
+    D = len(devices)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**32, size=(D, D, cap, C), dtype=np.uint32)
+    n_rows = rng.integers(0, cap + 1, size=(D, D))
+    n_rows[0, 1 % D] = 0
+    n_rows[D - 1, 0] = cap
+    xs = [torch.from_numpy(x[j].view(np.int32)).to(devices[j])
+          for j in range(D)]
+    return xs, n_rows
+
+
+def _check_exchange(devices, cap, C, seed):
+    D = len(devices)
+    xs, n_rows = _exchange_shards(devices, cap, C, seed)
+    ref, rr_ref = ragged_all_to_all_plain(xs, n_rows)
+    before = ragged_all_to_all.launches
+    outs, rr = ragged_all_to_all(xs, n_rows)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    assert ragged_all_to_all.launches == before + D
+    assert np.array_equal(rr, rr_ref)
+    for r in range(D):
+        assert outs[r].device == xs[r].device
+        for j in range(D):
+            m = int(rr[r, j])
+            assert torch.equal(outs[r][j, :m], ref[r][j, :m]), (r, j)
+    dense_ref = all_to_all_plain(xs)
+    before = all_to_all.launches
+    dense = all_to_all(xs)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    assert all_to_all.launches == before + D
+    for got, want in zip(dense, dense_ref):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,C", [(1024, 2), ((1 << 16) + 3, 3), (64, 1)])
+def test_exchange_one_card_matches_plain(cap, C):
+    _need_card()
+    _check_exchange(["cuda:0"] * 4, cap, C, seed=cap + C)
+
+
+@pytest.mark.gpu
+def test_exchange_across_cards_matches_plain():
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs at least 2 CUDA cards for peer reads, found {n}")
+    devices = [f"cuda:{i % n}" for i in range(4)]
+    _check_exchange(devices, (1 << 14) + 4, 2, seed=5)
+
+
+@pytest.mark.gpu
+def test_distributed_count_on_card_matches_cpu(tmp_path):
+    _need_card()
+    from kmc_tpu_torch import distributed_count
+
+    rng = np.random.default_rng(1)
+    genome = rng.integers(0, 4, 20000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "in.fastq", "wb") as f:
+        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    kw = dict(k=27, cutoff_min=2, batch_positions=1 << 14,
+              capacity_rows_per_device=5 << 13)
+    s_gpu = distributed_count([str(tmp_path / "in.fastq")],
+                              str(tmp_path / "gpu"), devices=["cuda:0"] * 4,
+                              **kw)
+    s_cpu = distributed_count([str(tmp_path / "in.fastq")],
+                              str(tmp_path / "cpu"), devices=["cpu"] * 4, **kw)
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"gpu{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert s_gpu["n_compactions"] == s_cpu["n_compactions"] >= 1
+    assert s_gpu["n_unique"] == s_cpu["n_unique"] > 0
