@@ -23,19 +23,38 @@ Phases (any failure exits non-zero):
      CPU's and phase 4's single-device one, byte for byte;
   9. the sharded count at full size (phase 5's FASTQ and knobs, the -m 12
      plan per shard): its database must equal phase 5's byte for byte;
-     then the same run under torch.profiler, as phase 6.
-Then a {"kernels": [...]} line with each kernel's launches on the path
-(phase 9; the dense all-to-all, which no path calls, from phase 7) and its
-times from phases 2, 3 and 7.  Shards sit on distinct cards when the
-machine has two or more, else all on card 0.  The last line is {"ok": true,
-"device": {...}}.  Imports neither jax nor kmc_tpu.  Times come from CUDA
-events around repeated launches after a warm-up; bounds use the H100 SXM's
-3.35 TB/s.
+     then the same run under torch.profiler, as phase 6;
+ 10. the last two kernels: the 1-D splitter-scan entry (pallas_extract's
+     contract) at s = 2^22, k in {21, 27, 33, 55}, both strands and one,
+     bit-exact against its plain version; the three memory probes of
+     `python -m kmc_tpu_torch.microbench_sort pallas` at N = 2^28, run
+     through that section's entry, then each bit-exact against its plain
+     version (which is also the library call they are timed against);
+ 11. the spilling count at mid size (phase 4's FASTQ): a store that spills
+     and finalizes by replaying its runs, and a smaller one that finalizes
+     by the host merge; each card DB must equal the CPU's and phase 4's;
+     a stage-1 checkpoint saved on the card and resumed on the CPU, and
+     the reverse, must write the same bytes;
+ 12. the spilling count at full size: bench.py's generator with a 2^27-bp
+     genome (134 Mbp) at 10x, k = 27, -ci2, batches of 2^22, default
+     -m 12 (2^26 store rows): about twice the store's rows in unique
+     k-mers, so it spills, re-merges under the budget and finalizes by the
+     host merge; n_total_kmers must be n_reads x 124 and its DB must equal
+     a non-spilling card count's (device_store_rows = 2^28).
+Then a {"kernels": [...]} line with each kernel's launches on its path
+(phase 9 for the sharded path's kernels; the dense all-to-all, which no
+path calls, from phase 7; the 1-D entry and the probes from their own
+entries in phase 10) and its times from phases 2, 3, 7 and 10.  Shards sit
+on distinct cards when the machine has two or more, else all on card 0.
+The last line is {"ok": true, "device": {...}}.  Imports neither jax nor
+kmc_tpu.  Times come from CUDA events around repeated launches after a
+warm-up; bounds use the H100 SXM's 3.35 TB/s.
 """
 from __future__ import annotations
 
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -223,11 +242,13 @@ def run_count(fq, out, device, profiler=None, **kw):
     wall = time.perf_counter() - t0
     if profiler is not None:
         profiler.stop()
-    return r1, r2, runner.n_compactions, wall
+    return r1, r2, runner, wall
 
 
 def _wrappers():
-    from kmc_tpu_torch.ops.extract_kernel import extract_splitter_scan
+    from kmc_tpu_torch import microbench_sort as mb
+    from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
+                                                  extract_splitter_scan_1d)
     from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
     from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
                                                         ragged_all_to_all)
@@ -235,7 +256,11 @@ def _wrappers():
     return {"splitter_scan": extract_splitter_scan,
             "radix_sort": radix_sort_columns,
             "ragged_all_to_all": ragged_all_to_all,
-            "all_to_all": all_to_all}
+            "all_to_all": all_to_all,
+            "splitter_scan_1d": extract_splitter_scan_1d,
+            "probe_add1": mb.probe_add1,
+            "probe_gather_rows": mb.probe_gather_rows,
+            "probe_gather_lanes": mb.probe_gather_lanes}
 
 
 def reset_counts():
@@ -256,9 +281,10 @@ def phase_card_vs_cpu():
     write_fastq(fq, 1 << 20, 10, seed=1)
     kw = dict(batch_positions=1 << 20, device_store_rows=3 << 20)
     reset_counts()
-    r1, r2, n_comp, wall = run_count(fq, WORK / "mid_cuda", "cuda", **kw)
+    r1, r2, runner, wall = run_count(fq, WORK / "mid_cuda", "cuda", **kw)
     launches = read_counts()
-    c1, c2, c_comp, c_wall = run_count(fq, WORK / "mid_cpu", "cpu", **kw)
+    c1, c2, c_runner, c_wall = run_count(fq, WORK / "mid_cpu", "cpu", **kw)
+    n_comp, c_comp = runner.n_compactions, c_runner.n_compactions
     for suf in (".kmc_pre", ".kmc_suf"):
         a = (WORK / f"mid_cuda{suf}").read_bytes()
         b = (WORK / f"mid_cpu{suf}").read_bytes()
@@ -286,9 +312,10 @@ def phase_full():
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    r1, r2, n_comp, wall = run_count(fq, WORK / "bench_out", "cuda",
+    r1, r2, runner, wall = run_count(fq, WORK / "bench_out", "cuda",
                                      verbose=True)
     launches = read_counts()
+    n_comp = runner.n_compactions
     want = n_reads * (150 - 27 + 1)
     if r2.n_total_kmers != want:
         raise SystemExit(f"phase 5: n_total_kmers {r2.n_total_kmers} != "
@@ -610,6 +637,246 @@ def phase_sharded_full(fq, n_reads):
     return launches
 
 
+def phase_last_kernels():
+    """The 1-D splitter-scan entry and the three memory probes: each run
+    once through its own entry with the counts set to 0 (the launches of
+    the kernels line), then held bit for bit against its plain version and
+    timed."""
+    from kmc_tpu_torch import microbench_sort as mb
+    from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan_1d,
+                                                  splitter_scan_plain)
+
+    s = 1 << 22
+    shapes = [(k, both) for k in (21, 27, 33, 55) for both in (True, False)]
+    rng = np.random.default_rng(10)
+    inputs = {}
+    for k in sorted({k for k, _ in shapes}):
+        codes_h = rng.integers(0, 4, s + 2048).astype(np.uint8)
+        codes_h[rng.random(len(codes_h)) < 0.01] = 4
+        inputs[k] = torch.from_numpy(codes_h).cuda()
+    # the 1-D entry's own path: one call per shape
+    reset_counts()
+    outs = {(k, both): extract_splitter_scan_1d(
+        inputs[k], s=s, k=k, sig_len=M, both_strands=both)
+        for k, both in shapes}
+    torch.cuda.synchronize()
+    launches = read_counts(("splitter_scan_1d",))
+    if launches["splitter_scan_1d"] != len(shapes):
+        raise SystemExit(f"phase 10: 1-D entry launched {launches}, "
+                         f"expected {len(shapes)}")
+    scan_rows = {}
+    for (k, both), (sig_k, lanes_k) in outs.items():
+        codes = inputs[k]
+        sig_p, lanes_p = splitter_scan_plain(codes, s=s, k=k, sig_len=M,
+                                             both_strands=both)
+        lanes_k = torch.stack(lanes_k)
+        err = max(max_abs_err(sig_k, sig_p), max_abs_err(lanes_k, lanes_p))
+        if err or not (torch.equal(sig_k, sig_p)
+                       and torch.equal(lanes_k, lanes_p)):
+            raise SystemExit(f"phase 10: 1-D splitter scan k={k} both={both}"
+                             f" differs from plain (max_abs_err {err})")
+        del sig_p, lanes_p
+        W = (k + 15) // 16
+        nbytes = (s + k + 16) + 4 * (1 + W) * s
+        row = dict(
+            ms=cuda_ms(lambda: extract_splitter_scan_1d(
+                codes, s=s, k=k, sig_len=M, both_strands=both), 20),
+            plain_ms=cuda_ms(lambda: splitter_scan_plain(
+                codes, s=s, k=k, sig_len=M, both_strands=both), 3),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+            launches=launches["splitter_scan_1d"])
+        scan_rows[(k, both)] = row
+        log(f"[phase 10] 1-D splitter scan s=2^22 k={k} both={both}: "
+            f"bit-exact, kernel_ms {row['ms']:.4f} plain_ms "
+            f"{row['plain_ms']:.3f} bound_ms {row['bound_ms']:.4f} "
+            f"({nbytes} bytes)")
+    del outs, inputs
+    torch.cuda.empty_cache()
+
+    # the probes' own path: the microbench section's entry at N = 2^28
+    n = 1 << 28
+    names = ("probe_add1", "probe_gather_rows", "probe_gather_lanes")
+    reset_counts()
+    timed = mb.sec_pallas(n, device="cuda")
+    torch.cuda.synchronize()
+    probe_launches = read_counts(names)
+    if min(probe_launches.values()) == 0:
+        raise SystemExit(f"phase 10: a probe never launched: "
+                         f"{probe_launches}")
+    x, idx, idxl = mb.probe_inputs(n, "cuda")
+    args = {"probe_add1": (x,), "probe_gather_rows": (x, idx),
+            "probe_gather_lanes": (x, idxl)}
+    probe_rows = {}
+    for name in names:
+        got = getattr(mb, name)(*args[name])
+        want = getattr(mb, name + "_plain")(*args[name])
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err or not torch.equal(got, want):
+            raise SystemExit(f"phase 10: {name} differs from plain "
+                             f"(max_abs_err {err})")
+        del got, want
+        t = timed[name]
+        probe_rows[name] = dict(ms=t["ms"], plain_ms=t["library_ms"],
+                                library_ms=t["library_ms"],
+                                bound_ms=t["bound_ms"], max_abs_err=err,
+                                launches=probe_launches[name])
+        log(f"[phase 10] {name} N=2^28: bit-exact, kernel_ms {t['ms']:.4f} "
+            f"({t['gbs']:.1f} GB/s) bound_ms {t['bound_ms']:.4f} "
+            f"library_ms {t['library_ms']:.4f}; launches "
+            f"{probe_launches[name]}")
+    del x, idx, idxl, args
+    torch.cuda.empty_cache()
+    return scan_rows, probe_rows
+
+
+MID_SPILL = {  # phase 11's stores: (batch positions, store rows) per route
+    "replay": (1 << 18, 9 << 17),
+    "host": (1 << 18, 1 << 19),
+}
+
+
+def phase_spill_mid():
+    """The spilling count on phase 4's FASTQ, card against CPU, through
+    both finalize routes; then stage-1 checkpoints across card and CPU."""
+    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+
+    fq = WORK / "mid.fastq"
+    for route, (s, rows) in MID_SPILL.items():
+        kw = dict(batch_positions=s, device_store_rows=rows)
+        reset_counts()
+        _, r2, runner, wall = run_count(fq, WORK / f"mid_spill_{route}_cuda",
+                                        "cuda", **kw)
+        launches = read_counts()
+        _, c2, c_runner, c_wall = run_count(
+            fq, WORK / f"mid_spill_{route}_cpu", "cpu", **kw)
+        st, c_st = runner.spill_stats, c_runner.spill_stats
+        n_comp, c_comp = runner.n_compactions, c_runner.n_compactions
+        for other in (f"mid_spill_{route}_cpu", "mid_cuda"):
+            if not _same_db(WORK / f"mid_spill_{route}_cuda", WORK / other):
+                raise SystemExit(f"phase 11: the {route}-route card DB "
+                                 f"differs from {other}")
+        if st["n_spills"] < 2 or st["finalize_route"] != route:
+            raise SystemExit(f"phase 11: expected >= 2 spills and the "
+                             f"{route} route, got {st}")
+        if ({k: v for k, v in st.items() if not k.startswith("t_")}
+                != {k: v for k, v in c_st.items() if not k.startswith("t_")}
+                or n_comp != c_comp):
+            raise SystemExit(f"phase 11: card and CPU spills differ: {st} "
+                             f"{c_st}")
+        if min(launches.values()) == 0:
+            raise SystemExit(f"phase 11: a kernel never launched: {launches}")
+        log(f"[phase 11] {route} route (batches {s}, {rows} store rows): "
+            f"card DB == CPU DB == phase 4 DB byte for byte; {n_comp} "
+            f"compactions, {st['n_spills']} spills of {st['spill_bytes']} "
+            f"bytes, {st['n_remerges']} re-merges; spill D2H "
+            f"{st['t_spill_d2h']:.3f} s, host merge {st['t_host_merge']:.3f}"
+            f" s; launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
+
+    # checkpoints with spilled runs: card -> CPU and CPU -> card
+    s, rows = MID_SPILL["host"]
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        ck = str(WORK / f"ck_{src}")
+        r = Runner(device=src)
+        r.run_stage1(Stage1Params(input_files=[str(fq)], kmer_len=27,
+                                  batch_positions=s, device_store_rows=rows))
+        n_runs = len(r._store.spilled)
+        r.save_stage1_checkpoint(ck)
+        r2 = Runner(device=dst)
+        r2.resume_stage1_checkpoint(ck, Stage1Params(
+            input_files=[str(fq)], batch_positions=s,
+            device_store_rows=rows))
+        out = WORK / f"mid_ck_{src}_{dst}"
+        r2.run_stage2(Stage2Params(output_file_name=str(out), cutoff_min=2))
+        if not _same_db(out, WORK / "mid_cuda"):
+            raise SystemExit(f"phase 11: checkpoint {src} -> {dst} differs "
+                             "from the straight count")
+        log(f"[phase 11] stage-1 checkpoint saved on {src} ({n_runs} spilled"
+            f" runs), resumed on {dst}: DB == phase 4 DB byte for byte")
+
+
+def _host_peak_rss() -> int:
+    """The process's peak resident set so far, in bytes (ru_maxrss is in
+    KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+
+
+def phase_spill_full():
+    """The deployment: a 134 Mbp genome at 10x, about twice the default
+    store's rows in unique k-mers, counted under -m 12.  The count runs
+    once, under torch.profiler, for the device's idle share; its spill,
+    re-merge and host merge are NumPy on the host, so the profiler costs
+    the wall little."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmc_tpu_torch.memory import plan_memory
+
+    fq = WORK / "genome_134M_10x.fastq"
+    t0 = time.perf_counter()
+    n_reads = write_fastq(fq, 1 << 27, 10, seed=0)
+    log(f"[phase 12] wrote {n_reads} reads ({fq.stat().st_size} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _host_peak_rss()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    reset_counts()
+    r1, r2, runner, wall = run_count(fq, WORK / "spill_out", "cuda",
+                                     profiler=prof, verbose=True)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rss = _host_peak_rss()
+    st = runner.spill_stats
+    n_comp = runner.n_compactions
+    want = n_reads * (150 - 27 + 1)
+    if r2.n_total_kmers != want:
+        raise SystemExit(f"phase 12: n_total_kmers {r2.n_total_kmers} != "
+                         f"{n_reads} reads x 124 = {want}")
+    if st["n_spills"] < 1:
+        raise SystemExit(f"phase 12: the count never spilled: {st}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"phase 12: a kernel never launched: {launches}")
+    log(f"[phase 12] spilling count: n_total_kmers {r2.n_total_kmers} (= "
+        f"{n_reads} x 124), n_unique {r2.n_unique_kmers}, wall_s {wall:.3f} "
+        f"stage1_s {r1.time:.3f} stage2_s {r2.time:.3f} finalize_exec_s "
+        f"{r2.time_finalize_exec:.3f} compactions {n_comp} spills "
+        f"{st['n_spills']} spill_bytes {st['spill_bytes']} spill_d2h_s "
+        f"{st['t_spill_d2h']:.3f} remerges {st['n_remerges']} remerge_s "
+        f"{st['t_remerge']:.3f} host_merge_s {st['t_host_merge']:.3f} route "
+        f"{st['finalize_route']} max_memory_allocated {peak} launches "
+        f"{launches} kmers_per_s {r2.n_total_kmers / wall:.0f}")
+    plan = plan_memory(12, k=27, batch_positions=1 << 22)
+    log(f"[phase 12] host peak RSS (ru_maxrss) {rss} bytes after the count, "
+        f"{rss_before} before it; -m 12 budget {plan.budget_bytes} bytes, "
+        f"spill budget {plan.spill_budget_bytes} bytes")
+    _device_time(prof, "[phase 12]", wall)
+    del prof
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, b2, b_runner, b_wall = run_count(fq, WORK / "spill_ref", "cuda",
+                                        device_store_rows=1 << 28)
+    b_st, b_comp = b_runner.spill_stats, b_runner.n_compactions
+    if b_st["n_spills"]:
+        raise SystemExit(f"phase 12: the 2^28-row count spilled: {b_st}")
+    if not _same_db(WORK / "spill_out", WORK / "spill_ref"):
+        raise SystemExit("phase 12: the spilling count's DB differs from the "
+                         "non-spilling count's")
+    log(f"[phase 12] non-spilling count (2^28 store rows): DB == spilling "
+        f"DB byte for byte; wall_s {b_wall:.3f}, compactions {b_comp}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    for path in (fq, *(WORK / f"{name}{suf}" for name in ("spill_out",
+                                                          "spill_ref")
+                       for suf in (".kmc_pre", ".kmc_suf"))):
+        path.unlink()
+
+
+def timed(n, fn, *args):
+    """fn(*args), logged with its seconds as phase n."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    log(f"[phase {n}] {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -619,30 +886,17 @@ def main() -> int:
     WORK.mkdir(exist_ok=True)
     t_all = time.perf_counter()
     phase_card()
-    t0 = time.perf_counter()
-    scan = phase_scan()
-    log(f"[phase 2] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    sort = phase_sort()
-    log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_card_vs_cpu()
-    log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fq, n_reads = phase_full()
-    log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_profile(fq)
-    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    exchange = phase_exchange()
-    log(f"[phase 7] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_sharded_mid()
-    log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    sharded = phase_sharded_full(fq, n_reads)
-    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+    scan = timed(2, phase_scan)
+    sort = timed(3, phase_sort)
+    timed(4, phase_card_vs_cpu)
+    fq, n_reads = timed(5, phase_full)
+    timed(6, phase_profile, fq)
+    exchange = timed(7, phase_exchange)
+    timed(8, phase_sharded_mid)
+    sharded = timed(9, phase_sharded_full, fq, n_reads)
+    scan_1d, probes = timed(10, phase_last_kernels)
+    timed(11, phase_spill_mid)
+    timed(12, phase_spill_full)
 
     s27 = scan[(27, True)]
     s26 = sort[(1 << 26, 2)]
@@ -681,6 +935,27 @@ def main() -> int:
          "bound_ms": x2["dense_bound_ms"], "bound_by": "bytes",
          "library_ms": x2["library_ms"]},
     ]
+    s1d = scan_1d[(27, True)]
+    kernels.append(
+        {"name": "splitter_scan_1d", "route": "cuda",
+         "source": "kmc_tpu_torch/csrc/extract.cu",
+         "replaces": "kmc_tpu/ops/pallas_extract.py:160",
+         "launches": s1d["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in scan_1d.values()),
+         "ms": s1d["ms"], "plain_ms": s1d["plain_ms"],
+         "bound_ms": s1d["bound_ms"], "bound_by": "bytes",
+         "library_ms": None})
+    for name, line in (("probe_add1", 131), ("probe_gather_rows", 150),
+                       ("probe_gather_lanes", 174)):
+        p = probes[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "kmc_tpu_torch/csrc/probes.cu",
+             "replaces": f"tools/microbench_sort.py:{line}",
+             "launches": p["launches"], "max_abs_err": p["max_abs_err"],
+             "ms": p["ms"], "plain_ms": p["plain_ms"],
+             "bound_ms": p["bound_ms"], "bound_by": "bytes",
+             "library_ms": p["library_ms"]})
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

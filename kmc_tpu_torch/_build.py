@@ -28,6 +28,9 @@ SIGNATURES = {
     "extract": {
         # codes, n_codes, sig, lanes, s, k, sig_len, both_strands, stream
         "kmc_splitter_scan": [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P],
+        # the same arguments, under pallas_extract's 1-D contract
+        "kmc_splitter_scan_1d": [_P, _I64, _P, _P, _I64, _I32, _I32, _I32,
+                                 _P],
     },
     "radix_sort": {
         # cols, outs, n_cols, n_keys, n, key_a, key_b, idx_a, idx_b, hist,
@@ -42,6 +45,13 @@ SIGNATURES = {
         # n_chunks, out, stream
         "kmc_ragged_a2a_owner": [_I32, _P, _I32, _I32, _I64, _I32, _I64,
                                  _I64, _P, _P],
+    },
+    "probes": {
+        # x, o, n, stream
+        "kmc_probe_add1": [_P, _P, _I64, _P],
+        # x, idx, o, n_rows, stream (rows of 1024 u32, idx int32[1024])
+        "kmc_probe_gather_rows": [_P, _P, _P, _I64, _P],
+        "kmc_probe_gather_lanes": [_P, _P, _P, _I64, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

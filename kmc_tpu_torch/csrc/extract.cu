@@ -1,9 +1,13 @@
 // Splitter scan for Hopper (sm_90a): per start position, the signature and
 // the canonical k-mer lanes.
 //
-// Replaces the TPU kernel kmc_tpu/ops/pallas_extract.py::pallas_extract2d
-// (kernel body _kernel2d).  Same contract, in position order, with no
-// alignment rule: for each start i < s,
+// Replaces the TPU kernels kmc_tpu/ops/pallas_extract.py::pallas_extract2d
+// (kernel body _kernel2d; C entry kmc_splitter_scan) and ::pallas_extract
+// (the 1-D tile layout, kernel body _kernel; C entry kmc_splitter_scan_1d).
+// Both compute one function; the TPU's 1-D / 2-D split is a matter of
+// Mosaic's vector layouts, so both entries launch the same kernel here.
+// The 2-D entry's contract, in position order, with no alignment rule: for
+// each start i < s,
 //   sig[i]      = min over the window's k-m+1 m-mers of the canonical m-mer
 //                 norm (4^m where no m-mer is allowed), or 0xFFFFFFFF when a
 //                 code in [i, i+k) is >= 4;
@@ -21,6 +25,12 @@
 // together.  Each k-mer lane is then a single shared-memory read of P or Q
 // at a fixed offset; outputs are written by consecutive threads at
 // consecutive positions (coalesced).
+//
+// The 1-D entry keeps pallas_extract's contract: codes hold s + HALO codes
+// (HALO = 2048, the tile's lookahead block), s is a multiple of the TPU's
+// 65536-position tile and k + 16 <= HALO.  It checks that contract and
+// reads no code past batch_len(s, k) = s + roundup8(k + 16), the live
+// codes every output depends on; the rest of the halo is never touched.
 //
 // Bound.  Bytes: (s + k + 16) codes read plus 4 * (1 + W) * s bytes written;
 // at s = 2^22, k = 27 (W = 2) that is ~54.5 MB, ~16 us at 3.35 TB/s.  The
@@ -174,6 +184,22 @@ int kmc_splitter_scan(const void* codes, long long n_codes, void* sig,
       (const uint8_t*)codes, n_codes, (uint32_t*)sig, (uint32_t*)lanes, s, k,
       sig_len, both_strands);
   return (int)cudaGetLastError();
+}
+
+// pallas_extract's contract: codes: u8[n_codes] with n_codes >= s + 2048,
+// s % 65536 == 0, k + 16 <= 2048; sig: u32[s]; lanes: u32[W * s] (lane t at
+// t * s).  Reads codes [0, batch_len(s, k)) only.  Launches on `stream`;
+// returns cudaGetLastError(), or cudaErrorInvalidValue when the contract
+// does not hold.
+int kmc_splitter_scan_1d(const void* codes, long long n_codes, void* sig,
+                         void* lanes, long long s, int k, int sig_len,
+                         int both_strands, void* stream) {
+  constexpr long long HALO = 2048, TILE_1D = 65536, TAIL = 16;
+  if (s <= 0 || s % TILE_1D != 0 || k + TAIL > HALO || n_codes < s + HALO)
+    return (int)cudaErrorInvalidValue;
+  long long live = s + ((k + TAIL + 7) / 8) * 8;  // batch_len(s, k)
+  return kmc_splitter_scan(codes, live, sig, lanes, s, k, sig_len,
+                           both_strands, stream);
 }
 
 }  // extern "C"

@@ -24,8 +24,10 @@ derives from.
                the CPU "device" tensors are host RAM as well, so the same
                bound applies directly.
 
-The store of this package does not spill yet: the plan's rows size it,
-and a store that overflows after compaction raises NotImplementedError.
+The plan's rows size the device store; a store that overflows after
+compaction spills its compacted rows to host RAM, and spilled runs whose
+bytes cross spill_budget_bytes are re-merged in place (a merged run still
+over it raises MemoryError naming -m), as in kmc_tpu.
 """
 from __future__ import annotations
 

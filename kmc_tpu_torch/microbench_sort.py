@@ -1,0 +1,219 @@
+"""Memory probes on the card: the port of tools/microbench_sort.py's
+`pallas` section.
+
+    python -m kmc_tpu_torch.microbench_sort pallas [--device=cuda|cpu]
+
+MB_LOGN (default 28) sets N = 2^MB_LOGN u32 words, laid out as
+u32[N/1024, 1024] as in the tool.  Three hand-written CUDA probes
+(csrc/probes.cu) replace the section's three Pallas kernels:
+
+  probe_add1          o = x + 1                            (copy_kernel)
+  probe_gather_rows   per block of 1024 rows, o[r, :] = x[idx[r], :]
+                                                           (gather_kernel)
+  probe_gather_lanes  o[r, c] = x[r, idxl[c]]              (gatherl_kernel)
+
+idx and idxl are permutations of 1024 (numpy seeds 2 and 3, as in the
+tool).  Each probe has a plain torch version (x + 1, index_select over each
+block's rows, index_select over columns); the plain version runs for CPU
+tensors, and on the card it is also the library call the probe is timed
+against.  Each measurement prints the tool's report line (name, n, ms,
+GB/s), then the kernel's time against the byte bound (2 x 4 B x N over
+3.35 TB/s) and the library call.  The tool's other sections (sort,
+roofline, bitonic, scatter, onehot) run no Pallas kernel and are not ported
+(ROADMAP §A).
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .device import device_name, resolve_device
+
+ROW = 1024
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+
+
+def report(name, n, secs, bytes_moved=None):
+    """The tool's report line."""
+    gbs = f"  {bytes_moved / secs / 1e9:8.1f} GB/s" if bytes_moved else ""
+    print(f"{name:44s} n=2^{int(np.log2(n)):2d}  {secs*1e3:9.2f} ms{gbs}",
+          flush=True)
+
+
+def _check_rows(x: torch.Tensor):
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != ROW:
+        raise ValueError("x must be an int32 (u32 bit view) [R, 1024] tensor")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def _check_idx(idx: torch.Tensor, x: torch.Tensor):
+    if idx.dtype != torch.int32 or idx.shape != (ROW,):
+        raise ValueError("idx must be an int32[1024] tensor")
+    if idx.device != x.device or not idx.is_contiguous():
+        raise ValueError("idx must be contiguous, on x's device")
+
+
+def probe_add1_plain(x: torch.Tensor) -> torch.Tensor:
+    return x + 1  # int32 add wraps like u32
+
+
+def probe_gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    blocks = x.view(-1, ROW, ROW)  # [R/1024 blocks, 1024 rows, 1024 lanes]
+    return torch.index_select(blocks, 1, idx).view(x.shape)
+
+
+def probe_gather_lanes_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.index_select(x, 1, idx)
+
+
+def _launch(entry: str, x: torch.Tensor, idx, fn):
+    """Launch C entry `entry` of csrc/probes.cu on x (and idx) into a new
+    output on the current stream; counts the launch on fn."""
+    from . import _build
+
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    lib = _build.load("probes")
+    o = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if idx is None:
+            err = getattr(lib, entry)(x.data_ptr(), o.data_ptr(), x.numel(),
+                                      stream)
+        else:
+            err = getattr(lib, entry)(x.data_ptr(), idx.data_ptr(),
+                                      o.data_ptr(), x.shape[0], stream)
+    _build.check(lib, err, f"{entry} launch")
+    fn.launches += 1
+    return o
+
+
+def probe_add1(x: torch.Tensor) -> torch.Tensor:
+    """o = x + 1 over an int32 (u32) [R, 1024] tensor.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel and count it."""
+    _check_rows(x)
+    if x.device.type == "cpu":
+        return probe_add1_plain(x)
+    return _launch("kmc_probe_add1", x, None, probe_add1)
+
+
+def probe_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per block of 1024 rows, o[r, :] = x[idx[r], :]; R % 1024 == 0 and
+    idx is int32[1024] with values in [0, 1024)."""
+    _check_rows(x)
+    _check_idx(idx, x)
+    if x.shape[0] % ROW:
+        raise ValueError("x must hold whole blocks of 1024 rows")
+    if x.device.type == "cpu":
+        return probe_gather_rows_plain(x, idx)
+    return _launch("kmc_probe_gather_rows", x, idx, probe_gather_rows)
+
+
+def probe_gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """o[r, c] = x[r, idx[c]]; idx is int32[1024] with values in
+    [0, 1024)."""
+    _check_rows(x)
+    _check_idx(idx, x)
+    if x.device.type == "cpu":
+        return probe_gather_lanes_plain(x, idx)
+    return _launch("kmc_probe_gather_lanes", x, idx, probe_gather_lanes)
+
+
+for _fn in (probe_add1, probe_gather_rows, probe_gather_lanes):
+    _fn.launches = 0
+
+
+def probe_inputs(n: int, device):
+    """The section's inputs: x = u32[n/1024, 1024] (numpy seed 0) and the
+    row and lane permutations (seeds 2 and 3), as in the tool."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 2**32, size=n, dtype=np.uint32).view(np.int32)
+    idx = np.random.default_rng(2).permutation(ROW).astype(np.int32)
+    idxl = np.random.default_rng(3).permutation(ROW).astype(np.int32)
+    return (torch.from_numpy(x).reshape(n // ROW, ROW).to(dev),
+            torch.from_numpy(idx).to(dev), torch.from_numpy(idxl).to(dev))
+
+
+def _timeit(fn, dev, warmup=1, iters=3) -> float:
+    """Best seconds of fn() over iters runs after warm-up: CUDA events on
+    the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(iters):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            secs = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            fn()
+            secs = time.perf_counter() - t0
+        best = min(best, secs)
+    return best
+
+
+def sec_pallas(n: int | None = None, device="cuda") -> dict:
+    """Run and time the three probes at N = n words (default 2^MB_LOGN);
+    returns {name: {"ms", "library_ms", "bound_ms", "gbs"}}, the report
+    lines printed as it goes."""
+    n = n or 1 << int(os.environ.get("MB_LOGN", "28"))
+    if n % (ROW * ROW):
+        raise ValueError("N must be a multiple of 2^20 (blocks of 1024 rows)")
+    dev = resolve_device(device)
+    x, idx, idxl = probe_inputs(n, dev)
+    nbytes = 2 * 4 * n
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    # (probe, the tool's label for its Pallas kernel, plain version, inputs)
+    for fn, label, plain, args in (
+            (probe_add1, "block passthrough (r+w)", probe_add1_plain, (x,)),
+            (probe_gather_rows, "in-VMEM take(1024 rows)",
+             probe_gather_rows_plain, (x, idx)),
+            (probe_gather_lanes, "in-VMEM take(lanes)",
+             probe_gather_lanes_plain, (x, idxl))):
+        name = fn.__name__
+        secs = _timeit(lambda: fn(*args), dev)
+        lib_secs = _timeit(lambda: plain(*args), dev)
+        report(f"{name} {label}", n, secs, nbytes)
+        print(f"  {name}: {secs * 1e3:.4f} ms, bound {bound_ms:.4f} ms "
+              f"(2 x 4 B x N at 3.35 TB/s), library {lib_secs * 1e3:.4f} ms",
+              flush=True)
+        out[name] = dict(ms=secs * 1e3, library_ms=lib_secs * 1e3,
+                         bound_ms=bound_ms, gbs=nbytes / secs / 1e9)
+    return out
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    device = "cuda"
+    for a in list(args):
+        if a.startswith("--device="):
+            device = a.split("=", 1)[1]
+            args.remove(a)
+    which = args[0] if args else "pallas"
+    if which not in ("pallas", "all"):
+        print(f"section {which!r} is not ported: it runs no Pallas kernel "
+              "(ROADMAP §A lists it); ported: pallas", file=sys.stderr)
+        return 2
+    dev = resolve_device(device)
+    print(f"device={device_name(dev)}", flush=True)
+    sec_pallas(device=dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

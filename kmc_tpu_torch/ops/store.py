@@ -6,7 +6,7 @@ signature, and it rides the spare top bits of k-mer lane 0 whenever
 2*(k mod 16) + bin_bits <= 32 (fused layout), else it is a column of its own.
 Dead rows (windows holding a sentinel) are all-ones in every column and sort
 after every live row.  Counts are implicitly 1 until the first compaction
-materializes a counts column.
+(or external append) materializes a counts column.
 
   ingest    per batch: decode the boundary-delta (or packed+mask) feed, run
             the splitter-scan kernel (ops/extract_kernel.py), map signature
@@ -17,16 +17,31 @@ materializes a counts column.
             from torch.nonzero, group totals are differences of an int64
             prefix sum of the counts, and the representatives are written
             back in place over the front of the store.
-  finalize  the same reduction, then the completer: cutoffs, the exact
-            KMC2 record bytes (suffix + little-endian counter) and the
-            per-(bin, prefix) LUT, copied to the host in one piece.
+  spill     when a compacted store still cannot take the next batch: the
+            compacted rows go to host RAM as one sorted run (uint32 numpy
+            columns + uint32 counts, kmc_tpu's layout) and the store starts
+            empty; runs whose bytes cross the -m spill budget are re-merged
+            on the host.
+  finalize  spilled runs are replayed into the store first; then the same
+            reduction and the completer: cutoffs, the exact KMC2 record
+            bytes (suffix + little-endian counter) and the per-(bin, prefix)
+            LUT, copied to the host in one piece.  When the replayed unique
+            set outgrows the store, the runs are merged on the host and the
+            host completer writes the records instead.
+
+Count arithmetic follows kmc_tpu path by path: device group totals wrap mod
+2^32 (a group that wraps to 0 is dropped), the early re-merge of spilled
+runs clamps at 0xFFFFFFFF, and the host merge keeps u64 totals that the host
+completer clamps to counter_max.
 
 Columns are int32 tensors holding u32 bit patterns (torch's uint32 lacks the
 needed arithmetic); lane math runs in int64 (see ops/extract.py).  The
-output bytes are identical to kmc_tpu's.
+output bytes are identical to kmc_tpu's, and so are checkpoints
+(save_checkpoint / load_checkpoint) and spilled runs.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -103,13 +118,14 @@ def _key_cols_from(bins, lanes, valid, *, fuse: bool, r0: int):
     return [torch.where(valid, u32_to_i32(bins), _DEAD)] + list(lanes)
 
 
-def _group_reduce(cols, counts, n_keys: int):
+def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True):
     """Sort live rows by their key columns and merge equal keys.
 
     cols: int32 key columns of the live rows; counts: their int32 (u32)
     counts, or None when every row weighs 1.  Returns (representative key
     columns in key order, int64 totals), totals taken mod 2^32 like the
-    u32 arithmetic of kmc_tpu's store, groups with total 0 dropped."""
+    u32 arithmetic of kmc_tpu's store; groups whose total is 0 are dropped
+    unless drop_zero is False."""
     n = cols[0].shape[0]
     dev = cols[0].device
     if n == 0:
@@ -129,8 +145,11 @@ def _group_reduce(cols, counts, n_keys: int):
         cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                         torch.cumsum(i32_to_u32(sorted_cols[n_keys]), 0)])
         totals = (cs[ends] - cs[starts]) & 0xFFFFFFFF
+    reps = [c[starts] for c in keys]
+    if not drop_zero:
+        return reps, totals
     keep = totals != 0
-    return [c[starts][keep] for c in keys], totals[keep]
+    return [c[keep] for c in reps], totals[keep]
 
 
 def _split_bins(cols, *, fuse: bool, r0: int):
@@ -186,6 +205,58 @@ def _completer(bins, wr, totals, *, cutoff_min, cutoff_max, counter_max, k,
     return rec, lut, (n_unique, below.sum(), above.sum())
 
 
+class _SpillOverflow(Exception):
+    """The replayed unique set exceeds the device store: finalize falls
+    back to the host merge of the spilled runs."""
+
+
+def _host_u32(t: torch.Tensor) -> np.ndarray:
+    """A column (int32 bit view) as a uint32 numpy array of its own: the
+    device-to-host edge of spills and checkpoints."""
+    t = t.cpu() if t.device.type != "cpu" else t.clone()
+    return t.numpy().view(np.uint32)
+
+
+def _merge_runs(runs, n_cols: int):
+    """Concatenate sorted (cols, counts) runs and merge equal rows on the
+    host (kmc_tpu's sort + reduceat).  Returns (sorted unique columns,
+    u64 totals); dead rows (count 0) merge into one group of total 0."""
+    if not runs:
+        return [np.zeros(0, np.uint32)] * n_cols, np.zeros(0, np.uint64)
+    cols = [np.concatenate([r[0][j] for r in runs]) for j in range(n_cols)]
+    counts = np.concatenate([r[1] for r in runs]).astype(np.uint64)
+    order = np.lexsort(tuple(cols[::-1]))  # cols[0] is the primary key
+    cols = [c[order] for c in cols]
+    counts = counts[order]
+    del order
+    n = len(counts)
+    if n == 0:
+        return cols, counts
+    new = np.zeros(n, bool)
+    new[0] = True
+    for c in cols:
+        new[1:] |= c[1:] != c[:-1]
+    starts = np.flatnonzero(new)
+    return [c[starts] for c in cols], np.add.reduceat(counts, starts)
+
+
+def _acc_pair(v: int) -> np.ndarray:
+    """An occurrence total as kmc_tpu's (lo, hi) uint32 accumulator."""
+    return np.array([v & 0xFFFFFFFF, (v >> 32) & 0xFFFFFFFF], np.uint32)
+
+
+def _acc_value(a) -> int:
+    lo, hi = (int(x) for x in np.asarray(a, dtype=np.uint64))
+    return lo + (hi << 32)
+
+
+def _autocompact_rows() -> int:
+    """KMC_TPU_AUTOCOMPACT_ROWS: ingested rows between voluntary mid-run
+    compactions (kmc_tpu's knob of the same name); 0, the default, is
+    off."""
+    return max(0, int(os.environ.get("KMC_TPU_AUTOCOMPACT_ROWS", "0")))
+
+
 class DeviceKmerStore:
     """Device store of ([bin,] k-mer lanes[, counts]) rows (see module
     docstring), updated in place: ingest writes its rows into preallocated
@@ -197,9 +268,12 @@ class DeviceKmerStore:
 
     def __init__(self, capacity_rows: int, *, k: int, sig_len: int,
                  both_strands: bool, n_bins: int, map_mode: str = "prefix",
-                 initial_rows: int | None = None, device="cuda"):
+                 initial_rows: int | None = None,
+                 spill_budget_bytes: int | None = None, device="cuda"):
         """capacity_rows caps the store; it starts at initial_rows (default
-        capacity_rows) and grows 4x on demand up to the cap."""
+        capacity_rows) and grows 4x on demand up to the cap.  Spilled runs
+        whose bytes cross spill_budget_bytes (the -m plan's) are re-merged;
+        None sets no budget."""
         if map_mode != "prefix":
             raise NotImplementedError(
                 f"signature_map_policy={map_mode!r}: only 'prefix' is ported "
@@ -219,7 +293,7 @@ class DeviceKmerStore:
         self.capacity = min(self.max_capacity,
                             int(initial_rows or self.max_capacity))
         self.key_cols = self._alloc_cols(self.capacity)
-        self.counts = None  # materialized by the first compaction
+        self.counts = None  # materialized by the first compaction or append
         self.n_used = 0
         self.occ_acc = torch.zeros((), dtype=torch.int64, device=self.device)
         self.skm_acc = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -227,6 +301,17 @@ class DeviceKmerStore:
                                    device=self.device)
         self.n_compactions = 0
         self.total_appended_rows = 0
+        self._since_compact = 0  # rows appended since the last compaction
+        # host-side spilled runs: (uint32 key columns tuple, uint32 counts)
+        self.spilled: list = []
+        self.spill_budget_bytes = spill_budget_bytes
+        self.n_spills = 0
+        self.spill_bytes = 0  # bytes every spill copied to the host
+        self.t_spill_d2h = 0.0
+        self.n_remerges = 0
+        self.t_remerge = 0.0
+        self.t_host_merge = 0.0
+        self.finalize_route = None  # "device", "replay" or "host"
 
     def _alloc_cols(self, rows: int):
         return [torch.full((rows,), _DEAD, dtype=torch.int32,
@@ -252,20 +337,35 @@ class DeviceKmerStore:
         return True
 
     def _make_room(self, s: int):
+        """Room for s more rows (mirrors kmc_tpu's _make_room): grow, else
+        compact, else grow again, else spill."""
         if self.n_used + s <= self.capacity or self._grow(self.n_used + s):
             return
         self.compact()
         if self.n_used + s <= self.capacity or self._grow(self.n_used + s):
             return
-        raise NotImplementedError(
-            f"store of {self.max_capacity} rows overflows after compaction "
-            f"({self.n_used} unique rows + a {s}-row batch); spilling to host "
-            "RAM is ROADMAP A5 — raise -m or device_store_rows")
+        self.spill()
+
+    def _materialize_counts(self):
+        """Create the counts column (1 for live rows) when a path needs it."""
+        if self.counts is not None:
+            return
+        n = self.n_used
+        self.counts = torch.zeros(self.capacity, dtype=torch.int32,
+                                  device=self.device)
+        self.counts[:n] = (self.key_cols[0][:n] != _DEAD).to(torch.int32)
 
     def _to_device(self, buf) -> torch.Tensor:
         if isinstance(buf, np.ndarray):
             buf = torch.from_numpy(buf)
         return buf.to(self.device)
+
+    def _u32_to_device(self, a) -> torch.Tensor:
+        """A uint32 numpy column as an int32 bit-view tensor on the store's
+        device (the host-to-device edge of append)."""
+        a = np.require(np.asarray(a), dtype=np.uint32,
+                       requirements=("C", "W"))  # copies only when needed
+        return torch.from_numpy(a.view(np.int32)).to(self.device)
 
     def ingest_boundaries(self, buf, tail_start: int, *, s: int):
         """Ingest one batch in the boundary-delta feed format
@@ -303,6 +403,37 @@ class DeviceKmerStore:
             self.counts[lo:hi] = 1
         self.n_used = hi
         self.total_appended_rows += s
+        self._since_compact += s
+        thr = _autocompact_rows()
+        if thr and self._since_compact >= thr:
+            self.compact()
+
+    def append(self, cols, counts, count_occurrences: bool = True):
+        """External append of merged rows (mirrors kmc_tpu's append):
+        cols are uint32 numpy key columns in the store's layout, counts
+        uint32.  Rows with count 0 are written dead.  count_occurrences=False
+        (checkpoint resume, spill replay) leaves the occurrence total alone,
+        so rows counted once are not counted again."""
+        if len(cols) != self.n_cols:
+            raise ValueError(
+                f"appending {len(cols)} key columns into a {self.n_cols}-"
+                "column store (k/n_bins/fuse mismatch?)")
+        counts = np.asarray(counts, dtype=np.uint32)
+        n = len(counts)
+        self.total_appended_rows += n
+        self._make_room(n)
+        self._materialize_counts()
+        cnt = self._u32_to_device(counts)
+        dead = cnt == 0
+        lo, hi = self.n_used, self.n_used + n
+        for dst, src in zip(self.key_cols, cols):
+            dst[lo:hi] = torch.where(dead, _DEAD, self._u32_to_device(src))
+        self.counts[lo:hi] = cnt
+        if count_occurrences:
+            # kmc_tpu adds the append's u32 sum to its 64-bit accumulator
+            self.occ_acc += int(counts.sum(dtype=np.uint64)) & 0xFFFFFFFF
+        self.n_used = hi
+        self._since_compact += n
 
     def _live_rows(self):
         """(key columns, counts or None) of the live rows in [0, n_used)."""
@@ -317,18 +448,179 @@ class DeviceKmerStore:
 
     def compact(self):
         """Merge duplicate rows in place (mirrors store._compact_core): the
-        merged rows and their counts overwrite the front of the store."""
+        merged rows and their counts overwrite the front of the store.  As
+        in kmc_tpu, a group whose total wraps to 0 stays as a dead row of
+        count 0, and one dead row follows the groups whenever the store
+        held a dead row, so n_used and every spilled run match kmc_tpu's
+        row for row."""
         cols, counts = self._live_rows()
-        reps, totals = _group_reduce(cols, counts, self.n_cols)
+        n_live = cols[0].shape[0]
+        reps, totals = _group_reduce(cols, counts, self.n_cols,
+                                     drop_zero=False)
+        del cols, counts
+        zero = totals == 0
         g = totals.shape[0]
         if self.counts is None:
             self.counts = torch.zeros(self.capacity, dtype=torch.int32,
                                       device=self.device)
         for dst, src in zip(self.key_cols, reps):
-            dst[:g] = src
+            dst[:g] = torch.where(zero, _DEAD, src)
         self.counts[:g] = u32_to_i32(totals)
+        if n_live < self.capacity:  # the group of the dead rows
+            for dst in self.key_cols:
+                dst[g] = _DEAD
+            self.counts[g] = 0
+            g += 1
         self.n_used = g
         self.n_compactions += 1
+        self._since_compact = 0
+
+    # -- spill to host RAM under the -m budget --
+
+    def spill(self):
+        """Move the compacted store to host RAM as one sorted run (mirrors
+        kmc_tpu's spill) and start empty; then hold the runs to the
+        budget."""
+        self.compact()
+        n = self.n_used
+        t0 = time.perf_counter()
+        run = (tuple(_host_u32(c[:n]) for c in self.key_cols),
+               _host_u32(self.counts[:n]))
+        self.t_spill_d2h += time.perf_counter() - t0
+        self.spilled.append(run)
+        self.n_spills += 1
+        self.spill_bytes += sum(c.nbytes for c in run[0]) + run[1].nbytes
+        self.n_used = 0
+        self._since_compact = 0
+        self._enforce_spill_budget()
+
+    def _spilled_bytes(self) -> int:
+        return sum(sum(c.nbytes for c in cols) + cnt.nbytes
+                   for cols, cnt in self.spilled)
+
+    def _enforce_spill_budget(self):
+        """-m enforcement (mirrors kmc_tpu): re-merge the spilled runs when
+        their bytes cross the budget; a single merged run still over it
+        means the unique set does not fit -m."""
+        b = self.spill_budget_bytes
+        if b is None or self._spilled_bytes() <= b:
+            return
+        if len(self.spilled) > 1:
+            self._remerge_spilled()
+        if self._spilled_bytes() > b:
+            raise MemoryError(
+                f"unique k-mer set exceeds the -m/max_ram_gb host budget "
+                f"({self._spilled_bytes()} spilled bytes > {b} budget); "
+                "raise -m")
+
+    def _remerge_spilled(self):
+        """Collapse every spilled run into one sorted unique run on the
+        host; totals clamp at 0xFFFFFFFF (kmc_tpu's _remerge_spilled)."""
+        t0 = time.perf_counter()
+        cols, totals = _merge_runs(self.spilled, self.n_cols)
+        self.spilled = [(tuple(cols),
+                         np.minimum(totals, 0xFFFFFFFF).astype(np.uint32))]
+        self.n_remerges += 1
+        self.t_remerge += time.perf_counter() - t0
+
+    def _replay_spills(self):
+        """Append the spilled runs back into the store, compacting as it
+        fills (mirrors kmc_tpu's _replay_spills).  Raises _SpillOverflow,
+        with the consumed prefix of the first run trimmed, when a compacted
+        store has no room left."""
+        if not self.spilled:
+            return
+        self._materialize_counts()
+        while self.spilled:
+            cols, counts = self.spilled[0]
+            pos = 0
+            while pos < len(counts):
+                room = self.capacity - self.n_used
+                if room <= 0:
+                    self.compact()
+                    room = self.capacity - self.n_used
+                if room <= 0:
+                    # the host merge must see every remaining row once
+                    self.spilled[0] = (tuple(c[pos:] for c in cols),
+                                       counts[pos:])
+                    raise _SpillOverflow()
+                take = min(room, len(counts) - pos)
+                self.append(tuple(c[pos:pos + take] for c in cols),
+                            counts[pos:pos + take], count_occurrences=False)
+                pos += take
+            self.spilled.pop(0)
+
+    def _host_runs(self):
+        """Drain the store to host-side sorted runs: the spilled runs plus
+        the compacted device residue."""
+        self.compact()
+        n = self.n_used
+        runs = list(self.spilled)
+        if n:
+            runs.append((tuple(_host_u32(c[:n]) for c in self.key_cols),
+                         _host_u32(self.counts[:n])))
+        self.spilled = []
+        self.key_cols = self.counts = None
+        return runs
+
+    def _host_merge(self):
+        """Merge the runs by (bin, k-mer) on the host (kmc_tpu's _host_merge,
+        prefix policy).  Returns (bins u32, lanes (n, W) u32, totals u64)
+        of the valid groups in key order."""
+        cols, totals = _merge_runs(self._host_runs(), self.n_cols)
+        if self.fuse:
+            bins = cols[0] >> np.uint32(2 * self.r0)
+            lanes = [cols[0] & np.uint32((1 << (2 * self.r0)) - 1)] + cols[1:]
+        else:
+            bins, lanes = cols[0], cols[1:]
+        valid = (bins < self.n_used_bins) & (totals > 0)
+        lanes = np.stack([x[valid] for x in lanes], axis=1)
+        return bins[valid].astype(np.uint32), lanes, totals[valid]
+
+    def _finalize_records_host(self, *, cutoff_min, cutoff_max, counter_max,
+                               lut_prefix_len, counter_size):
+        """Host completer over the host merge (kmc_tpu's
+        _finalize_records_host; same contract as finalize_records)."""
+        t0 = time.perf_counter()
+        bins, lanes, totals = self._host_merge()
+        self.t_host_merge = time.perf_counter() - t0
+        below = totals < cutoff_min
+        above = totals > cutoff_max
+        keep = ~below & ~above
+        stats = (len(bins), int(below.sum()), int(above.sum()))
+        bins_k = bins[keep]
+        lanes_k = lanes[keep]
+        cnt = np.minimum(totals[keep], np.uint64(counter_max))
+
+        k, W, r0 = self.k, self.W, self.r0
+        suffix_bytes = (k - lut_prefix_len) // 4 if lut_prefix_len \
+            else (k + 3) // 4
+        n = len(bins_k)
+        rec = np.empty((n, suffix_bytes + counter_size), np.uint8)
+        all_bytes = np.ascontiguousarray(lanes_k).astype(">u4").view(
+            np.uint8).reshape(n, 4 * W)
+        rec[:, :suffix_bytes] = all_bytes[:, 4 * W - suffix_bytes:]
+        for j in range(counter_size):  # little-endian counter
+            rec[:, suffix_bytes + j] = (
+                (cnt >> np.uint64(8 * j)) & np.uint64(0xFF)).astype(np.uint8)
+        if lut_prefix_len:
+            if lut_prefix_len <= r0:
+                prefix = lanes_k[:, 0] >> np.uint32(2 * (r0 - lut_prefix_len))
+            else:
+                need = lut_prefix_len - r0  # bases from lane 1
+                prefix = ((lanes_k[:, 0].astype(np.uint64) << np.uint64(
+                    2 * need)) | (lanes_k[:, 1] >> np.uint32(
+                        2 * (16 - need)))).astype(np.uint32)
+            prefix &= np.uint32((1 << (2 * lut_prefix_len)) - 1)
+        else:
+            prefix = np.zeros(n, np.uint32)
+        keys = (bins_k.astype(np.uint64) << np.uint64(2 * lut_prefix_len)) \
+            | prefix
+        lut = np.bincount(keys.astype(np.int64),
+                          minlength=self.n_used_bins << (2 * lut_prefix_len))
+        self.t_finalize_exec = time.perf_counter() - t0
+        self.t_finalize_d2h = 0.0
+        return rec, lut.astype(np.uint64), stats
 
     def total_occurrences(self) -> int:
         return int(self.occ_acc)
@@ -344,9 +636,21 @@ class DeviceKmerStore:
     def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
                          counter_max: int, lut_prefix_len: int,
                          counter_size: int):
-        """Device completer: returns (rec u8[N, record_bytes] in final
-        record order, cutoff-filtered; lut uint64[n_bins << 2*lpl]; (n_unique,
-        n_below, n_above)).  The store is consumed."""
+        """Completer: returns (rec u8[N, record_bytes] in final record
+        order, cutoff-filtered; lut uint64[n_bins << 2*lpl]; (n_unique,
+        n_below, n_above)).  Spilled runs are replayed into the store
+        first; when they do not fit, the host merge and the host completer
+        take over (kmc_tpu's route).  The store is consumed."""
+        replayed = bool(self.spilled)
+        try:
+            self._replay_spills()
+        except _SpillOverflow:
+            self.finalize_route = "host"
+            return self._finalize_records_host(
+                cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                counter_max=counter_max, lut_prefix_len=lut_prefix_len,
+                counter_size=counter_size)
+        self.finalize_route = "replay" if replayed else "device"
         t0 = time.perf_counter()
         cols, counts = self._live_rows()
         reps, totals = _group_reduce(cols, counts, self.n_cols)
@@ -367,6 +671,74 @@ class DeviceKmerStore:
         self.key_cols = self.counts = None
         return rec_h, lut_h, stats_h
 
+    # -- stage-1 checkpoints, in kmc_tpu's file format --
+
+    def save_checkpoint(self, path: str):
+        """Compact, then write the store to `path`.npz and each spilled run
+        to `path`.spill{i}.npz, with kmc_tpu's keys and types, so either
+        package resumes it."""
+        self.compact()
+        n = self.n_used
+        cols = np.stack([_host_u32(c[:n]) for c in self.key_cols])
+        counts = _host_u32(self.counts[:n])
+        occ = self.total_occurrences()
+        # kmc_tpu reads occ_upper as a bound on any one reduction's count
+        # sum (it picks its wide group-reduce from it); the port needs none
+        held = int(counts.sum(dtype=np.uint64)) + sum(
+            int(c.sum(dtype=np.uint64)) for _, c in self.spilled)
+        np.savez_compressed(
+            path,
+            cols=cols,
+            counts=counts,
+            occ=_acc_pair(occ),
+            skm=_acc_pair(self.total_super_kmers()),
+            occ_upper=np.asarray(occ + held, dtype=np.uint64),
+            k=np.asarray(self.k),
+            sig_len=np.asarray(self.sig_len),
+            both_strands=np.asarray(self.both_strands),
+            n_used_bins=np.asarray(self.n_used_bins),
+            prefix_bits=np.asarray(self.prefix_bits),
+            map_mode=np.asarray("prefix"),
+            greedy_defer=np.asarray(False),
+            sig_map=np.zeros(0, np.int32),
+            spilled=np.asarray(len(self.spilled)),
+        )
+        for i, (run_cols, run_counts) in enumerate(self.spilled):
+            np.savez_compressed(f"{path}.spill{i}", cols=np.stack(run_cols),
+                                counts=run_counts)
+
+    @classmethod
+    def load_checkpoint(cls, path: str, capacity_rows: int, *,
+                        device="cuda") -> "DeviceKmerStore":
+        """A store holding a checkpoint written by save_checkpoint or by
+        kmc_tpu's (mirrors kmc_tpu's load_checkpoint; occ_upper is not
+        read)."""
+        device = resolve_device(device)
+        data = np.load(path if str(path).endswith(".npz") else f"{path}.npz")
+        map_mode = str(data["map_mode"])
+        if map_mode != "prefix":
+            raise NotImplementedError(
+                f"a {map_mode!r}-policy checkpoint: only 'prefix' is ported "
+                "(greedy policy: ROADMAP A7)")
+        n = len(data["counts"])
+
+        def r32(x):  # kmc_tpu rounds store sizes up to 32 rows
+            return (int(x) + 31) & ~31
+
+        store = cls(r32(max(capacity_rows, 2 * max(n, 1))),
+                    k=int(data["k"]), sig_len=int(data["sig_len"]),
+                    both_strands=bool(data["both_strands"]),
+                    n_bins=1 << int(data["prefix_bits"]),
+                    initial_rows=r32(max(2 * n, 1 << 10)), device=device)
+        store.append(tuple(data["cols"]), data["counts"],
+                     count_occurrences=False)
+        store.occ_acc.fill_(_acc_value(data["occ"]))
+        store.skm_acc.fill_(_acc_value(data["skm"]))
+        for i in range(int(data["spilled"])):
+            sp = np.load(f"{path}.spill{i}.npz")
+            store.spilled.append((tuple(sp["cols"]), sp["counts"]))
+        return store
+
 
 def store_from_numpy_state(key_cols, counts, n_used, occ_acc, skm_acc,
                            prev_sig, *, k, sig_len, both_strands, n_bins,
@@ -375,7 +747,8 @@ def store_from_numpy_state(key_cols, counts, n_used, occ_acc, skm_acc,
     numpy arrays: key_cols (uint32 columns, rows [0, n_used) used), counts
     (uint32 or None), occ_acc / skm_acc ((lo, hi) uint32 pairs), prev_sig
     (uint32[1]).  The layouts of the two packages are the same, so the
-    state carries across as it is."""
+    state carries across as it is; checkpoint files carry it too
+    (DeviceKmerStore.load_checkpoint)."""
     n_used = int(n_used)
     rows = max(len(np.asarray(key_cols[0])), n_used, 1)
     st = DeviceKmerStore(rows, k=k, sig_len=sig_len,
@@ -386,9 +759,7 @@ def store_from_numpy_state(key_cols, counts, n_used, occ_acc, skm_acc,
                          f"{st.n_cols}")
 
     def dev(a):
-        return torch.from_numpy(
-            np.array(np.asarray(a)[:n_used], dtype=np.uint32).view(np.int32)
-        ).to(st.device)
+        return st._u32_to_device(np.asarray(a)[:n_used])
 
     for dst, src in zip(st.key_cols, key_cols):
         dst[:n_used] = dev(src)
@@ -396,14 +767,8 @@ def store_from_numpy_state(key_cols, counts, n_used, occ_acc, skm_acc,
         st.counts = torch.zeros(rows, dtype=torch.int32, device=st.device)
         st.counts[:n_used] = dev(counts)
     st.n_used = n_used
-
-    def acc(a):
-        lo, hi = (int(x) for x in np.asarray(a, dtype=np.uint64))
-        return torch.tensor(lo + (hi << 32), dtype=torch.int64,
-                            device=st.device)
-
-    st.occ_acc = acc(occ_acc)
-    st.skm_acc = acc(skm_acc)
+    st.occ_acc.fill_(_acc_value(occ_acc))
+    st.skm_acc.fill_(_acc_value(skm_acc))
     st.prev_sig = torch.from_numpy(
         np.array(prev_sig, dtype=np.uint32).reshape(1).view(np.int32)
     ).to(st.device)

@@ -6,8 +6,14 @@ results and fluent setters (KMC's kmc_runner.h:100-255), for the default
 
   stage 1  parse -> BatchStream -> pack_codes_boundaries -> device store
            ingest (splitter-scan kernel), compacting (grouping-sort kernel)
-           whenever the store fills;
-  stage 2  finalize_records (grouping sort + completer) -> Kmc2DbWriter.
+           whenever the store fills and spilling the compacted store to
+           host RAM (under the -m budget) when compaction frees too little;
+  stage 2  finalize_records (spill replay or host merge, grouping sort +
+           completer) -> Kmc2DbWriter.
+
+Stage-1 state checkpoints to .npz files in kmc_tpu's format
+(save_stage1_checkpoint / resume_stage1_checkpoint), so a checkpoint
+written by either package resumes in the other.
 
 Every option outside that path raises NotImplementedError naming the
 ROADMAP item that ports it; nothing falls back silently.
@@ -22,6 +28,8 @@ from dataclasses import dataclass, field
 from enum import Enum
 from pathlib import Path
 from typing import Optional
+
+import numpy as np
 
 from . import defs
 from .defs import calc_counter_size
@@ -211,6 +219,9 @@ class Runner:
         self._n_used_bins = 0
         self._n_reads = 0
         self.n_compactions = 0  # store compactions in the last stage 1
+        # spills, re-merges and the finalize route of the last count, with
+        # their bytes and times (set by stage 1, completed by stage 2)
+        self.spill_stats: dict = {}
 
     # ---------------- stage 1 ----------------
     def run_stage1(self, params: Stage1Params) -> Stage1Results:
@@ -269,7 +280,8 @@ class Runner:
         init_rows = capacity if self.device.type == "cuda" else 2 * s
         store = DeviceKmerStore(
             capacity, k=k, sig_len=m, both_strands=params.canonical_kmers,
-            n_bins=params.n_bins, initial_rows=init_rows, device=self.device)
+            n_bins=params.n_bins, initial_rows=init_rows,
+            spill_budget_bytes=plan.spill_budget_bytes, device=self.device)
         total_bytes = sum(
             Path(p).stat().st_size for p in params.input_files if Path(p).exists()
         )
@@ -289,7 +301,8 @@ class Runner:
 
         # producer/consumer split: this thread parses and packs (native C,
         # GIL released) while a worker thread copies each batch to the
-        # device and runs the ingest
+        # device and runs the ingest (and the compactions and spills it
+        # triggers; their errors reach this thread through `errors`)
         q: queue.Queue = queue.Queue(maxsize=3)
         errors: list = []
 
@@ -342,19 +355,63 @@ class Runner:
                   f"host(parse+pack): {t_host:.2f}s "
                   f"queue-wait: {t_queue:.2f}s "
                   f"({store.total_appended_rows // max(s, 1)} batches, "
-                  f"{store.n_compactions} compactions)")
+                  f"{store.n_compactions} compactions, {store.n_spills} "
+                  f"spills of {store.spill_bytes} bytes, spill D2H "
+                  f"{store.t_spill_d2h:.2f}s, {store.n_remerges} re-merges "
+                  f"{store.t_remerge:.2f}s)")
         self._store = store
         self.n_compactions = store.n_compactions
+        self.spill_stats = self._spill_stats(store)
         self._sig_map = store.host_sig_map()
         self._n_used_bins = store.n_used_bins
         results.n_total_super_kmers = store.total_super_kmers()
 
+    @staticmethod
+    def _spill_stats(store) -> dict:
+        return dict(n_spills=store.n_spills, spill_bytes=store.spill_bytes,
+                    t_spill_d2h=store.t_spill_d2h,
+                    n_remerges=store.n_remerges, t_remerge=store.t_remerge,
+                    t_host_merge=store.t_host_merge,
+                    finalize_route=store.finalize_route)
+
     # ---------------- checkpoint / resume ----------------
+    # Stage-1 output is the natural checkpoint: the store, its spilled runs
+    # and a .meta sidecar, in kmc_tpu's files (kmc_tpu/runner.py).
     def save_stage1_checkpoint(self, path: str):
-        raise NotImplementedError("stage-1 checkpoints are ROADMAP A8")
+        if self._store is None:
+            raise RuntimeError("no stage-1 device store to checkpoint")
+        self._store.save_checkpoint(path)
+        np.savez(
+            path + ".meta",
+            sig_map=self._sig_map,
+            n_used_bins=self._n_used_bins,
+            n_reads=self._n_reads,
+            kmer_len=self._s1.kmer_len,
+            signature_len=self._s1.signature_len,
+            canonical=self._s1.canonical_kmers,
+        )
 
     def resume_stage1_checkpoint(self, path: str, params: Stage1Params):
-        raise NotImplementedError("stage-1 checkpoints are ROADMAP A8")
+        """Load a checkpoint written by this package or by kmc_tpu; k,
+        signature length and strandedness come from the checkpoint, the
+        store's capacity from params' -m plan."""
+        from .ops.store import DeviceKmerStore
+
+        meta = np.load(path + ".meta.npz")
+        params.kmer_len = int(meta["kmer_len"])
+        params.signature_len = int(meta["signature_len"])
+        params.canonical_kmers = bool(meta["canonical"])
+        params.validate()
+        params.check_ported()
+        self._s1 = params
+        self._n_reads = int(meta["n_reads"])
+        self._store = DeviceKmerStore.load_checkpoint(
+            path, capacity_rows=self._memory_plan(params).device_store_rows,
+            device=self.device)
+        self._sig_map = self._store.host_sig_map()
+        self._n_used_bins = self._store.n_used_bins
+        self.n_compactions = 0
+        self.spill_stats = self._spill_stats(self._store)
 
     # ---------------- stage 2 ----------------
     def run_stage2(self, params: Stage2Params) -> Stage2Results:
@@ -401,9 +458,12 @@ class Runner:
         )
         results.time_finalize_exec = store.t_finalize_exec
         results.time_finalize_d2h = store.t_finalize_d2h
+        self.spill_stats = self._spill_stats(store)
         if self._s1.verbose:
-            print(f"[stage2] finalize exec: {store.t_finalize_exec:.2f}s "
-                  f"D2H: {store.t_finalize_d2h:.2f}s ({len(rec)} rows)")
+            print(f"[stage2] finalize ({store.finalize_route}) exec: "
+                  f"{store.t_finalize_exec:.2f}s D2H: "
+                  f"{store.t_finalize_d2h:.2f}s host merge: "
+                  f"{store.t_host_merge:.2f}s ({len(rec)} rows)")
         self._store = None
         results.n_unique_kmers = n_unique
         results.n_below_cutoff_min = n_below

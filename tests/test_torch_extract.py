@@ -16,6 +16,7 @@ from kmc_tpu.io.native import pack_codes, pack_codes_boundaries
 from kmc_tpu_torch.io.readers import batch_len
 from kmc_tpu_torch.ops.extract import _unpack_device as torch_unpack_device
 from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
+                                              extract_splitter_scan_1d,
                                               splitter_scan_plain)
 from kmc_tpu_torch.ops.store import _unpack_boundaries
 
@@ -74,6 +75,42 @@ def test_plain_scan_matches_pallas_extract2d_interpret():
     assert np.array_equal(_u32(sig), np.asarray(outs[0]))
     assert np.array_equal(_u32(lanes), np.stack([np.asarray(o)
                                                  for o in outs[1:]]))
+
+
+@pytest.mark.parametrize("k", [21, 27, 32, 33])
+@pytest.mark.parametrize("both", [True, False])
+def test_scan_1d_plain_matches_pallas_extract_interpret(k, both):
+    """The 1-D entry's plain version against the TPU kernel pallas_extract
+    in interpret mode (exact there; its compiled TPU build miscompiles), on
+    the inputs tests/test_pallas_extract.py gives it."""
+    from kmc_tpu.ops.pallas_extract import (TILE, pallas_batch_len,
+                                            pallas_extract)
+
+    s = TILE * 2
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 5, pallas_batch_len(s, k)).astype(np.uint8)
+    outs = pallas_extract(jnp.asarray(codes), s=s, k=k, sig_len=M,
+                          both_strands=both, interpret=True)
+    sig, lanes = extract_splitter_scan_1d(torch.from_numpy(codes), s=s, k=k,
+                                          sig_len=M, both_strands=both)
+    assert len(lanes) == len(outs) - 1 == (k + 15) // 16
+    assert np.array_equal(_u32(sig), np.asarray(outs[0]))
+    for got, want in zip(lanes, outs[1:]):
+        assert got.shape == (s,)
+        assert np.array_equal(_u32(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(s=1 << 15, k=27),         # not a multiple of the 65536 tile
+    dict(s=1 << 16, k=2048 - 15),  # k + 16 past the 2048-code halo
+    dict(s=1 << 16, k=27, n=(1 << 16) + 2047),  # halo cut short
+])
+def test_scan_1d_contract_raises(kw):
+    kw = dict(kw)
+    n = kw.pop("n", kw["s"] + 2048)
+    with pytest.raises(ValueError):
+        extract_splitter_scan_1d(torch.zeros(n, dtype=torch.uint8),
+                                 sig_len=M, both_strands=True, **kw)
 
 
 @pytest.mark.parametrize("k,n_rate", [(27, 0.01), (33, 0.0), (55, 0.012)])

@@ -31,7 +31,10 @@ print(len(names), bad)
 assert not bad, bad
 for name in ("kmc_tpu_torch.parallel.distributed",
              "kmc_tpu_torch.parallel.exchange_kernel",
-             "kmc_tpu_torch.parallel.multihost"):
+             "kmc_tpu_torch.parallel.multihost",
+             "kmc_tpu_torch.microbench_sort",
+             "kmc_tpu_torch.ops.extract_kernel",
+             "kmc_tpu_torch.ops.store"):
     assert name in names, name
 """
 
@@ -41,7 +44,7 @@ def test_no_jax_or_kmc_tpu_import():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 18  # every module of the package was imported
+    assert n_modules >= 19  # every module of the package was imported
 
 
 def _no_card(monkeypatch):
@@ -82,6 +85,20 @@ def test_distributed_count_without_devices_raises_without_card(
         distributed_count([str(fq)], str(tmp_path / "db"), k=27,
                           devices=["cuda:0"] * 2)
     assert not (tmp_path / "db.kmc_pre").exists()
+
+
+def test_new_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """The 1-D splitter scan's and the probes' callers, the checkpoint
+    loader and the microbench section need a card unless asked for the
+    CPU."""
+    from kmc_tpu_torch import microbench_sort
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceKmerStore.load_checkpoint(str(tmp_path / "none"), 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        microbench_sort.probe_inputs(1 << 20, "cuda")
+    assert microbench_sort.probe_inputs(1 << 20, "cpu")[0].device.type == "cpu"
 
 
 def test_cli_without_card_fails(tmp_path, monkeypatch, capsys):

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from kmc_tpu_torch import microbench_sort as mb
 from kmc_tpu_torch.io.readers import batch_len
 from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
+                                              extract_splitter_scan_1d,
                                               splitter_scan_plain)
 from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns, radix_sort_plain
 from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
@@ -45,6 +47,49 @@ def test_splitter_scan_matches_plain(k, both):
     assert extract_splitter_scan.launches == before + 1
     assert torch.equal(sig_k.cpu(), sig_p)
     assert torch.equal(lanes_k.cpu(), lanes_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [14, 21, 27, 33, 55, 256])
+@pytest.mark.parametrize("both", [True, False])
+def test_splitter_scan_1d_matches_plain(k, both):
+    _need_card()
+    s = 1 << 17  # two of pallas_extract's 65536-position tiles
+    rng = np.random.default_rng(k + 1)
+    codes = rng.integers(0, 4, s + 2048).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.01] = 4
+    # past batch_len(s, k) the halo holds garbage the entry must not read
+    codes[batch_len(s, k):] = rng.integers(0, 256, s + 2048 - batch_len(s, k))
+    codes = torch.from_numpy(codes)
+    sig_p, lanes_p = extract_splitter_scan_1d(codes, s=s, k=k, sig_len=M,
+                                              both_strands=both)
+    before = extract_splitter_scan_1d.launches
+    sig_k, lanes_k = extract_splitter_scan_1d(codes.cuda(), s=s, k=k,
+                                              sig_len=M, both_strands=both)
+    torch.cuda.synchronize()
+    assert extract_splitter_scan_1d.launches == before + 1
+    assert torch.equal(sig_k.cpu(), sig_p)
+    assert len(lanes_k) == len(lanes_p) == (k + 15) // 16
+    for got, want in zip(lanes_k, lanes_p):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["probe_add1", "probe_gather_rows",
+                                  "probe_gather_lanes"])
+def test_probe_matches_plain(name):
+    _need_card()
+    x, idx, idxl = mb.probe_inputs(1 << 22, "cuda")
+    fn = getattr(mb, name)
+    plain = getattr(mb, name + "_plain")
+    args = {"probe_add1": (x,), "probe_gather_rows": (x, idx),
+            "probe_gather_lanes": (x, idxl)}[name]
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(*args))
+    assert torch.equal(plain(*[a.cpu() for a in args]), got.cpu())
 
 
 def _columns(n, n_keys, seed, key_range):
@@ -180,3 +225,34 @@ def test_distributed_count_on_card_matches_cpu(tmp_path):
             (tmp_path / f"cpu{suf}").read_bytes()
     assert s_gpu["n_compactions"] == s_cpu["n_compactions"] >= 1
     assert s_gpu["n_unique"] == s_cpu["n_unique"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("genome_len,route", [(20000, "replay"),
+                                              (60000, "host")])
+def test_spilling_count_on_card_matches_cpu(tmp_path, genome_len, route):
+    _need_card()
+    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+
+    rng = np.random.default_rng(2)
+    genome = rng.integers(0, 4, genome_len)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "in.fastq", "wb") as f:
+        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        r = Runner(device=dev)
+        r.run_stage1(Stage1Params(input_files=[str(tmp_path / "in.fastq")],
+                                  kmer_len=27, batch_positions=1 << 14,
+                                  device_store_rows=1 << 15))
+        r.run_stage2(Stage2Params(output_file_name=str(tmp_path / dev),
+                                  cutoff_min=1))
+        stats[dev] = r.spill_stats
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"cuda{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert stats["cuda"]["n_spills"] == stats["cpu"]["n_spills"] >= 1
+    assert stats["cuda"]["finalize_route"] == stats["cpu"]["finalize_route"] \
+        == route

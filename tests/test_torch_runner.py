@@ -118,8 +118,18 @@ def test_unported_options_raise(tmp_path, kw, item):
 
 
 def test_checkpoints_raise(tmp_path):
+    """Checkpoints work (tests/test_torch_checkpoint.py); what raises is a
+    save before stage 1 and a greedy-policy checkpoint (ROADMAP A7)."""
+    import numpy as np
+
     runner = Runner(device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(RuntimeError, match="stage-1"):
         runner.save_stage1_checkpoint(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        runner.resume_stage1_checkpoint(str(tmp_path / "ck"), Stage1Params())
+    ck = str(tmp_path / "ck")
+    np.savez_compressed(ck, cols=np.zeros((2, 0), np.uint32),
+                        counts=np.zeros(0, np.uint32), map_mode="greedy")
+    np.savez(ck + ".meta", kmer_len=27, signature_len=9, canonical=True,
+             n_reads=0)
+    inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
+    with pytest.raises(NotImplementedError, match="A7"):
+        runner.resume_stage1_checkpoint(ck, Stage1Params(input_files=[inp]))

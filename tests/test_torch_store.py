@@ -102,10 +102,18 @@ def test_state_carried_across_finalizes_the_same(n_ingests):
 
 
 def test_overflow_after_compaction_raises():
+    """A store that overflows after compaction spills to host RAM; only a
+    spill over the -m budget raises."""
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 4, batch_len(S, 27)).astype(np.uint8)
+               for _ in range(4)]  # distinct random batches: nothing merges
     st = DeviceKmerStore(2 * S, k=27, sig_len=M, both_strands=True,
                          n_bins=512, device="cpu")
-    rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        for _ in range(4):  # distinct random batches: nothing merges
-            codes = rng.integers(0, 4, batch_len(S, 27)).astype(np.uint8)
+    for codes in batches:
+        _feed(st, "b", codes)
+    assert st.n_spills == 1 and len(st.spilled[0][1]) == 2 * S
+    st = DeviceKmerStore(2 * S, k=27, sig_len=M, both_strands=True,
+                         n_bins=512, spill_budget_bytes=1024, device="cpu")
+    with pytest.raises(MemoryError, match="-m"):
+        for codes in batches:
             _feed(st, "b", codes)
