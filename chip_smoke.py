@@ -8,12 +8,17 @@ Phases (any failure exits non-zero):
      register / shared-memory report;
   2. the splitter-scan kernel against its plain version at s = 2^22,
      m = 9, k in {27, 32, 33, 55, 129, 256}, both strands and forward only;
-  3. the grouping-sort (radix) kernel against its plain version at 2^26 rows
-     (2 keys + counts) and at an odd length with 3 keys, dead rows included;
+  3. the grouping-sort (radix) kernel against its plain version at the
+     main path's layouts: 2^26 rows x (2 keys + counts), an odd length x
+     (3 keys + counts), 2^26 x (1 key + 2 payloads), 2^24 x (4 keys +
+     counts), 2^22 x (17 keys + counts), dead rows included; each timed
+     beside one torch.sort where one computes it, with the bytes the
+     design moves, and per stage at 2^26 x (2 keys + counts);
   4. end to end on a mid-size synthetic FASTQ: the card's KMC2 database must
      equal the CPU's byte for byte, with several compactions;
   5. the full-size run: bench.py's workload (8 Mbp genome, 30x, 150 bp reads,
-     seed 0), k = 27, -ci2, default -m 12, on the card;
+     seed 0), k = 27, -ci2, default -m 12, on the card; its peak device
+     memory may not pass the old sort's 3,333,376,000 bytes;
   6. the same run under torch.profiler: device busy time against the wall
      (the idle share) and the kernels that take the most device time;
   7. the exchange kernel (ragged and dense all-to-all) against its plain
@@ -30,6 +35,8 @@ Phases (any failure exits non-zero):
      `python -m kmc_tpu_torch.microbench_sort pallas` at N = 2^28, run
      through that section's entry, then each bit-exact against its plain
      version (which is also the library call they are timed against);
+     then `python -m kmc_tpu_torch.microbench_sort sort`'s measurements
+     at MB_LOGN = 26;
  11. the spilling count at mid size (phase 4's FASTQ): a store that spills
      and finalizes by replaying its runs, and a smaller one that finalizes
      by the host merge; each card DB must equal the CPU's and phase 4's;
@@ -166,12 +173,56 @@ def _sort_columns(n, n_keys, seed):
     return [torch.from_numpy(c.view(np.int32)).cuda() for c in keys + [counts]]
 
 
+def _live_passes(cols, n_keys):
+    """The kernel's pass plan with each pass's liveness: a pass is dead
+    when one digit holds every row (what the kernel's histogram finds)."""
+    from kmc_tpu_torch.ops.extract import i32_to_u32
+    from kmc_tpu_torch.ops.sort_kernel import sort_plan
+
+    n = cols[0].shape[0]
+    passes, rows_mode = sort_plan(len(cols), n_keys)
+    live = []
+    for c, shift, width in passes:
+        digits = (i32_to_u32(cols[c]) >> shift) & ((1 << width) - 1)
+        live.append(int(torch.bincount(digits, minlength=1 << width).max())
+                    < n)
+    return passes, rows_mode, live
+
+
+def _design_bytes(n, n_cols, n_keys, rows_mode, live):
+    """Bytes the kernel's design moves: the histogram reads the key
+    columns; a live pass reads and writes whole rows (rows mode) or a key
+    word and a row index (index mode: its first live pass reads only the
+    key, a new key column is gathered, 4 B a row, in place of its read);
+    index mode's finish reads the index, gathers every column and writes
+    it."""
+    total = 4 * n * n_keys
+    n_live = sum(live)
+    if rows_mode:
+        return total + n_live * 2 * 4 * n * n_cols
+    if n_live:
+        total += n_live * 16 * n - 4 * n
+    return total + 4 * n + 2 * 4 * n * n_cols
+
+
+SORT_SHAPES = (  # (rows, key columns, columns): the main path's layouts
+    (1 << 26, 2, 3),            # k <= 27 store rows: 2 keys + counts
+    ((1 << 24) + 12345, 3, 4),  # an odd length, 3 keys + counts
+    (1 << 26, 1, 3),            # the senders' sort: 1 key + 2 payloads
+    (1 << 24, 4, 5),            # k = 55: 4 keys + counts
+    (1 << 22, 17, 18),          # k = 256: 17 keys + counts
+)
+
+
 def phase_sort():
-    from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns, radix_sort_plain
+    from kmc_tpu_torch.ops.extract import i32_to_u32
+    from kmc_tpu_torch.ops.sort_kernel import (radix_sort_columns,
+                                               radix_sort_plain,
+                                               radix_sort_stage_ms)
 
     rows = {}
-    for n, n_keys in ((1 << 26, 2), ((1 << 24) + 12345, 3)):
-        cols = _sort_columns(n, n_keys, seed=n_keys)
+    for n, n_keys, n_cols in SORT_SHAPES:
+        cols = _sort_columns(n, n_cols - 1, seed=n_keys)
         got = radix_sort_columns(cols, n_keys)
         ref = radix_sort_plain(cols, n_keys)
         torch.cuda.synchronize()
@@ -180,26 +231,45 @@ def phase_sort():
             raise SystemExit(f"radix sort n={n} keys={n_keys}: kernel differs "
                              f"from plain (max_abs_err {err})")
         del got, ref
-        ms = cuda_ms(lambda: radix_sort_columns(cols, n_keys), 3)
+        ms = cuda_ms(lambda: radix_sort_columns(cols, n_keys), 5)
         plain_ms = cuda_ms(lambda: radix_sort_plain(cols, n_keys), 2)
         library_ms = None
+        library = "none: no one PyTorch call sorts by 3+ keys"
         if n_keys == 2:
             # one order-preserving int64 key: (hi ^ 2^31) << 32 | lo
-            hi = (cols[0].to(torch.int64) & 0xFFFFFFFF) - (1 << 31)
-            packed = (hi << 32) | (cols[1].to(torch.int64) & 0xFFFFFFFF)
+            hi = i32_to_u32(cols[0]) - (1 << 31)
+            key = (hi << 32) | i32_to_u32(cols[1])
             del hi
-            library_ms = cuda_ms(lambda: torch.sort(packed), 3)
-            del packed
+            library_ms = cuda_ms(lambda: torch.sort(key), 5)
+            library = "torch.sort of one packed int64 key"
+            del key
+        elif n_keys == 1:
+            key = i32_to_u32(cols[0])
+            library_ms = cuda_ms(lambda: torch.sort(key, stable=True), 5)
+            library = "stable torch.sort of the int64 key"
+            del key
+        passes, rows_mode, live = _live_passes(cols, n_keys)
         nbytes = 2 * 4 * n * len(cols)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        moved = _design_bytes(n, len(cols), n_keys, rows_mode, live)
         rows[(n, n_keys)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  library_ms=library_ms, max_abs_err=err)
-        log(f"[phase 3] radix sort n={n} keys={n_keys}+counts: identical, "
-            f"kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} library_ms "
+        log(f"[phase 3] radix sort n={n} keys={n_keys} columns={n_cols} "
+            f"({'rows' if rows_mode else 'index'} mode, {sum(live)} of "
+            f"{len(live)} passes live): identical, kernel_ms {ms:.3f} "
+            f"plain_ms {plain_ms:.3f} library_ms "
             f"{library_ms if library_ms is None else round(library_ms, 3)} "
-            f"bound_ms {bound_ms:.4f} ({nbytes} bytes)")
+            f"({library}) bound_ms {bound_ms:.4f} ({nbytes} bytes); design "
+            f"moves {moved} bytes, {moved / ms / 1e6:.1f} GB/s")
+        if n == 1 << 26 and n_keys == 2:
+            _, stage_ms = radix_sort_stage_ms(cols, n_keys)
+            per_pass = ", ".join(
+                f"col {c} shift {sh} {t:.3f}" + ("" if lv else " (dead)")
+                for (c, sh, _), lv, t in zip(passes, live, stage_ms[1:-1]))
+            log(f"[phase 3]   stages (ms, CUDA events): histogram + plan "
+                f"{stage_ms[0]:.3f}; {per_pass}; finish {stage_ms[-1]:.3f}")
         del cols
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -274,6 +344,10 @@ def read_counts(names=("splitter_scan", "radix_sort")):
 
 
 SHARDED_PATH = ("splitter_scan", "radix_sort", "ragged_all_to_all")
+# the grouping sort's kernels, as the profiler names them
+SORT_KERNELS = ("digit_histograms", "make_plan", "onesweep_pass",
+                "finish_rows", "finish_index")
+PR3_PHASE5_PEAK = 3_333_376_000  # phase 5's peak device memory before PR 4
 
 
 def phase_card_vs_cpu():
@@ -329,6 +403,9 @@ def phase_full():
         raise SystemExit(f"phase 5: .kmc_suf of {suf_bytes} bytes does not "
                          f"hold {kept} whole records")
     peak = torch.cuda.max_memory_allocated()
+    if peak > PR3_PHASE5_PEAK:
+        raise SystemExit(f"phase 5: max_memory_allocated {peak} is above "
+                         f"the old sort's {PR3_PHASE5_PEAK}")
     log(f"[phase 5] full size: n_total_kmers {r2.n_total_kmers} "
         f"(= {n_reads} x 124), n_unique {r2.n_unique_kmers}, kept {kept}, "
         f"wall_s {wall:.3f} stage1_s {r1.time:.3f} stage2_s {r2.time:.3f} "
@@ -398,7 +475,7 @@ def phase_profile(fq):
             raise SystemExit(f"phase 6: the repeated full run's {suf} "
                              "differs from phase 5's")
     log(f"[phase 6] n_total_kmers {r2.n_total_kmers}")
-    _device_time(prof, "[phase 6]", wall)
+    _device_time(prof, "[phase 6]", wall, also=SORT_KERNELS)
 
 
 def shard_devices():
@@ -633,7 +710,8 @@ def phase_sharded_full(fq, n_reads):
     if not _same_db(WORK / "bench_sharded_prof", WORK / "bench_out"):
         raise SystemExit("phase 9: the profiled sharded database differs "
                          "from phase 5's")
-    _device_time(prof, "[phase 9]", p_wall, also=("ragged_a2a",))
+    _device_time(prof, "[phase 9]", p_wall,
+                 also=("ragged_a2a",) + SORT_KERNELS)
     return launches
 
 
@@ -726,6 +804,13 @@ def phase_last_kernels():
             f"library_ms {t['library_ms']:.4f}; launches "
             f"{probe_launches[name]}")
     del x, idx, idxl, args
+    torch.cuda.empty_cache()
+
+    # the grouping sort alone: the microbench tool's sort section at 2^26
+    for label, t in mb.sec_sort(1 << 26, device="cuda").items():
+        log(f"[phase 10] sort section {label}: kernel_ms {t['ms']:.4f} "
+            f"({t['gbs']:.1f} GB/s of the byte bound) library_ms "
+            f"{t['library_ms']:.4f} bound_ms {t['bound_ms']:.4f}")
     torch.cuda.empty_cache()
     return scan_rows, probe_rows
 

@@ -23,6 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build" / "cuda"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_SORT_ARGS = [_I32, ctypes.POINTER(_P), _P, _P, _I64, _I32, _I32, _I64,
+              ctypes.POINTER(_I32), _I32, _I32, _P, _I64, _P]
 # source name -> {C entry: argtypes}; every entry returns a cudaError_t
 SIGNATURES = {
     "extract": {
@@ -33,10 +35,12 @@ SIGNATURES = {
                                  _P],
     },
     "radix_sort": {
-        # cols, outs, n_cols, n_keys, n, key_a, key_b, idx_a, idx_b, hist,
-        # stream
-        "kmc_radix_sort_columns": [ctypes.POINTER(_P), ctypes.POINTER(_P),
-                                   _I32, _I32, _I64, _P, _P, _P, _P, _P, _P],
+        # device, cols, out, scratch, stride, n_cols, n_keys, n, passes,
+        # n_passes, rows_mode, work, work_bytes, stream
+        "kmc_radix_sort_columns": _SORT_ARGS,
+        # the same, then float stage_ms[n_passes + 2]
+        "kmc_radix_sort_stage_ms": _SORT_ARGS + [ctypes.POINTER(
+            ctypes.c_float)],
     },
     "ragged_a2a": {
         # device, peer

@@ -1,11 +1,13 @@
-"""Memory probes on the card: the port of tools/microbench_sort.py's
-`pallas` section.
+"""Microbenchmarks on the card: the port of tools/microbench_sort.py's
+`pallas` and `sort` sections.
 
-    python -m kmc_tpu_torch.microbench_sort pallas [--device=cuda|cpu]
+    python -m kmc_tpu_torch.microbench_sort [pallas|sort|all] \
+        [--device=cuda|cpu]
 
-MB_LOGN (default 28) sets N = 2^MB_LOGN u32 words, laid out as
-u32[N/1024, 1024] as in the tool.  Three hand-written CUDA probes
-(csrc/probes.cu) replace the section's three Pallas kernels:
+MB_LOGN (default 28) sets N = 2^MB_LOGN u32 words, as in the tool.
+
+`pallas`: memory probes over u32[N/1024, 1024].  Three hand-written CUDA
+probes (csrc/probes.cu) replace the section's three Pallas kernels:
 
   probe_add1          o = x + 1                            (copy_kernel)
   probe_gather_rows   per block of 1024 rows, o[r, :] = x[idx[r], :]
@@ -16,11 +18,21 @@ idx and idxl are permutations of 1024 (numpy seeds 2 and 3, as in the
 tool).  Each probe has a plain torch version (x + 1, index_select over each
 block's rows, index_select over columns); the plain version runs for CPU
 tensors, and on the card it is also the library call the probe is timed
-against.  Each measurement prints the tool's report line (name, n, ms,
-GB/s), then the kernel's time against the byte bound (2 x 4 B x N over
-3.35 TB/s) and the library call.  The tool's other sections (sort,
-roofline, bitonic, scatter, onehot) run no Pallas kernel and are not ported
-(ROADMAP §A).
+against.
+
+`sort`: the tool's lax.sort measurements made with the grouping-sort
+kernel (ops/sort_kernel.py::radix_sort_columns, csrc/radix_sort.cu) on
+u32 columns from numpy seeds 0 and 1: 2 keys; 1 key + 1 payload; 1 key
+alone; 8-bit values + payload; 2 keys at 2^24 and 2^26 rows; a pre-sorted
+key.  Each line sets the kernel beside one torch.sort of the same rows: of
+a packed int64 key for 2 keys, of the int64 key (stable=True when a
+payload rides) otherwise.  --device=cpu runs the plain version.
+
+Each measurement prints the tool's report line (name, n, ms, GB/s), then
+the kernel's time against the byte bound (every column read once and
+written once over 3.35 TB/s) and the library call.  The tool's other
+sections (roofline, bitonic, scatter, onehot) run no Pallas kernel and
+are not ported (ROADMAP §A).
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ import numpy as np
 import torch
 
 from .device import device_name, resolve_device
+from .ops.extract import i32_to_u32
+from .ops.sort_kernel import radix_sort_columns
 
 ROW = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -197,6 +211,64 @@ def sec_pallas(n: int | None = None, device="cuda") -> dict:
     return out
 
 
+def _u32_cols(n: int, dev):
+    """The tool's rand_u32 columns (numpy seeds 0 and 1), as int32 bit
+    views."""
+    return [torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**32, size=n, dtype=np.uint32).view(np.int32)).to(dev)
+        for seed in (0, 1)]
+
+
+def _packed_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 key ordered as (hi, lo) compared as u32: (hi - 2^31) <<
+    32 | lo."""
+    return ((i32_to_u32(hi) - (1 << 31)) << 32) | i32_to_u32(lo)
+
+
+def sec_sort(n: int | None = None, device="cuda") -> dict:
+    """Time the grouping sort at the tool's shapes (N = n rows, default
+    2^MB_LOGN) beside one torch.sort of the same rows; returns {label:
+    {"n", "ms", "library_ms", "bound_ms", "gbs"}}, the report lines printed
+    as it goes."""
+    n = n or 1 << int(os.environ.get("MB_LOGN", "28"))
+    dev = resolve_device(device)
+    a, b = _u32_cols(n, dev)
+    a8 = a & 0xFF
+    s = torch.arange(n, dtype=torch.int32, device=dev)
+    cases = [  # (label, columns, n_keys, the library call's key, stable)
+        ("2 u32 keys", [a, b], 2, lambda: _packed_key(a, b), False),
+        ("1 u32 key + 1 payload", [a, b], 1, lambda: i32_to_u32(a), True),
+        ("1 u32 key alone", [a], 1, lambda: i32_to_u32(a), False),
+        ("u32(8-bit values) + payload", [a8, b], 1, lambda: i32_to_u32(a8),
+         True),
+    ]
+    for m in (1 << 24, 1 << 26):
+        if m <= n:
+            cases.append(("2 u32 keys", [a[:m], b[:m]], 2,
+                          lambda m=m: _packed_key(a[:m], b[:m]), False))
+    cases.append(("pre-sorted 1 key", [s], 1, lambda: i32_to_u32(s), False))
+    out = {}
+    for label, cols, n_keys, make_key, stable in cases:
+        rows = cols[0].shape[0]
+        nbytes = 2 * 4 * rows * len(cols)
+        secs = _timeit(lambda: radix_sort_columns(cols, n_keys), dev)
+        key = make_key()
+        lib_secs = _timeit(lambda: torch.sort(key, stable=stable), dev)
+        del key
+        report(f"radix_sort {label}", rows, secs, nbytes)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  {label}: kernel_ms {secs * 1e3:.4f}, bound_ms "
+              f"{bound_ms:.4f}, library_ms {lib_secs * 1e3:.4f} (torch.sort"
+              f"{', stable' if stable else ''})", flush=True)
+        out[f"{label} n=2^{rows.bit_length() - 1}"] = dict(
+            n=rows, ms=secs * 1e3, library_ms=lib_secs * 1e3,
+            bound_ms=bound_ms, gbs=nbytes / secs / 1e9)
+    return out
+
+
+SECTIONS = {"pallas": sec_pallas, "sort": sec_sort}
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
@@ -204,14 +276,18 @@ def main(argv=None) -> int:
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
             args.remove(a)
-    which = args[0] if args else "pallas"
-    if which not in ("pallas", "all"):
+    which = args[0] if args else "all"
+    if which != "all" and which not in SECTIONS:
         print(f"section {which!r} is not ported: it runs no Pallas kernel "
-              "(ROADMAP §A lists it); ported: pallas", file=sys.stderr)
+              f"(ROADMAP §A lists it); ported: {', '.join(SECTIONS)}",
+              file=sys.stderr)
         return 2
     dev = resolve_device(device)
     print(f"device={device_name(dev)}", flush=True)
-    sec_pallas(device=dev)
+    for name, fn in SECTIONS.items():
+        if which in ("all", name):
+            print(f"--- {name} ---", flush=True)
+            fn(device=dev)
     return 0
 
 

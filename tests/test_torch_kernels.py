@@ -104,23 +104,110 @@ def _columns(n, n_keys, seed, key_range):
     return [torch.from_numpy(c.view(np.int32).copy()) for c in keys + [counts]]
 
 
+def _check_sort(cols, n_keys, device="cuda"):
+    ref = radix_sort_plain(cols, n_keys)
+    before = radix_sort_columns.launches
+    on_card = [c.to(device) for c in cols]
+    got = radix_sort_columns(on_card, n_keys)
+    torch.cuda.synchronize(device)
+    assert radix_sort_columns.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.device == on_card[0].device
+        assert torch.equal(g.cpu(), r)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,n_keys,key_range", [
     (1 << 20, 2, 2**32),
-    ((1 << 18) + 3, 3, 50),
+    (1 << 22, 2, 2**32),        # the main path's rows: 2 keys + counts
+    ((1 << 18) + 3, 3, 50),     # 4 columns: index mode
+    ((1 << 16) + 5, 4, 2**32),  # the k = 55 layout
     (4095, 1, 2**32),
     (5, 17, 2),
+    ((1 << 14) + 7, 17, 2**32),  # the k = 256 layout
+    (1, 2, 2**32),
+    (4096, 2, 2**32),            # one tile
+    (4097, 2, 2**32),            # one tile plus one row
+    (4097, 4, 2**32),
 ])
 def test_radix_sort_matches_plain(n, n_keys, key_range):
     _need_card()
-    cols = _columns(n, n_keys, seed=n, key_range=key_range)
-    ref = radix_sort_plain(cols, n_keys)
-    before = radix_sort_columns.launches
-    got = radix_sort_columns([c.cuda() for c in cols], n_keys)
-    torch.cuda.synchronize()
-    assert radix_sort_columns.launches == before + 1
+    _check_sort(_columns(n, n_keys, seed=n, key_range=key_range), n_keys)
+
+
+def _u32_cols(*arrays):
+    return [torch.from_numpy(np.asarray(a, dtype=np.uint32).view(np.int32)
+                             .copy()) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [2, 3, 5])
+def test_radix_sort_odd_live_passes_and_skips(n_cols):
+    """Live pass counts of 1, 2 and 3 (the result must end in the output
+    whichever buffer the parity picks), every row equal (no live pass)."""
+    _need_card()
+    rng = np.random.default_rng(n_cols)
+    n = 3 * 4096 + 11
+    pay = [rng.integers(0, 2**32, n, dtype=np.uint32)
+           for _ in range(n_cols - 2)]
+    byte0 = rng.integers(0, 256, n, dtype=np.uint32)
+    for key0, key1 in (
+            (np.full(n, 7), 0xABCD0000 | byte0),       # one live pass
+            (np.full(n, 7), 0xAB000000 | byte0 << 8 | byte0),   # two
+            (byte0 << 16 | 5, 0x1200 | byte0),         # three
+            (np.full(n, 0xFFFFFFFF), np.full(n, 3))):  # every row equal
+        _check_sort(_u32_cols(key0, key1, *pay), 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["sorted", "reversed"])
+@pytest.mark.parametrize("n_keys", [1, 2, 4])
+def test_radix_sort_presorted_and_reversed(order, n_keys):
+    _need_card()
+    n = (1 << 17) + 9
+    rng = np.random.default_rng(n_keys)
+    keys = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_keys)]
+    keys[0] >>= 20  # ties in the leading key
+    rows = np.lexsort(keys[::-1])  # keys[0] most significant
+    keys = [k[rows] for k in keys]
+    if order == "reversed":
+        keys = [k[::-1] for k in keys]
+    _check_sort(_u32_cols(*keys, np.arange(n)), n_keys)
+
+
+@pytest.mark.gpu
+def test_radix_sort_sender_layout():
+    """1 key + 2 payloads: the sharded senders' sort of (bin|k-mer, lane,
+    count) rows by key column 0."""
+    _need_card()
+    cols = _columns((1 << 20) + 1, 2, seed=3, key_range=2**32)
+    _check_sort(cols, 1)
+
+
+@pytest.mark.gpu
+def test_radix_sort_on_second_card():
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs at least 2 CUDA cards, found {n}")
+    _check_sort(_columns((1 << 18) + 1, 2, seed=4, key_range=2**32), 2,
+                device="cuda:1")
+    _check_sort(_columns(5000, 4, seed=5, key_range=2**32), 4,
+                device="cuda:1")
+
+
+@pytest.mark.gpu
+def test_radix_sort_stage_times():
+    _need_card()
+    from kmc_tpu_torch.ops.sort_kernel import radix_sort_stage_ms, sort_plan
+
+    cols = [c.cuda() for c in _columns(1 << 18, 2, seed=6, key_range=2**32)]
+    got, ms = radix_sort_stage_ms(cols, 2)
+    ref = radix_sort_plain(cols, 2)
+    assert len(ms) == len(sort_plan(3, 2)[0]) + 2
+    assert all(t >= 0 for t in ms)
     for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+        assert torch.equal(g, r)
 
 
 @pytest.mark.gpu

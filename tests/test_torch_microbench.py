@@ -1,5 +1,6 @@
 """The plain versions of the port's memory probes (kmc_tpu_torch.
-microbench_sort) against jax.numpy on the tool's block shape.
+microbench_sort) against jax.numpy on the tool's block shape, and the
+`sort` section on the CPU against jax.lax.sort on the tool's inputs.
 
 tools/microbench_sort.py's Pallas bodies (copy_kernel, gather_kernel,
 gatherl_kernel) are closures inside sec_pallas and cannot be imported, so
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from kmc_tpu_torch import microbench_sort as mb
+from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
 
 N = 1 << 21  # two (1024, 1024) blocks
 
@@ -82,7 +85,7 @@ def test_section_runs_on_cpu_when_asked(capsys, monkeypatch):
     for name in ("probe_add1", "probe_gather_rows", "probe_gather_lanes"):
         assert any(line.startswith(name) and "n=2^20" in line
                    and "GB/s" in line for line in lines), name
-    assert mb.main(["sort", "--device=cpu"]) == 2
+    assert mb.main(["bitonic", "--device=cpu"]) == 2
 
 
 def test_section_needs_a_card_by_default(monkeypatch):
@@ -99,3 +102,42 @@ def test_bad_shapes_raise(inputs):
         mb.probe_gather_lanes(x, idx[:10])
     with pytest.raises(ValueError):
         mb.probe_add1(x.view(-1))
+
+
+def test_sort_section_runs_on_cpu_when_asked(capsys, monkeypatch):
+    monkeypatch.setenv("MB_LOGN", "14")
+    assert mb.main(["sort", "--device=cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:2] == ["device=cpu", "--- sort ---"]
+    for label in ("2 u32 keys", "1 u32 key + 1 payload", "1 u32 key alone",
+                  "u32(8-bit values) + payload", "pre-sorted 1 key"):
+        assert any(line.startswith(f"radix_sort {label}") and "n=2^14" in line
+                   and "GB/s" in line for line in lines), label
+        assert any(line.startswith(f"  {label}: kernel_ms")
+                   and "library_ms" in line for line in lines), label
+
+
+def test_sort_section_shapes():
+    got = mb.sec_sort(1 << 12, device="cpu")
+    assert list(got) == ["2 u32 keys n=2^12", "1 u32 key + 1 payload n=2^12",
+                         "1 u32 key alone n=2^12",
+                         "u32(8-bit values) + payload n=2^12",
+                         "pre-sorted 1 key n=2^12"]
+    for row in got.values():
+        assert row["n"] == 1 << 12 and row["ms"] > 0 and row["bound_ms"] > 0
+
+
+def test_sort_section_inputs_and_order_match_lax_sort():
+    a, b = mb._u32_cols(1 << 12, "cpu")
+    for seed, col in ((0, a), (1, b)):
+        want = np.random.default_rng(seed).integers(0, 2**32, size=1 << 12,
+                                                     dtype=np.uint32)
+        assert np.array_equal(_u32(col), want)
+    got = radix_sort_columns([a, b], 2)
+    ref = jax.lax.sort([jnp.asarray(_u32(a)), jnp.asarray(_u32(b))],
+                       num_keys=2)
+    for g, r in zip(got, ref):
+        assert np.array_equal(_u32(g), np.asarray(r))
+    packed = mb._packed_key(a, b)
+    order = torch.sort(packed).indices
+    assert torch.equal(a[order], got[0]) and torch.equal(b[order], got[1])
