@@ -1,13 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (kmc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase (the contract's run)
+    python3 chip_smoke.py 2 6        # phase 1, the phases named and those
+                                     # whose results they take (PHASES)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
      register / shared-memory report;
-  2. the splitter-scan kernel against its plain version at s = 2^22,
+  2. the splitter-scan entry against its plain version at s = 2^22,
      m = 9, k in {27, 32, 33, 55, 129, 256}, both strands and forward only;
+     the fused ingest (ops/ingest_kernel.py) against ingest_plain at
+     s = 2^22, k in {14, 27, 32, 33, 55, 256}, both feeds, both strands and
+     one, with and without a counts column, two batches from a non-aligned
+     n_used with tail_start inside the first: every column, the counts,
+     occ, skm and prev_sig equal; each timed beside its plain version and
+     the parent's torch-op route (decode ops, the scan entry, binning ops),
+     with its bound by bytes and, as a diagnostic, the time the design's
+     own SASS instructions per position take;
+     then one batch through DeviceKmerStore.ingest_boundaries /
+     ingest_fused, device time and device items per batch;
   3. the grouping-sort (radix) kernel against its plain version at the
      main path's layouts: 2^26 rows x (2 keys + counts), an odd length x
      (3 keys + counts), 2^26 x (1 key + 2 payloads), 2^24 x (4 keys +
@@ -18,9 +30,11 @@ Phases (any failure exits non-zero):
      equal the CPU's byte for byte, with several compactions;
   5. the full-size run: bench.py's workload (8 Mbp genome, 30x, 150 bp reads,
      seed 0), k = 27, -ci2, default -m 12, on the card; its peak device
-     memory may not pass the old sort's 3,333,376,000 bytes;
+     memory may not pass the grouping sort's 3,333,154,304 bytes;
   6. the same run under torch.profiler: device busy time against the wall
-     (the idle share) and the kernels that take the most device time;
+     (the idle share), the kernels that take the most device time, and
+     the device time, items and host launches under the store's "ingest"
+     and "compact" labels;
   7. the exchange kernel (ragged and dense all-to-all) against its plain
      version: 4 shards, segments of 2^24 rows, 2 and 3 words a row;
   8. the sharded count (distributed_count, 4 shards) on phase 4's FASTQ
@@ -47,20 +61,28 @@ Phases (any failure exits non-zero):
      -m 12 (2^26 store rows): about twice the store's rows in unique
      k-mers, so it spills, re-merges under the budget and finalizes by the
      host merge; n_total_kmers must be n_reads x 124 and its DB must equal
-     a non-spilling card count's (device_store_rows = 2^28).
+     a non-spilling card count's (device_store_rows = 2^28).  The count
+     runs under torch.profiler for the device's spans only (no store
+     labels, no all-threads host trace).
 Then a {"kernels": [...]} line with each kernel's launches on its path
-(phase 9 for the sharded path's kernels; the dense all-to-all, which no
-path calls, from phase 7; the 1-D entry and the probes from their own
-entries in phase 10) and its times from phases 2, 3, 7 and 10.  Shards sit
-on distinct cards when the machine has two or more, else all on card 0.
-The last line is {"ok": true, "device": {...}}.  Imports neither jax nor
-kmc_tpu.  Times come from CUDA events around repeated launches after a
-warm-up; bounds use the H100 SXM's 3.35 TB/s.
+(phase 9 for the sharded path's kernels, the fused ingest among them; the
+dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
+from its own calls in phase 2, the 1-D entry and the probes from their own
+entries in phase 10) and its times from phases 2, 3, 7 and 10.  Every
+path must ingest through the fused kernel and never through the scan
+entry.  Shards sit on distinct cards when the machine has two or more,
+else all on card 0.  The last line is {"ok": true, "device": {...}}.
+Imports neither jax nor kmc_tpu.  Times come from CUDA events around
+repeated launches after a warm-up; bounds are the bytes each function
+must move over the H100 SXM's 3.35 TB/s (the scan kernel's instruction
+time at INSTR_PER_S is printed beside them, a diagnostic of its design).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -129,6 +151,7 @@ def phase_scan():
     s = 1 << 22
     rng = np.random.default_rng(2)
     rows = {}
+    reset_counts()  # the entry's own run: the first call at each shape
     for k in (27, 32, 33, 55, 129, 256):
         codes_h = rng.integers(0, 4, batch_len(s, k)).astype(np.uint8)
         codes_h[rng.random(len(codes_h)) < 0.01] = 4
@@ -137,6 +160,7 @@ def phase_scan():
         for both in (True, False):
             sig_k, lanes_k = extract_splitter_scan(
                 codes, s=s, k=k, sig_len=M, both_strands=both)
+            launches = extract_splitter_scan.launches
             sig_p, lanes_p = splitter_scan_plain(
                 codes, s=s, k=k, sig_len=M, both_strands=both)
             torch.cuda.synchronize()
@@ -149,14 +173,381 @@ def phase_scan():
                 codes, s=s, k=k, sig_len=M, both_strands=both), 20)
             plain_ms = cuda_ms(lambda: splitter_scan_plain(
                 codes, s=s, k=k, sig_len=M, both_strands=both), 3)
-            nbytes = (s + k + 16) + 4 * (1 + W) * s
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            rows[(k, both)] = dict(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, max_abs_err=err)
+            extract_splitter_scan.launches = launches
+            nbytes = batch_len(s, k) + 4 * (1 + W) * s
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            instr_ms = instr_bound_ms(k, s)
+            rows[(k, both)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bytes_ms,
+                bound_by="bytes", max_abs_err=err)
             log(f"[phase 2] splitter scan s=2^22 k={k} both={both}: "
                 f"bit-exact, kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} "
-                f"bound_ms {bound_ms:.4f} ({nbytes} bytes)")
+                f"bound_ms {bytes_ms:.4f} (bytes: {nbytes}; share "
+                f"{bytes_ms / ms:.2f}); the design's SASS instructions "
+                f"{instr_ms:.4f} ms (diagnostic)")
         del codes
+    for row in rows.values():
+        row["launches"] = launches
+    return rows
+
+
+def read_like_codes(L, seed, tail=0, read=150):
+    """L codes as the parser writes them: random reads of `read` bases,
+    each followed by a separator (4), an N base per thousand, and `tail`
+    trailing sentinels (batch padding: tail_start = L - tail)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, L).astype(np.uint8)
+    codes[read::read + 1] = 4
+    codes[rng.random(L) < 1e-3] = 4
+    if tail:
+        codes[L - tail:] = 4
+    return codes
+
+
+def _profiled_device(fn, reps):
+    """(device ms, device items) per call of fn, summed over the kernel,
+    copy and memset spans that torch.profiler saw in reps calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    trace = WORK / "ingest_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    trace.unlink()
+    dev = [e for e in events if e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        return None, None, {}
+    by_name = {}
+    for e in dev:
+        name = re.findall(r"(\w+)(?:<[^(]*>)?\(",
+                          e["name"].replace("(anonymous namespace)", ""))
+        name = name[0] if name else e["name"][:40]
+        by_name[name] = by_name.get(name, 0.0) + float(e["dur"]) / 1e3 / reps
+    return (sum(float(e["dur"]) for e in dev) / 1e3 / reps,
+            len(dev) / reps, by_name)
+
+
+def phase_store_ingest(s=1 << 22, k=27):
+    """One batch through DeviceKmerStore.ingest_boundaries / ingest_fused
+    on the card, as the ingest worker calls them: s = 2^22, k = 27, both
+    strands, both feeds, with and without a counts column, n_used at a
+    non-aligned offset.  Stream time from CUDA events over back-to-back
+    batches; device time and device items per batch from torch.profiler."""
+    from kmc_tpu_torch.io.native import (pack_codes_boundaries,
+                                         pack_codes_fused)
+    from kmc_tpu_torch.io.readers import batch_len
+    from kmc_tpu_torch.ops.store import DeviceKmerStore
+
+    L = batch_len(s, k)
+    codes = read_like_codes(L, seed=5, tail=1000)
+    buf_b, ts = pack_codes_boundaries(codes)
+    if buf_b is None:
+        raise SystemExit("phase 2: read-like codes do not fit the "
+                         "boundary-delta feed")
+    feeds = {"bounds": torch.from_numpy(buf_b).cuda(),
+             "mask": torch.from_numpy(pack_codes_fused(codes)).cuda()}
+    n0 = 12345
+    rows = {}
+    for feed, buf in feeds.items():
+        for with_counts in (False, True):
+            st = DeviceKmerStore(n0 + s, k=k, sig_len=M, both_strands=True,
+                                 n_bins=512, device="cuda")
+            st.n_used = n0
+            if with_counts:
+                st._materialize_counts()
+
+            def one():
+                st.n_used = n0
+                if feed == "bounds":
+                    st.ingest_boundaries(buf, ts, s=s)
+                else:
+                    st.ingest_fused(buf, s=s)
+
+            ms = cuda_ms(one, 20)
+            dev_ms, items, by_name = _profiled_device(one, 10)
+            rows[(feed, with_counts)] = dict(ms=ms, device_ms=dev_ms,
+                                             items=items)
+            log(f"[phase 2] store ingest s=2^22 k={k} feed={feed} counts="
+                f"{with_counts}: stream_ms {ms:.4f} (CUDA events, "
+                f"back-to-back batches), device_ms {dev_ms} per batch over "
+                f"{items} device items (torch.profiler: " + ", ".join(
+                    f"{n} {t:.4f}" for n, t in by_name.items()) + ")")
+            del st
+    del feeds
+    torch.cuda.empty_cache()
+    return rows
+
+
+INGEST_KS = (14, 27, 32, 33, 55, 256)
+
+
+def sass_loops(entry_substr):
+    """The loops of each kernel of the extract library built from the
+    current csrc/extract.cu whose name holds entry_substr, from its SASS
+    (cuobjdump -sass): (first, last address, instructions, opcode counts)
+    per backward branch."""
+    import collections
+
+    from kmc_tpu_torch import _build
+
+    so = str(_build._lib_path("extract"))
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", so],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = part.splitlines()[0].strip()
+        if entry_substr not in name:
+            continue
+        ins = []
+        for line in part.splitlines():
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                op = re.sub(r"^@!?U?P[T0-9]\s+", "", m.group(2).strip())
+                ins.append((int(m.group(1), 16), op.split()[0],
+                            m.group(2)))
+        loops = []
+        for a, op, text in ins:
+            m = re.search(r"BRA\s+(?:U?!?P\w+,\s*)?(?:`\(\.L_x_\d+\)\s*)?"
+                          r"0x([0-9a-f]+)", text)
+            if op == "BRA" and m and int(m.group(1), 16) < a:
+                lo = int(m.group(1), 16)
+                body = collections.Counter(o for b, o, _ in ins
+                                           if lo <= b <= a)
+                loops.append((lo, a, sum(body.values()), body))
+        out[name] = (len(ins), loops)
+    return out
+
+
+INSTR_PER_S = 132 * 4 * 32 * 1.98e9  # H100 SXM: 4 warp instructions a clock
+# an SM, 32 threads each, at the 1,980 MHz boost clock
+_INSTR = {}
+
+
+def instr_per_position(feed, k):
+    """Integer instructions one position costs the scan kernel of `feed`
+    (0 codes, 1 packed+mask, 2 boundary-delta), read from its SASS, whose
+    loops keep the source's order: the staging loops (before the m-mer key
+    loop, per 16 codes), the key loop (the one with BREV; per key), the
+    sliding minimum's chunk loop (its first loop; per 8 keys), run loop
+    (the widest; per run) and combine loop (after it; per x), then the
+    output loop (the widest with STG: its body outside inner loops, plus
+    one lane store per lane past the first).  Each body is weighted by
+    its trips per position at this k; branches inside a body count whole,
+    so this errs high.  Returns (instructions, parts)."""
+    from kmc_tpu_torch.ops.ingest_kernel import TILE
+
+    if feed not in _INSTR:
+        _INSTR[feed] = sass_loops(f"scan_kernelILi{feed}E")
+    (_, loops), = _INSTR[feed].values()
+    w = k - M + 1
+    W = (k + 15) // 16
+    nseg = (TILE + w) // w
+    keys = max((nseg + 1) * w, TILE + k) / TILE  # keys per position
+
+    def count(lp, op):
+        return sum(n for o, n in lp[3].items() if o.startswith(op))
+
+    def innermost(lp):
+        return not any(q is not lp and lp[0] <= q[0] and q[1] <= lp[1]
+                       for q in loops)
+
+    key = min((lp for lp in loops if count(lp, "BREV")),
+              key=lambda lp: lp[2])
+    # no loop holds the key loop: a backward branch around it is the
+    # out-of-line code of a divergent shuffle, not a loop
+    loops = [lp for lp in loops if not (lp[0] < key[0] and key[1] < lp[1])]
+    out = max((lp for lp in loops if count(lp, "STG")),
+              key=lambda lp: lp[1] - lp[0])
+    mins = sorted((lp for lp in loops if key[1] < lp[0] and lp[1] < out[0]),
+                  key=lambda lp: lp[0])
+    runs = max(mins, key=lambda lp: lp[1] - lp[0])
+    chunk = next(lp for lp in mins if innermost(lp))
+    combine = max((lp for lp in mins if lp[0] > runs[1] and innermost(lp)),
+                  key=lambda lp: count(lp, "STS"))
+    inner = [lp for lp in loops if lp is not out and out[0] <= lp[0]
+             and lp[1] <= out[1]]
+    lane = min((lp[2] / count(lp, "STG") for lp in inner
+                if count(lp, "STG")), default=0)
+    parts = {
+        "staging": sum(lp[2] for lp in loops if lp[1] < key[0]) / 16,
+        "keys": key[2] / count(key, "BREV") * keys,
+        "minimum": (chunk[2] / 8 * keys + runs[2] * (nseg + 1) / TILE
+                    + combine[2] / count(combine, "STS")),
+        "output": out[2] - sum(lp[2] for lp in inner) + lane * (W - 1),
+    }
+    return sum(parts.values()), parts
+
+
+def instr_bound_ms(k, s, feed=0):
+    """The least time the card needs to run this design's instructions
+    for s positions (instr_per_position over INSTR_PER_S).  A diagnostic
+    of the design, printed beside the bound: the count is the design's own
+    and errs high, so it is never the kernel's bound_ms."""
+    n, _ = instr_per_position(feed, k)
+    return n * s / INSTR_PER_S * 1e3
+
+
+def _ingest_state(k, s, n0, with_counts, seed):
+    """Store state on the card: random columns (rows the ingest must not
+    touch included), a counts column or None, accumulators near 2^32 and a
+    prev_sig, for `batches` batches of s rows from row n0."""
+    from kmc_tpu_torch.ops.store import prefix_bin_bits
+
+    prefix_bits, fuse = prefix_bin_bits(k, M, 512)
+    n_cols = (k + 15) // 16 + (0 if fuse else 1)
+    cap = n0 + 2 * s + 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def col():
+        return torch.randint(-2**31, 2**31 - 1, (cap,), generator=g,
+                             dtype=torch.int32, device="cuda")
+
+    return dict(cols=[col() for _ in range(n_cols)],
+                counts=col() if with_counts else None,
+                n_used=n0,
+                occ=torch.tensor(2**32 - 11, dtype=torch.int64, device="cuda"),
+                skm=torch.tensor(3, dtype=torch.int64, device="cuda"),
+                prev=torch.tensor([-1], dtype=torch.int32, device="cuda"),
+                kw=dict(k=k, sig_len=M, prefix_bits=prefix_bits, fuse=fuse))
+
+
+def _clone_state(st):
+    out = dict(st)
+    out["cols"] = [c.clone() for c in st["cols"]]
+    for key in ("counts", "occ", "skm", "prev"):
+        out[key] = None if st[key] is None else st[key].clone()
+    return out
+
+
+def _run_ingest(fn, st, buf, ts, s, both):
+    st["prev"] = fn(buf, ts, st["cols"], st["counts"], st["n_used"],
+                    st["occ"], st["skm"], st["prev"], s=s, both_strands=both,
+                    **st["kw"])
+    st["n_used"] += s
+
+
+def _torch_op_route(st, buf, ts, s, both):
+    """The parent's route, as a yardstick: the feed decoded by torch ops,
+    the scan kernel on the decoded codes, the binning by torch ops."""
+    from kmc_tpu_torch.ops.extract_kernel import extract_splitter_scan
+    from kmc_tpu_torch.ops.ingest_kernel import (bin_and_append,
+                                                 decode_boundaries,
+                                                 decode_fused)
+
+    kw = st["kw"]
+    k = kw["k"]
+    codes = (decode_fused(buf, s=s, k=k) if ts is None
+             else decode_boundaries(buf, ts, s=s, k=k))
+    sig, lanes = extract_splitter_scan(codes, s=s, k=k, sig_len=M,
+                                       both_strands=both)
+    W = (k + 15) // 16
+    bin_and_append(sig, lanes, st["cols"], st["counts"], st["n_used"],
+                   st["occ"], st["skm"], st["prev"], sig_len=M,
+                   prefix_bits=kw["prefix_bits"], fuse=kw["fuse"],
+                   r0=k - 16 * (W - 1))
+
+
+def phase_ingest(s=1 << 22):
+    """The fused ingest kernel against ingest_plain on the card, bit for
+    bit: s = 2^22, k in INGEST_KS, both feeds, both strands and one, with
+    and without a counts column; n_used = 12345 (not a multiple of 4),
+    tail_start inside the first batch, two batches in a row (prev_sig
+    carries).  Then times at both strands without counts: kernel, plain
+    version, the parent's torch-op route, and the bound."""
+    from kmc_tpu_torch.io.native import (pack_codes_boundaries,
+                                         pack_codes_fused)
+    from kmc_tpu_torch.io.readers import batch_len
+    from kmc_tpu_torch.ops.ingest_kernel import ingest, ingest_plain
+
+    for feed, name in enumerate(("codes", "packed+mask", "boundary-delta")):
+        n, parts = instr_per_position(feed, 27)
+        log(f"[phase 2] SASS of the scan kernel on the {name} feed, k=27: "
+            f"{n:.1f} instructions a position (" + ", ".join(
+                f"{part} {v:.1f}" for part, v in parts.items()) + ")")
+    rows = {}
+    for k in INGEST_KS:
+        L = batch_len(s, k)
+        read = max(150, 2 * k)  # reads long enough to hold k-mers
+        codes = [read_like_codes(L, seed=k, tail=1000, read=read),
+                 read_like_codes(L, seed=k + 1, read=read)]
+        feeds = {"bounds": [], "mask": []}
+        for c in codes:
+            buf, ts = pack_codes_boundaries(c)
+            feeds["bounds"].append((torch.from_numpy(buf).cuda(), ts))
+            feeds["mask"].append((torch.from_numpy(pack_codes_fused(c))
+                                  .cuda(), None))
+        for feed, batches in feeds.items():
+            for both in (True, False):
+                for with_counts in (False, True):
+                    base = _ingest_state(k, s, 12345, with_counts, seed=k)
+                    got, want = _clone_state(base), _clone_state(base)
+                    for buf, ts in batches:
+                        _run_ingest(ingest, got, buf, ts, s, both)
+                        _run_ingest(ingest_plain, want, buf, ts, s, both)
+                    torch.cuda.synchronize()
+                    pairs = list(zip(got["cols"], want["cols"]))
+                    if with_counts:
+                        pairs.append((got["counts"], want["counts"]))
+                    err = max(max_abs_err(a, b) for a, b in pairs)
+                    same = err == 0 and all(
+                        torch.equal(got[key], want[key])
+                        for key in ("occ", "skm", "prev"))
+                    if not same:
+                        raise SystemExit(
+                            f"phase 2: fused ingest k={k} feed={feed} "
+                            f"both={both} counts={with_counts} differs from "
+                            f"ingest_plain (max_abs_err {err}; occ "
+                            f"{int(got['occ'])}/{int(want['occ'])}, skm "
+                            f"{int(got['skm'])}/{int(want['skm'])})")
+                    del got, want
+                    if not both or with_counts:
+                        continue
+                    buf, ts = batches[0]
+
+                    def kernel(st=base):
+                        _run_ingest(ingest, st, buf, ts, s, True)
+                        st["n_used"] = 12345
+
+                    def plain(st=base):
+                        _run_ingest(ingest_plain, st, buf, ts, s, True)
+                        st["n_used"] = 12345
+
+                    dev_ms, _, by_name = _profiled_device(kernel, 10)
+                    row = dict(
+                        max_abs_err=err,
+                        ms=dev_ms, stream_ms=cuda_ms(kernel, 20),
+                        kernels=by_name,
+                        plain_ms=cuda_ms(plain, 3),
+                        route_ms=cuda_ms(lambda: _torch_op_route(
+                            base, buf, ts, s, True), 5),
+                        n_cols=len(base["cols"]), feed_bytes=buf.numel())
+                    nbytes = buf.numel() + 4 * row["n_cols"] * s
+                    row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                    row["bound_by"] = "bytes"
+                    row["instr_ms"] = instr_bound_ms(
+                        k, s, 2 if feed == "bounds" else 1)
+                    rows[(k, feed)] = row
+                    log(f"[phase 2] fused ingest s=2^22 k={k} feed={feed}: "
+                        f"bit-exact at both strands and one, with and "
+                        f"without counts, over two batches; kernel_ms "
+                        f"{row['ms']:.4f} (device, torch.profiler: " +
+                        ", ".join(f"{n} {t:.4f}" for n, t in by_name.items())
+                        + f"; stream {row['stream_ms']:.4f}, CUDA events) "
+                        f"plain_ms {row['plain_ms']:.3f} "
+                        f"torch-op route ms {row['route_ms']:.4f} bound_ms "
+                        f"{row['bound_ms']:.4f} (bytes: {nbytes}; share "
+                        f"{row['bound_ms'] / row['ms']:.2f}); the design's "
+                        f"SASS instructions {row['instr_ms']:.4f} ms "
+                        "(diagnostic)")
+                    del base
+        del feeds
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -319,11 +710,13 @@ def _wrappers():
     from kmc_tpu_torch import microbench_sort as mb
     from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
                                                   extract_splitter_scan_1d)
+    from kmc_tpu_torch.ops.ingest_kernel import ingest
     from kmc_tpu_torch.ops.sort_kernel import radix_sort_columns
     from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
                                                         ragged_all_to_all)
 
-    return {"splitter_scan": extract_splitter_scan,
+    return {"fused_ingest": ingest,
+            "splitter_scan": extract_splitter_scan,
             "radix_sort": radix_sort_columns,
             "ragged_all_to_all": ragged_all_to_all,
             "all_to_all": all_to_all,
@@ -338,16 +731,24 @@ def reset_counts():
         fn.launches = 0
 
 
-def read_counts(names=("splitter_scan", "radix_sort")):
+def read_counts(names=("fused_ingest", "radix_sort")):
+    """Launches of the named kernels since reset_counts(); a path that
+    ingests must not have taken the standalone scan entry."""
     wrappers = _wrappers()
+    if "fused_ingest" in names and wrappers["splitter_scan"].launches:
+        raise SystemExit("the store's ingest launched the standalone scan "
+                         "entry instead of the fused ingest")
     return {name: wrappers[name].launches for name in names}
 
 
-SHARDED_PATH = ("splitter_scan", "radix_sort", "ragged_all_to_all")
+SHARDED_PATH = ("fused_ingest", "radix_sort", "ragged_all_to_all")
+# the fused ingest's kernels, as the profiler names them
+INGEST_KERNELS = ("scan_kernel", "delta_scan_kernel")
 # the grouping sort's kernels, as the profiler names them
 SORT_KERNELS = ("digit_histograms", "make_plan", "onesweep_pass",
                 "finish_rows", "finish_index")
-PR3_PHASE5_PEAK = 3_333_376_000  # phase 5's peak device memory before PR 4
+SORT_PHASE5_PEAK = 3_333_154_304  # phase 5's peak device memory with the
+# one-sweep radix sort and the torch-op ingest
 
 
 def phase_card_vs_cpu():
@@ -376,6 +777,7 @@ def phase_card_vs_cpu():
         f"{n_comp} compactions; n_total {r2.n_total_kmers} n_unique "
         f"{r2.n_unique_kmers}; launches {launches}; card {wall:.2f} s, "
         f"cpu {c_wall:.2f} s")
+    return fq
 
 
 def phase_full():
@@ -403,9 +805,9 @@ def phase_full():
         raise SystemExit(f"phase 5: .kmc_suf of {suf_bytes} bytes does not "
                          f"hold {kept} whole records")
     peak = torch.cuda.max_memory_allocated()
-    if peak > PR3_PHASE5_PEAK:
+    if peak > SORT_PHASE5_PEAK:
         raise SystemExit(f"phase 5: max_memory_allocated {peak} is above "
-                         f"the old sort's {PR3_PHASE5_PEAK}")
+                         f"the radix sort's {SORT_PHASE5_PEAK}")
     log(f"[phase 5] full size: n_total_kmers {r2.n_total_kmers} "
         f"(= {n_reads} x 124), n_unique {r2.n_unique_kmers}, kept {kept}, "
         f"wall_s {wall:.3f} stage1_s {r1.time:.3f} stage2_s {r2.time:.3f} "
@@ -458,24 +860,118 @@ def _device_time(prof, label, wall, also=()):
     for i, (name, (n, t)) in enumerate(ranked):
         if i < 12 or any(a in name for a in also):
             log(f"  {t / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    _labelled_time(events, dev, label)
 
 
-def phase_profile(fq):
+STORE_LABELS = ("ingest", "compact")
+
+
+def device_profiler():
+    """torch.profiler over the CPU (every thread: the ingest runs on a
+    worker thread) and the card."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   experimental_config=_ExperimentalConfig(
+                       profile_all_threads=True))
+
+
+@contextlib.contextmanager
+def labelled_store():
+    """Wrap DeviceKmerStore's ingest and compaction in torch.profiler
+    labels ("ingest", "compact"), from outside the store, so a trace can
+    group the device time each launches."""
+    from torch.profiler import record_function
+
+    from kmc_tpu_torch.ops.store import DeviceKmerStore
+
+    saved = {name: getattr(DeviceKmerStore, name) for name in
+             ("ingest_boundaries", "ingest_fused", "compact")}
+
+    def wrap(fn, label):
+        def wrapped(self, *args, **kw):
+            with record_function(label):
+                return fn(self, *args, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(DeviceKmerStore, name,
+                wrap(fn, "compact" if name == "compact" else "ingest"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(DeviceKmerStore, name, fn)
+
+
+def _labelled_time(events, dev, label):
+    """Device time, device items and host launches of each store label:
+    a device item belongs to the innermost label whose host range holds
+    the runtime call that launched it (matched by correlation id; the
+    store's ingest and compactions run on one worker thread, and no other
+    thread launches while they do)."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in STORE_LABELS and "dur" in e]
+    if not spans:
+        return
+    runtime = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")]
+    by_corr = {e["args"]["correlation"]: e for e in runtime
+               if "correlation" in e.get("args", {})}
+
+    def owner(e):
+        ts = float(e["ts"])
+        best = None
+        for sp in spans:
+            a = float(sp["ts"])
+            if (a <= ts <= a + float(sp["dur"])
+                    and (best is None or a > float(best["ts"]))):
+                best = sp
+        return best["name"] if best else None
+
+    n_spans = {name: sum(1 for sp in spans if sp["name"] == name)
+               for name in STORE_LABELS}
+    dev_t = dict.fromkeys(STORE_LABELS, 0.0)
+    items = dict.fromkeys(STORE_LABELS, 0)
+    for e in dev:
+        launch = by_corr.get(e.get("args", {}).get("correlation"))
+        name = owner(launch) if launch else None
+        if name:
+            dev_t[name] += float(e["dur"])
+            items[name] += 1
+    calls = dict.fromkeys(STORE_LABELS, 0)
+    for e in runtime:
+        n = e.get("name", "")
+        if "Launch" in n or "Memcpy" in n or "Memset" in n:
+            name = owner(e)
+            if name:
+                calls[name] += 1
+    for name in STORE_LABELS:
+        n = max(n_spans[name], 1)
+        log(f"{label} under '{name}' ({n_spans[name]} calls): device "
+            f"{dev_t[name] / 1e3:.3f} ms ({dev_t[name] / 1e3 / n:.4f} ms a "
+            f"call), {items[name]} device items ({items[name] / n:.1f} a "
+            f"call), {calls[name]} host launch calls ({calls[name] / n:.1f}"
+            " a call)")
+
+
+def phase_profile(full):
     """The full-size run once more under torch.profiler: device busy time
     (union of kernel, copy and memset spans) against the wall, and the
     kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, r2, _, wall = run_count(fq, WORK / "bench_prof", "cuda",
-                               profiler=prof)
+    fq, _ = full
+    prof = device_profiler()
+    with labelled_store():
+        _, r2, _, wall = run_count(fq, WORK / "bench_prof", "cuda",
+                                   profiler=prof)
     for suf in (".kmc_pre", ".kmc_suf"):
         if ((WORK / f"bench_prof{suf}").read_bytes()
                 != (WORK / f"bench_out{suf}").read_bytes()):
             raise SystemExit(f"phase 6: the repeated full run's {suf} "
                              "differs from phase 5's")
     log(f"[phase 6] n_total_kmers {r2.n_total_kmers}")
-    _device_time(prof, "[phase 6]", wall, also=SORT_KERNELS)
+    _device_time(prof, "[phase 6]", wall, also=SORT_KERNELS + INGEST_KERNELS)
 
 
 def shard_devices():
@@ -631,12 +1127,11 @@ def run_sharded(fq, out, devices, **kw):
     return stats, time.perf_counter() - t0
 
 
-def phase_sharded_mid():
+def phase_sharded_mid(fq):
     """distributed_count on phase 4's FASTQ, card vs CPU and vs phase 4's
     single-device card DB.  Phase 4's batches (2^20 positions) make only 3
     groups of 4, too few to compact twice; 2^18-position batches into
     shards of 1.5 M rows compact every shard at least twice."""
-    fq = WORK / "mid.fastq"
     devices = shard_devices()
     kw = dict(batch_positions=1 << 18, capacity_rows_per_device=3 << 19)
     reset_counts()
@@ -664,9 +1159,10 @@ def phase_sharded_mid():
         f"launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
 
 
-def phase_sharded_full(fq, n_reads):
+def phase_sharded_full(full):
     """distributed_count at full size: phase 5's input and knobs, the -m 12
     plan per shard."""
+    fq, n_reads = full
     devices = shard_devices()
     kind = ("distinct cards" if len(set(devices)) > 1
             else "4 shards on card 0")
@@ -700,10 +1196,7 @@ def phase_sharded_full(fq, n_reads):
 
     # where the device time of the sharded run goes: the same run again,
     # under torch.profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled_store(), device_profiler() as prof:
         _, p_wall = run_sharded(fq, WORK / "bench_sharded_prof", devices,
                                 batch_positions=1 << 22,
                                 capacity_rows_per_device=None)
@@ -711,7 +1204,7 @@ def phase_sharded_full(fq, n_reads):
         raise SystemExit("phase 9: the profiled sharded database differs "
                          "from phase 5's")
     _device_time(prof, "[phase 9]", p_wall,
-                 also=("ragged_a2a",) + SORT_KERNELS)
+                 also=("ragged_a2a",) + SORT_KERNELS + INGEST_KERNELS)
     return launches
 
 
@@ -721,6 +1214,7 @@ def phase_last_kernels():
     the kernels line), then held bit for bit against its plain version and
     timed."""
     from kmc_tpu_torch import microbench_sort as mb
+    from kmc_tpu_torch.io.readers import batch_len
     from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan_1d,
                                                   splitter_scan_plain)
 
@@ -755,19 +1249,22 @@ def phase_last_kernels():
                              f" differs from plain (max_abs_err {err})")
         del sig_p, lanes_p
         W = (k + 15) // 16
-        nbytes = (s + k + 16) + 4 * (1 + W) * s
+        nbytes = batch_len(s, k) + 4 * (1 + W) * s
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        instr_ms = instr_bound_ms(k, s)
         row = dict(
             ms=cuda_ms(lambda: extract_splitter_scan_1d(
                 codes, s=s, k=k, sig_len=M, both_strands=both), 20),
             plain_ms=cuda_ms(lambda: splitter_scan_plain(
                 codes, s=s, k=k, sig_len=M, both_strands=both), 3),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-            launches=launches["splitter_scan_1d"])
+            bound_ms=bytes_ms, bound_by="bytes",
+            max_abs_err=err, launches=launches["splitter_scan_1d"])
         scan_rows[(k, both)] = row
         log(f"[phase 10] 1-D splitter scan s=2^22 k={k} both={both}: "
             f"bit-exact, kernel_ms {row['ms']:.4f} plain_ms "
-            f"{row['plain_ms']:.3f} bound_ms {row['bound_ms']:.4f} "
-            f"({nbytes} bytes)")
+            f"{row['plain_ms']:.3f} bound_ms {bytes_ms:.4f} (bytes: "
+            f"{nbytes}; share {bytes_ms / row['ms']:.2f}); the design's "
+            f"SASS instructions {instr_ms:.4f} ms (diagnostic)")
     del outs, inputs
     torch.cuda.empty_cache()
 
@@ -821,12 +1318,11 @@ MID_SPILL = {  # phase 11's stores: (batch positions, store rows) per route
 }
 
 
-def phase_spill_mid():
+def phase_spill_mid(fq):
     """The spilling count on phase 4's FASTQ, card against CPU, through
     both finalize routes; then stage-1 checkpoints across card and CPU."""
     from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
 
-    fq = WORK / "mid.fastq"
     for route, (s, rows) in MID_SPILL.items():
         kw = dict(batch_positions=s, device_store_rows=rows)
         reset_counts()
@@ -892,8 +1388,6 @@ def phase_spill_full():
     once, under torch.profiler, for the device's idle share; its spill,
     re-merge and host merge are NumPy on the host, so the profiler costs
     the wall little."""
-    from torch.profiler import ProfilerActivity, profile
-
     from kmc_tpu_torch.memory import plan_memory
 
     fq = WORK / "genome_134M_10x.fastq"
@@ -901,8 +1395,12 @@ def phase_spill_full():
     n_reads = write_fastq(fq, 1 << 27, 10, seed=0)
     log(f"[phase 12] wrote {n_reads} reads ({fq.stat().st_size} bytes) in "
         f"{time.perf_counter() - t0:.1f} s")
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.reset_peak_memory_stats()
     rss_before = _host_peak_rss()
+    # the device's spans only: no store labels and no all-threads host
+    # trace over this count's host-bound minutes
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     reset_counts()
     r1, r2, runner, wall = run_count(fq, WORK / "spill_out", "cuda",
@@ -933,7 +1431,7 @@ def phase_spill_full():
     log(f"[phase 12] host peak RSS (ru_maxrss) {rss} bytes after the count, "
         f"{rss_before} before it; -m 12 budget {plan.budget_bytes} bytes, "
         f"spill budget {plan.spill_budget_bytes} bytes")
-    _device_time(prof, "[phase 12]", wall)
+    _device_time(prof, "[phase 12]", wall, also=INGEST_KERNELS)
     del prof
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -962,38 +1460,73 @@ def timed(n, fn, *args):
     return result
 
 
-def main() -> int:
+def phase_scan_and_ingest():
+    """Phase 2: the scan entry, the fused ingest, one batch through the
+    store.  Returns the scan's and the fused ingest's rows."""
+    scan = phase_scan()
+    fused = phase_ingest()
+    phase_store_ingest()
+    return scan, fused
+
+
+# The phases in order: (number, function, the phase whose result it takes,
+# or None).  Phase 1 (phase_card) always runs first.
+PHASES = (
+    (2, phase_scan_and_ingest, None),
+    (3, phase_sort, None),
+    (4, phase_card_vs_cpu, None),
+    (5, phase_full, None),
+    (6, phase_profile, 5),
+    (7, phase_exchange, None),
+    (8, phase_sharded_mid, 4),
+    (9, phase_sharded_full, 5),
+    (10, phase_last_kernels, None),
+    (11, phase_spill_mid, 4),
+    (12, phase_spill_full, None),
+)
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     WORK.mkdir(exist_ok=True)
+    only = {int(a) for a in argv}
+    need = only | {dep for n, _, dep in PHASES if n in only and dep}
     t_all = time.perf_counter()
     phase_card()
-    scan = timed(2, phase_scan)
-    sort = timed(3, phase_sort)
-    timed(4, phase_card_vs_cpu)
-    fq, n_reads = timed(5, phase_full)
-    timed(6, phase_profile, fq)
-    exchange = timed(7, phase_exchange)
-    timed(8, phase_sharded_mid)
-    sharded = timed(9, phase_sharded_full, fq, n_reads)
-    scan_1d, probes = timed(10, phase_last_kernels)
-    timed(11, phase_spill_mid)
-    timed(12, phase_spill_full)
+    got = {}
+    for n, fn, dep in PHASES:
+        if not only or n in need:
+            got[n] = timed(n, fn, *(() if dep is None else (got[dep],)))
+    if only:  # a quick check: no kernels line, no ok line
+        log(f"[done] phases {sorted(need)} passed")
+        return 0
+    (scan, fused), sort, exchange = got[2], got[3], got[7]
+    sharded, (scan_1d, probes) = got[9], got[10]
 
     s27 = scan[(27, True)]
+    f27 = fused[(27, "bounds")]  # the main path's feed
     s26 = sort[(1 << 26, 2)]
     x2 = exchange[2]  # the unit exchange of k <= 27 moves 2 words a row
     kernels = [
+        {"name": "fused_ingest", "route": "cuda",
+         "source": "kmc_tpu_torch/csrc/extract.cu",
+         "replaces": "kmc_tpu/ops/store.py:296",
+         "launches": sharded["fused_ingest"],
+         "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
+         "ms": f27["ms"], "plain_ms": f27["plain_ms"],
+         "bound_ms": f27["bound_ms"], "bound_by": f27["bound_by"],
+         "library_ms": None},
         {"name": "splitter_scan", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/pallas_extract.py:312",
-         "launches": sharded["splitter_scan"],
+         "launches": s27["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in scan.values()),
          "ms": s27["ms"], "plain_ms": s27["plain_ms"],
-         "bound_ms": s27["bound_ms"], "bound_by": "bytes",
+         "bound_ms": s27["bound_ms"], "bound_by": s27["bound_by"],
          "library_ms": None},
         {"name": "radix_sort", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/radix_sort.cu",
@@ -1028,7 +1561,7 @@ def main() -> int:
          "launches": s1d["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in scan_1d.values()),
          "ms": s1d["ms"], "plain_ms": s1d["plain_ms"],
-         "bound_ms": s1d["bound_ms"], "bound_by": "bytes",
+         "bound_ms": s1d["bound_ms"], "bound_by": s1d["bound_by"],
          "library_ms": None})
     for name, line in (("probe_add1", 131), ("probe_gather_rows", 150),
                        ("probe_gather_lanes", 174)):
@@ -1051,4 +1584,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

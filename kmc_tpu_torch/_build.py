@@ -25,14 +25,26 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _SORT_ARGS = [_I32, ctypes.POINTER(_P), _P, _P, _I64, _I32, _I32, _I64,
               ctypes.POINTER(_I32), _I32, _I32, _P, _I64, _P]
+_SCAN_ARGS = [_I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P]
+# counts, occ, skm, prev_in, prev_out, s, k, sig_len, both_strands,
+# prefix_bits, fuse, stream
+_INGEST_TAIL = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
 # source name -> {C entry: argtypes}; every entry returns a cudaError_t
 SIGNATURES = {
     "extract": {
-        # codes, n_codes, sig, lanes, s, k, sig_len, both_strands, stream
-        "kmc_splitter_scan": [_P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P],
+        # device, codes, n_codes, sig, lanes, s, k, sig_len, both_strands,
+        # stream
+        "kmc_splitter_scan": _SCAN_ARGS,
         # the same arguments, under pallas_extract's 1-D contract
-        "kmc_splitter_scan_1d": [_P, _I64, _P, _P, _I64, _I32, _I32, _I32,
-                                 _P],
+        "kmc_splitter_scan_1d": _SCAN_ARGS,
+        # device, buf, n_buf, tail_start, scratch, cols, n_cols, n_used,
+        # counts, occ, skm, prev_in, prev_out, s, k, sig_len, both_strands,
+        # prefix_bits, fuse, stream
+        "kmc_ingest_bounds": [_I32, _P, _I64, _I64, _P, ctypes.POINTER(_P),
+                              _I32, _I64] + _INGEST_TAIL,
+        # the same without tail_start and scratch
+        "kmc_ingest_mask": [_I32, _P, _I64, ctypes.POINTER(_P), _I32,
+                            _I64] + _INGEST_TAIL,
     },
     "radix_sort": {
         # device, cols, out, scratch, stride, n_cols, n_keys, n, passes,

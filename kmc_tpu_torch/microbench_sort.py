@@ -156,9 +156,11 @@ def probe_inputs(n: int, device):
             torch.from_numpy(idx).to(dev), torch.from_numpy(idxl).to(dev))
 
 
-def _timeit(fn, dev, warmup=1, iters=3) -> float:
-    """Best seconds of fn() over iters runs after warm-up: CUDA events on
-    the card, the host clock on the CPU."""
+def _timeit(fn, dev, warmup=1, iters=3, reps=1) -> float:
+    """Best seconds of fn() over iters runs after warm-up, a run being the
+    mean of reps calls back to back (so the host's launch work hides
+    behind the device's after the first): CUDA events on the card, the
+    host clock on the CPU."""
     for _ in range(warmup):
         fn()
     best = float("inf")
@@ -168,14 +170,16 @@ def _timeit(fn, dev, warmup=1, iters=3) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(reps):
+                fn()
             end.record()
             end.synchronize()
-            secs = start.elapsed_time(end) / 1e3
+            secs = start.elapsed_time(end) / 1e3 / reps
         else:
             t0 = time.perf_counter()
-            fn()
-            secs = time.perf_counter() - t0
+            for _ in range(reps):
+                fn()
+            secs = (time.perf_counter() - t0) / reps
         best = min(best, secs)
     return best
 
@@ -200,8 +204,13 @@ def sec_pallas(n: int | None = None, device="cuda") -> dict:
             (probe_gather_lanes, "in-VMEM take(lanes)",
              probe_gather_lanes_plain, (x, idxl))):
         name = fn.__name__
-        secs = _timeit(lambda: fn(*args), dev)
-        lib_secs = _timeit(lambda: plain(*args), dev)
+        fn(*args)  # warm-up
+        plain(*args)
+        secs = lib_secs = float("inf")
+        for _ in range(10):  # best of 10, in turns: drift hits both alike
+            secs = min(secs, _timeit(lambda: fn(*args), dev, 0, 1, 10))
+            lib_secs = min(lib_secs,
+                           _timeit(lambda: plain(*args), dev, 0, 1, 10))
         report(f"{name} {label}", n, secs, nbytes)
         print(f"  {name}: {secs * 1e3:.4f} ms, bound {bound_ms:.4f} ms "
               f"(2 x 4 B x N at 3.35 TB/s), library {lib_secs * 1e3:.4f} ms",

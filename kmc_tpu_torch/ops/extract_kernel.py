@@ -1,12 +1,14 @@
 """The splitter scan: per start position, signature + canonical k-mer lanes.
 
 Kernel: csrc/extract.cu, the Hopper port of the TPU kernels
-kmc_tpu/ops/pallas_extract.py::pallas_extract2d (extract_splitter_scan, the
-ingest's entry) and ::pallas_extract (extract_splitter_scan_1d, the 1-D
-tile layout's contract; no ingest path calls it), see the source for the
-design and bound.  Plain version: splitter_scan_plain below, built from
-ops/extract.py; it runs for CPU tensors and is what the kernel is held
-against on the card.
+kmc_tpu/ops/pallas_extract.py::pallas_extract2d (extract_splitter_scan) and
+::pallas_extract (extract_splitter_scan_1d, the 1-D tile layout's
+contract), see the source for the design and bound.  Both entries read a
+u8 code stream; the store's ingest does not call them: it runs the same
+device code on the packed feed inside one fused launch per batch
+(ops/ingest_kernel.py), so no decoded code stream is ever written.  Plain
+version: splitter_scan_plain below, built from ops/extract.py; it runs for
+CPU tensors and is what the kernel is held against on the card.
 """
 from __future__ import annotations
 
@@ -71,8 +73,9 @@ def extract_splitter_scan(codes: torch.Tensor, *, s: int, k: int,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.kmc_splitter_scan(
-            codes.data_ptr(), codes.numel(), sig.data_ptr(), lanes.data_ptr(),
-            s, k, sig_len, int(both_strands), stream)
+            codes.device.index, codes.data_ptr(), codes.numel(),
+            sig.data_ptr(), lanes.data_ptr(), s, k, sig_len,
+            int(both_strands), stream)
     _build.check(lib, err, "splitter scan launch")
     extract_splitter_scan.launches += 1
     return sig, lanes
@@ -119,8 +122,9 @@ def extract_splitter_scan_1d(codes: torch.Tensor, *, s: int, k: int,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.kmc_splitter_scan_1d(
-            codes.data_ptr(), codes.numel(), sig.data_ptr(), lanes.data_ptr(),
-            s, k, sig_len, int(both_strands), stream)
+            codes.device.index, codes.data_ptr(), codes.numel(),
+            sig.data_ptr(), lanes.data_ptr(), s, k, sig_len,
+            int(both_strands), stream)
     _build.check(lib, err, "1-D splitter scan launch")
     extract_splitter_scan_1d.launches += 1
     return sig, list(lanes.unbind(0))

@@ -8,10 +8,11 @@ Dead rows (windows holding a sentinel) are all-ones in every column and sort
 after every live row.  Counts are implicitly 1 until the first compaction
 (or external append) materializes a counts column.
 
-  ingest    per batch: decode the boundary-delta (or packed+mask) feed, run
-            the splitter-scan kernel (ops/extract_kernel.py), map signature
-            -> bin, fuse the key columns and write them in place at n_used;
-            occurrence and super-k-mer totals accumulate on the device.
+  ingest    per batch, one fused kernel launch (ops/ingest_kernel.py):
+            decode the boundary-delta (or packed+mask) feed, run the
+            splitter scan, map signature -> bin, fuse the key columns and
+            write them in place at n_used; occurrence and super-k-mer
+            totals accumulate on the device.
   compact   when the store is full: the grouping-sort kernel
             (ops/sort_kernel.py) orders the live rows, group starts come
             from torch.nonzero, group totals are differences of an int64
@@ -48,9 +49,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..io.readers import batch_len
-from .extract import _unpack_device, i32_to_u32, u32_to_i32
-from .extract_kernel import extract_splitter_scan
+from .extract import i32_to_u32, u32_to_i32
+from .ingest_kernel import ingest
 from .sort_kernel import radix_sort_columns
 
 _DEAD = -1  # all-ones u32 as an int32 bit view
@@ -73,49 +73,6 @@ def prefix_sig_map(sig_len: int, prefix_bits: int) -> np.ndarray:
     msize = (1 << (2 * sig_len)) + 1
     shift = 2 * sig_len - prefix_bits
     return (np.arange(msize, dtype=np.int64) >> shift).astype(np.int32)
-
-
-def _split_fused(buf: torch.Tensor, s: int, k: int):
-    """The packed+mask feed as (packed, mask) views (mirrors
-    store._split_fused)."""
-    L = batch_len(s, k)
-    return buf[: L // 4], buf[L // 4 :]
-
-
-def _unpack_boundaries(buf: torch.Tensor, tail_start: int, *, s: int, k: int):
-    """Decode the boundary-delta feed (io/native.py::pack_codes_boundaries):
-    2-bit packed codes ++ little-endian u16 sentinel-position deltas.
-    Returns (c4 int64[L], bad int64[L]); bad[i] = 1 iff i is a listed
-    sentinel or batch padding (i >= tail_start).  Mirrors
-    store._unpack_boundaries."""
-    L = batch_len(s, k)
-    p = buf[: L // 4].to(torch.int64)
-    c4 = torch.stack([(p >> 6) & 3, (p >> 4) & 3, (p >> 2) & 3, p & 3],
-                     dim=1).reshape(-1)
-    d8 = buf[L // 4 :].to(torch.int64).reshape(-1, 2)
-    deltas = d8[:, 0] | (d8[:, 1] << 8)
-    pos = torch.cumsum(deltas, 0) - 1  # padding slots repeat the last
-    bad = torch.zeros(L + 1, dtype=torch.int64, device=buf.device)
-    bad[torch.where(pos >= 0, pos, L)] = 1
-    bad = bad[:L]
-    bad |= (torch.arange(L, device=buf.device) >= tail_start).to(torch.int64)
-    return c4, bad
-
-
-def _codes_from(c4: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
-    """(c4, bad) -> the u8 code stream the splitter scan takes (4 marks a
-    sentinel)."""
-    return torch.where(bad != 0, 4, c4).to(torch.uint8)
-
-
-def _key_cols_from(bins, lanes, valid, *, fuse: bool, r0: int):
-    """Store key columns (int32 bit views) from per-position bins (int64)
-    and lanes (int32 views; all-ones where invalid).  Mirrors
-    store._key_cols_from."""
-    if fuse:
-        col0 = (bins << (2 * r0)) | i32_to_u32(lanes[0])
-        return [torch.where(valid, u32_to_i32(col0), _DEAD)] + list(lanes[1:])
-    return [torch.where(valid, u32_to_i32(bins), _DEAD)] + list(lanes)
 
 
 def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True):
@@ -370,38 +327,26 @@ class DeviceKmerStore:
     def ingest_boundaries(self, buf, tail_start: int, *, s: int):
         """Ingest one batch in the boundary-delta feed format
         (io/native.py::pack_codes_boundaries)."""
-        c4, bad = _unpack_boundaries(self._to_device(buf), int(tail_start),
-                                     s=s, k=self.k)
-        self._ingest(_codes_from(c4, bad), s)
+        self._ingest(buf, int(tail_start), s)
 
     def ingest_fused(self, buf, *, s: int):
         """Ingest one batch in the packed+mask feed format
         (io/native.py::pack_codes_fused)."""
-        packed, mask = _split_fused(self._to_device(buf), s, self.k)
-        self._ingest(_codes_from(*_unpack_device(packed, mask)), s)
+        self._ingest(buf, None, s)
 
-    def _ingest(self, codes: torch.Tensor, s: int):
-        """Splitter scan + bin + append of one decoded batch (mirrors
-        store._ingest_binning), in place at rows [n_used, n_used + s)."""
+    def _ingest(self, buf, tail_start, s: int):
+        """The fused ingest (ops/ingest_kernel.py: decode, splitter scan,
+        bin, append; mirrors kmc_tpu's _ingest_prefix_bounds /
+        _ingest_prefix_fused) of one batch, in place at rows [n_used,
+        n_used + s).  The feed reaches the device after _make_room, so no
+        batch is held there while the store compacts."""
         self._make_room(s)
-        sig, lanes = extract_splitter_scan(
-            codes, s=s, k=self.k, sig_len=self.sig_len,
-            both_strands=self.both_strands)
-        valid = sig != _DEAD
-        # a super-k-mer starts at each valid position whose signature
-        # differs from its predecessor's (KMC splitter.cpp:557-677)
-        prev = torch.cat([self.prev_sig, sig[:-1]])
-        self.skm_acc += (valid & (sig != prev)).sum()
-        self.occ_acc += valid.sum()
-        self.prev_sig = sig[-1:].clone()
-        bins = i32_to_u32(sig) >> (2 * self.sig_len - self.prefix_bits)
-        cols = _key_cols_from(bins, lanes, valid, fuse=self.fuse, r0=self.r0)
-        lo, hi = self.n_used, self.n_used + s
-        for dst, src in zip(self.key_cols, cols):
-            dst[lo:hi] = src
-        if self.counts is not None:
-            self.counts[lo:hi] = 1
-        self.n_used = hi
+        self.prev_sig = ingest(
+            self._to_device(buf), tail_start, self.key_cols, self.counts,
+            self.n_used, self.occ_acc, self.skm_acc, self.prev_sig, s=s,
+            k=self.k, sig_len=self.sig_len, both_strands=self.both_strands,
+            prefix_bits=self.prefix_bits, fuse=self.fuse)
+        self.n_used += s
         self.total_appended_rows += s
         self._since_compact += s
         thr = _autocompact_rows()

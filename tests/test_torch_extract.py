@@ -18,7 +18,7 @@ from kmc_tpu_torch.ops.extract import _unpack_device as torch_unpack_device
 from kmc_tpu_torch.ops.extract_kernel import (extract_splitter_scan,
                                               extract_splitter_scan_1d,
                                               splitter_scan_plain)
-from kmc_tpu_torch.ops.store import _unpack_boundaries
+from kmc_tpu_torch.ops.ingest_kernel import _unpack_boundaries
 
 M = 9
 

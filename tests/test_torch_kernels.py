@@ -74,6 +74,99 @@ def test_splitter_scan_1d_matches_plain(k, both):
         assert torch.equal(got.cpu(), want)
 
 
+def _feed_batch(k, s, seed, dense):
+    """One batch's feed: read-like codes in the boundary-delta format with
+    40 padding sentinels (tail_start inside the batch), or sentinel-dense
+    codes in the packed+mask format (tail_start None)."""
+    from kmc_tpu_torch.io.native import (pack_codes_boundaries,
+                                         pack_codes_fused)
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, batch_len(s, k)).astype(np.uint8)
+    if dense:
+        codes[rng.random(len(codes)) < 0.2] = 4
+        return torch.from_numpy(pack_codes_fused(codes)), None
+    if len(codes) >= 1024:  # room in the delta list for reads and Ns
+        codes[rng.integers(0, 300)::max(151, 2 * k + 1)] = 4
+        codes[rng.random(len(codes)) < 1e-3] = 4
+    codes[-40:] = 4
+    buf, ts = pack_codes_boundaries(codes)
+    assert buf is not None and ts == len(codes) - 40
+    return torch.from_numpy(buf), ts
+
+
+def _check_ingest(k, both, s, n_used, feeds, with_counts, device="cuda"):
+    from kmc_tpu_torch.ops.ingest_kernel import ingest, ingest_plain
+    from kmc_tpu_torch.ops.store import prefix_bin_bits
+
+    prefix_bits, fuse = prefix_bin_bits(k, M, 512)
+    n_cols = (k + 15) // 16 + (0 if fuse else 1)
+    cap = n_used + len(feeds) * s + 5
+    rng = np.random.default_rng(k + s)
+    init = [torch.from_numpy(rng.integers(-2**31, 2**31, cap,
+                                          dtype=np.int64).astype(np.int32))
+            for _ in range(n_cols + 1)]
+    state = {}
+    for dev in ("cpu", device):
+        cols = [c.clone().to(dev) for c in init[:n_cols]]
+        counts = init[-1].clone().to(dev) if with_counts else None
+        occ = torch.tensor(2**32 - 7, dtype=torch.int64, device=dev)
+        skm = torch.tensor(5, dtype=torch.int64, device=dev)
+        prev = torch.tensor([-1], dtype=torch.int32, device=dev)
+        rows = n_used
+        for buf, ts in feeds:
+            fn = ingest_plain if dev == "cpu" else ingest
+            before = ingest.launches
+            prev = fn(buf.to(dev), ts, cols, counts, rows, occ, skm, prev,
+                      s=s, k=k, sig_len=M, both_strands=both,
+                      prefix_bits=prefix_bits, fuse=fuse)
+            if dev != "cpu":
+                assert ingest.launches == before + 1
+            rows += s
+        torch.cuda.synchronize(device)
+        state[dev] = [t.cpu() for t in cols + ([counts] if with_counts
+                                               else []) + [occ, skm, prev]]
+    for got, want in zip(state[device], state["cpu"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [14, 27, 32, 33, 55, 256])
+@pytest.mark.parametrize("both", [True, False])
+def test_fused_ingest_matches_plain(k, both):
+    """Two batches in a row (prev_sig carries), boundary-delta then
+    packed+mask, at a non-aligned n_used, s not a multiple of the tile."""
+    _need_card()
+    s = 3 * 2048 + 8
+    feeds = [_feed_batch(k, s, seed=k, dense=False),
+             _feed_batch(k, s, seed=k + 1, dense=True)]
+    _check_ingest(k, both, s, n_used=1001, feeds=feeds, with_counts=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,n_used", [(1024, 0), (1024, 3), (8, 6),
+                                      ((1 << 16) + 8, 12345)])
+@pytest.mark.parametrize("dense", [False, True])
+def test_fused_ingest_tile_edges_and_counts(s, n_used, dense):
+    """Exactly one tile, a tile plus aligned and unaligned store offsets,
+    one group of 8 rows, and a counts column."""
+    _need_card()
+    feeds = [_feed_batch(27, s, seed=s + n_used, dense=dense),
+             _feed_batch(27, s, seed=s + n_used + 1, dense=dense)]
+    _check_ingest(27, True, s, n_used, feeds, with_counts=True)
+
+
+@pytest.mark.gpu
+def test_fused_ingest_on_second_card():
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs at least 2 CUDA cards, found {n}")
+    s = 4096
+    feeds = [_feed_batch(33, s, seed=1, dense=False)]
+    _check_ingest(33, True, s, 7, feeds, with_counts=True, device="cuda:1")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["probe_add1", "probe_gather_rows",
                                   "probe_gather_lanes"])
