@@ -39,7 +39,9 @@ Phases (any failure exits non-zero):
      version: 4 shards, segments of 2^24 rows, 2 and 3 words a row;
   8. the sharded count (distributed_count, 4 shards) on phase 4's FASTQ
      with small shards that compact: the card's database must equal the
-     CPU's and phase 4's single-device one, byte for byte;
+     CPU's and phase 4's single-device one, byte for byte; then with shards
+     of 2^19 rows that spill, whose runs the owners merge on their cards:
+     the same three-way equality, and equal spills and re-merges;
   9. the sharded count at full size (phase 5's FASTQ and knobs, the -m 12
      plan per shard): its database must equal phase 5's byte for byte;
      then the same run under torch.profiler, as phase 6;
@@ -60,10 +62,18 @@ Phases (any failure exits non-zero):
      genome (134 Mbp) at 10x, k = 27, -ci2, batches of 2^22, default
      -m 12 (2^26 store rows): about twice the store's rows in unique
      k-mers, so it spills, re-merges under the budget and finalizes by the
-     host merge; n_total_kmers must be n_reads x 124 and its DB must equal
-     a non-spilling card count's (device_store_rows = 2^28).  The count
-     runs under torch.profiler for the device's spans only (no store
-     labels, no all-threads host trace).
+     host route, both merges on the card (their seconds, their radix-sort
+     launches, the peak device memory and the host's peak RSS printed);
+     n_total_kmers must be n_reads x 124 and its DB must equal a
+     non-spilling card count's (device_store_rows = 2^28).  The count runs
+     under torch.profiler for the device's spans only (no store labels, no
+     all-threads host trace);
+ 13. the same input and knobs over 4 shards of 2^26 rows (on distinct
+     cards where there are several): the shards spill and re-merge, the
+     owners merge the spilled runs on their cards, n_total must be n_reads
+     x 124 and the DB must equal phase 12's non-spilling DB byte for byte;
+     wall, stage splits, spills, re-merges, merge seconds and each card's
+     peak memory printed.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
@@ -1158,6 +1168,35 @@ def phase_sharded_mid(fq):
         f"per shard; n_total {st['n_total']} n_unique {st['n_unique']}; "
         f"launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
 
+    # shards of 2^19 rows against ~1 M unique k-mers a shard: they spill,
+    # and the owners merge the spilled runs on their cards
+    kw = dict(batch_positions=1 << 18, capacity_rows_per_device=1 << 19)
+    reset_counts()
+    st, wall = run_sharded(fq, WORK / "mid_sharded_spill_cuda", devices, **kw)
+    launches = read_counts(SHARDED_PATH)
+    c_st, c_wall = run_sharded(fq, WORK / "mid_sharded_spill_cpu",
+                               ["cpu"] * len(devices), **kw)
+    for other in ("mid_sharded_spill_cpu", "mid_cuda"):
+        if not _same_db(WORK / "mid_sharded_spill_cuda", WORK / other):
+            raise SystemExit(f"phase 8: the spilling sharded card DB differs "
+                             f"from {other}")
+    keys += ("n_spills", "n_remerges")
+    if any(st[key] != c_st[key] for key in keys):
+        raise SystemExit(f"phase 8: spilling card and CPU stats differ: {st} "
+                         f"{c_st}")
+    if st["n_spills"] < 1 or st["merge_launches"] < 1:
+        raise SystemExit(f"phase 8: the shards never spilled or the merge "
+                         f"never sorted on the card: {st}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"phase 8: a kernel never launched: {launches}")
+    log(f"[phase 8] spilling sharded count (shards of 2^19 rows): card DB == "
+        f"CPU DB == phase 4 DB byte for byte; {st['n_compactions']} "
+        f"compactions, {st['n_spills']} spills, {st['n_remerges']} re-merges, "
+        f"finalize_exec_s (owners' merges) "
+        f"{st['timings']['finalize_exec_s']:.3f}, radix-sort launches in "
+        f"the merges {st['merge_launches']}; launches {launches}; card "
+        f"{wall:.2f} s, cpu {c_wall:.2f} s")
+
 
 def phase_sharded_full(full):
     """distributed_count at full size: phase 5's input and knobs, the -m 12
@@ -1340,19 +1379,23 @@ def phase_spill_mid(fq):
         if st["n_spills"] < 2 or st["finalize_route"] != route:
             raise SystemExit(f"phase 11: expected >= 2 spills and the "
                              f"{route} route, got {st}")
-        if ({k: v for k, v in st.items() if not k.startswith("t_")}
-                != {k: v for k, v in c_st.items() if not k.startswith("t_")}
+        counted = [k for k in st if not k.startswith("t_")
+                   and k != "merge_launches"]  # the CPU launches no kernel
+        if ({k: st[k] for k in counted} != {k: c_st[k] for k in counted}
                 or n_comp != c_comp):
             raise SystemExit(f"phase 11: card and CPU spills differ: {st} "
                              f"{c_st}")
-        if min(launches.values()) == 0:
-            raise SystemExit(f"phase 11: a kernel never launched: {launches}")
+        if min(launches.values()) == 0 or (route == "host"
+                                           and st["merge_launches"] < 1):
+            raise SystemExit(f"phase 11: a kernel never launched: {launches},"
+                             f" {st['merge_launches']} in the merges")
         log(f"[phase 11] {route} route (batches {s}, {rows} store rows): "
             f"card DB == CPU DB == phase 4 DB byte for byte; {n_comp} "
             f"compactions, {st['n_spills']} spills of {st['spill_bytes']} "
             f"bytes, {st['n_remerges']} re-merges; spill D2H "
-            f"{st['t_spill_d2h']:.3f} s, host merge {st['t_host_merge']:.3f}"
-            f" s; launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
+            f"{st['t_spill_d2h']:.3f} s, merge {st['t_host_merge']:.3f} s "
+            f"({st['merge_launches']} radix-sort launches); launches "
+            f"{launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
 
     # checkpoints with spilled runs: card -> CPU and CPU -> card
     s, rows = MID_SPILL["host"]
@@ -1385,9 +1428,10 @@ def _host_peak_rss() -> int:
 def phase_spill_full():
     """The deployment: a 134 Mbp genome at 10x, about twice the default
     store's rows in unique k-mers, counted under -m 12.  The count runs
-    once, under torch.profiler, for the device's idle share; its spill,
-    re-merge and host merge are NumPy on the host, so the profiler costs
-    the wall little."""
+    once, under torch.profiler (the device's spans only), for the device's
+    idle share; its re-merge and its final merge run on the card, the
+    host completer on the host.  Returns the FASTQ, its reads and the
+    non-spilling count's DB for phase 13, which deletes them."""
     from kmc_tpu_torch.memory import plan_memory
 
     fq = WORK / "genome_134M_10x.fastq"
@@ -1418,14 +1462,19 @@ def phase_spill_full():
         raise SystemExit(f"phase 12: the count never spilled: {st}")
     if min(launches.values()) == 0:
         raise SystemExit(f"phase 12: a kernel never launched: {launches}")
+    # each merge sorts at least one key range on the card
+    if st["merge_launches"] < st["n_remerges"] + (
+            st["finalize_route"] == "host"):
+        raise SystemExit(f"phase 12: a merge never sorted on the card: {st}")
     log(f"[phase 12] spilling count: n_total_kmers {r2.n_total_kmers} (= "
         f"{n_reads} x 124), n_unique {r2.n_unique_kmers}, wall_s {wall:.3f} "
         f"stage1_s {r1.time:.3f} stage2_s {r2.time:.3f} finalize_exec_s "
         f"{r2.time_finalize_exec:.3f} compactions {n_comp} spills "
         f"{st['n_spills']} spill_bytes {st['spill_bytes']} spill_d2h_s "
         f"{st['t_spill_d2h']:.3f} remerges {st['n_remerges']} remerge_s "
-        f"{st['t_remerge']:.3f} host_merge_s {st['t_host_merge']:.3f} route "
-        f"{st['finalize_route']} max_memory_allocated {peak} launches "
+        f"{st['t_remerge']:.3f} host_merge_s {st['t_host_merge']:.3f} "
+        f"(merges on the card: {st['merge_launches']} radix-sort launches) "
+        f"route {st['finalize_route']} max_memory_allocated {peak} launches "
         f"{launches} kmers_per_s {r2.n_total_kmers / wall:.0f}")
     plan = plan_memory(12, k=27, batch_positions=1 << 22)
     log(f"[phase 12] host peak RSS (ru_maxrss) {rss} bytes after the count, "
@@ -1446,10 +1495,64 @@ def phase_spill_full():
     log(f"[phase 12] non-spilling count (2^28 store rows): DB == spilling "
         f"DB byte for byte; wall_s {b_wall:.3f}, compactions {b_comp}, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
-    for path in (fq, *(WORK / f"{name}{suf}" for name in ("spill_out",
+    for suf in (".kmc_pre", ".kmc_suf"):
+        (WORK / f"spill_out{suf}").unlink()
+    torch.cuda.empty_cache()
+    return fq, n_reads, WORK / "spill_ref"
+
+
+def phase_sharded_spill_full(spill):
+    """The spilling deployment over 4 shards: phase 12's FASTQ and knobs
+    (batches of 2^22, default -m 12, so 2^26 rows a shard), on distinct
+    cards where there are several.  The shards spill and re-merge under
+    the budget, and each owner merges the spilled rows of its bins on its
+    card; the DB must equal phase 12's non-spilling DB byte for byte."""
+    fq, n_reads, ref = spill
+    devices = shard_devices()
+    kind = ("distinct cards" if len(set(devices)) > 1
+            else "4 shards on card 0")
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    rss_before = _host_peak_rss()
+    reset_counts()
+    st, wall = run_sharded(fq, WORK / "spill_sharded", devices,
+                           batch_positions=1 << 22,
+                           capacity_rows_per_device=None)
+    launches = read_counts(SHARDED_PATH)
+    peaks = {i: torch.cuda.max_memory_allocated(i)
+             for i in range(torch.cuda.device_count())}
+    want = n_reads * (150 - 27 + 1)
+    if st["n_total"] != want:
+        raise SystemExit(f"phase 13: n_total {st['n_total']} != {n_reads} "
+                         f"reads x 124 = {want}")
+    if st["n_spills"] < 1 or st["merge_launches"] < 1:
+        raise SystemExit(f"phase 13: the shards never spilled or the merges "
+                         f"never sorted on the card: {st}")
+    if not _same_db(WORK / "spill_sharded", ref):
+        raise SystemExit("phase 13: the sharded spilling DB differs from "
+                         "phase 12's non-spilling DB")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"phase 13: a kernel never launched: {launches}")
+    t = st["timings"]
+    log(f"[phase 13] sharded spilling count on {devices} ({kind}): DB == "
+        f"phase 12's non-spilling DB byte for byte; n_total {st['n_total']} "
+        f"(= {n_reads} x 124), n_unique {st['n_unique']}, wall_s {wall:.3f}, "
+        + ", ".join(f"{key} {t[key]:.3f}" for key in (
+            "ingest_wall_s", "spill_s", "remerge_s", "owner_hist_s",
+            "exchange_groupsort_s", "finalize_exec_s", "finalize_d2h_s",
+            "finalize_wall_s"))
+        + f" (finalize_exec_s holds the owners' merges), compactions "
+        f"{st['n_compactions']}, spills {st['n_spills']}, remerges "
+        f"{st['n_remerges']}, radix-sort launches in the merges "
+        f"{st['merge_launches']}, max_memory_allocated per card {peaks}, "
+        f"launches {launches}, kmers_per_s {st['n_total'] / wall:.0f}")
+    log(f"[phase 13] host peak RSS (ru_maxrss) {_host_peak_rss()} bytes after "
+        f"the count, {rss_before} before it")
+    for path in (fq, *(WORK / f"{name}{suf}" for name in ("spill_sharded",
                                                           "spill_ref")
                        for suf in (".kmc_pre", ".kmc_suf"))):
         path.unlink()
+    torch.cuda.empty_cache()
 
 
 def timed(n, fn, *args):
@@ -1483,6 +1586,7 @@ PHASES = (
     (10, phase_last_kernels, None),
     (11, phase_spill_mid, 4),
     (12, phase_spill_full, None),
+    (13, phase_sharded_spill_full, 12),
 )
 
 

@@ -22,18 +22,25 @@ after every live row.  Counts are implicitly 1 until the first compaction
             compacted rows go to host RAM as one sorted run (uint32 numpy
             columns + uint32 counts, kmc_tpu's layout) and the store starts
             empty; runs whose bytes cross the -m spill budget are re-merged
-            on the host.
+            into one.
   finalize  spilled runs are replayed into the store first; then the same
             reduction and the completer: cutoffs, the exact KMC2 record
             bytes (suffix + little-endian counter) and the per-(bin, prefix)
             LUT, copied to the host in one piece.  When the replayed unique
-            set outgrows the store, the runs are merged on the host and the
-            host completer writes the records instead.
+            set outgrows the store, the runs and the store are merged and
+            the host completer (NumPy) writes the records instead: the
+            "host" route.
+  merge     every merge of spilled runs (the re-merge and the host route's
+            merge; the sharded store's too) runs on the store's device
+            (merge_runs): the runs stay in host RAM and are cut at common
+            column-0 values into key ranges that fit the device's free
+            memory, each uploaded, sorted by the grouping-sort kernel and
+            reduced to exact int64 totals, then copied back.
 
 Count arithmetic follows kmc_tpu path by path: device group totals wrap mod
 2^32 (a group that wraps to 0 is dropped), the early re-merge of spilled
-runs clamps at 0xFFFFFFFF, and the host merge keeps u64 totals that the host
-completer clamps to counter_max.
+runs clamps at 0xFFFFFFFF, and the host route's merge keeps u64 totals that
+the host completer clamps to counter_max.
 
 Columns are int32 tensors holding u32 bit patterns (torch's uint32 lacks the
 needed arithmetic); lane math runs in int64 (see ops/extract.py).  The
@@ -75,14 +82,15 @@ def prefix_sig_map(sig_len: int, prefix_bits: int) -> np.ndarray:
     return (np.arange(msize, dtype=np.int64) >> shift).astype(np.int32)
 
 
-def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True):
+def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True,
+                  wrap: bool = True):
     """Sort live rows by their key columns and merge equal keys.
 
     cols: int32 key columns of the live rows; counts: their int32 (u32)
     counts, or None when every row weighs 1.  Returns (representative key
     columns in key order, int64 totals), totals taken mod 2^32 like the
-    u32 arithmetic of kmc_tpu's store; groups whose total is 0 are dropped
-    unless drop_zero is False."""
+    u32 arithmetic of kmc_tpu's store (exact when wrap is False); groups
+    whose total is 0 are dropped unless drop_zero is False."""
     n = cols[0].shape[0]
     dev = cols[0].device
     if n == 0:
@@ -101,7 +109,9 @@ def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True):
     else:
         cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                         torch.cumsum(i32_to_u32(sorted_cols[n_keys]), 0)])
-        totals = (cs[ends] - cs[starts]) & 0xFFFFFFFF
+        totals = cs[ends] - cs[starts]
+        if wrap:
+            totals &= 0xFFFFFFFF
     reps = [c[starts] for c in keys]
     if not drop_zero:
         return reps, totals
@@ -174,27 +184,185 @@ def _host_u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
 
 
-def _merge_runs(runs, n_cols: int):
-    """Concatenate sorted (cols, counts) runs and merge equal rows on the
-    host (kmc_tpu's sort + reduceat).  Returns (sorted unique columns,
-    u64 totals); dead rows (count 0) merge into one group of total 0."""
-    if not runs:
-        return [np.zeros(0, np.uint32)] * n_cols, np.zeros(0, np.uint64)
-    cols = [np.concatenate([r[0][j] for r in runs]) for j in range(n_cols)]
-    counts = np.concatenate([r[1] for r in runs]).astype(np.uint64)
-    order = np.lexsort(tuple(cols[::-1]))  # cols[0] is the primary key
-    cols = [c[order] for c in cols]
-    counts = counts[order]
-    del order
-    n = len(counts)
-    if n == 0:
-        return cols, counts
-    new = np.zeros(n, bool)
-    new[0] = True
-    for c in cols:
-        new[1:] |= c[1:] != c[:-1]
-    starts = np.flatnonzero(new)
-    return [c[starts] for c in cols], np.add.reduceat(counts, starts)
+# -- merging sorted runs on a device --
+#
+# kmc_tpu merges spilled runs with a host lexsort + reduceat.  Here the runs
+# stay in host RAM and a merge borrows device memory for a moment: each run
+# is sorted by its key columns, so all runs are cut at the same column-0
+# values into key ranges that fit the device (rows of one key share column
+# 0, so no group straddles two ranges), and each range is uploaded, sorted
+# by the grouping-sort kernel and reduced in turn.
+
+
+def _merge_row_bytes(n_keys: int) -> int:
+    """Device bytes a row of a merge may take: its key and count columns
+    three times (the upload, the sort's output and scratch), the int64
+    prefix sums, group starts and totals, and room for what the caller does
+    with the groups."""
+    return 16 * (n_keys + 1) + 96
+
+
+def _merge_rows(device, n_keys: int, max_bytes):
+    """Rows one key range may hold: max_bytes (default: the device memory
+    free to torch; no limit on the CPU) over the bytes of a row."""
+    if max_bytes is None:
+        if device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(device)
+        max_bytes = (free + torch.cuda.memory_reserved(device)
+                     - torch.cuda.memory_allocated(device))
+    return max(1, int(max_bytes) // _merge_row_bytes(n_keys))
+
+
+def _live_run(cols, counts):
+    """A sorted run without its dead rows (count 0, all-ones keys: a
+    compaction writes each group whose total wraps to 0 and one trailing
+    row so), as (key columns, counts, number of dead rows).  A host run
+    stays a view when its dead rows are a suffix."""
+    if isinstance(counts, np.ndarray):
+        dead = counts == 0
+        n_dead = int(np.count_nonzero(dead))
+        n = len(counts) - n_dead
+        if n_dead and not dead[n:].all():
+            live = ~dead
+            return [c[live] for c in cols], counts[live], n_dead
+        return [c[:n] for c in cols], counts[:n], n_dead
+    live = counts != 0
+    n_dead = live.numel() - int(live.sum())
+    if n_dead:
+        idx = torch.nonzero(live).squeeze(1)
+        return [c[idx] for c in cols], counts[idx], n_dead
+    return list(cols), counts, 0
+
+
+def _first_rows(key0, values: np.ndarray) -> np.ndarray:
+    """For each value (int64, 0..2^32), the first row of a run whose column
+    0 is at or above it.  key0: the run's column 0, uint32 numpy or an
+    int64 tensor of u32 values."""
+    if isinstance(key0, np.ndarray):
+        pos = np.searchsorted(
+            key0, np.minimum(values, 0xFFFFFFFF).astype(np.uint32))
+        return np.where(values > 0xFFFFFFFF, len(key0), pos)
+    return torch.searchsorted(
+        key0, torch.from_numpy(values).to(key0.device)).cpu().numpy()
+
+
+def _key_ranges(key0s, lo, hi, max_rows):
+    """Cut the rows whose column 0 lies in [lo, hi) (None: unbounded) into
+    key ranges of at most max_rows rows (None: one range), at the same
+    column-0 values in every run.  Returns per range, in key order, the
+    (first, end) rows of each run.  Raises MemoryError when the rows of one
+    column-0 value alone exceed max_rows."""
+    lens = np.array([len(k) for k in key0s], np.int64)
+
+    def rows_at(values):  # int64[len(values), n_runs]
+        values = np.asarray(values, np.int64)
+        return np.stack([_first_rows(k, values) for k in key0s], axis=1)
+
+    first = rows_at([lo])[0] if lo is not None else np.zeros_like(lens)
+    end = rows_at([hi])[0] if hi is not None else lens
+    if max_rows is None or int((end - first).sum()) <= max_rows:
+        return [(first, end)]
+    # candidate cuts: each run's column 0 every `step` rows, and each of
+    # those values + 1.  Between two neighbouring candidates lie either the
+    # rows of one value or at most `step` rows of each run.
+    step = max(1, max_rows // (2 * len(key0s)))
+    samples = [k[a:b:step] for k, a, b in zip(key0s, first, end)]
+    cand = np.concatenate([s if isinstance(s, np.ndarray) else s.cpu().numpy()
+                           for s in samples]).astype(np.int64)
+    cand = np.unique(np.concatenate([cand, cand + 1]))
+    cand = cand[cand > (-1 if lo is None else lo)]
+    if hi is not None:
+        cand = cand[cand < hi]
+    pos = np.concatenate([first[None], rows_at(cand), end[None]])
+    below = (pos - first).sum(axis=1)
+    ranges, i = [], 0
+    while i < len(pos) - 1:
+        j = int(np.searchsorted(below, below[i] + max_rows, side="right")) - 1
+        if j <= i:
+            raise MemoryError(
+                f"{below[i + 1] - below[i]} rows share one column-0 value; a "
+                f"merge on this device takes at most {max_rows} rows at once")
+        ranges.append((pos[i], pos[j]))
+        i = j
+    return ranges
+
+
+def merge_runs(runs, n_keys: int, device, emit, *, max_bytes=None, lo=None,
+               hi=None) -> int:
+    """Merge sorted runs of rows on `device` (the grouping-sort kernel on a
+    card, its plain version on the CPU).
+
+    runs: (key columns, counts) pairs, each run sorted by its n_keys key
+    columns compared as u32, given as uint32 numpy arrays (host runs) or
+    int32 bit-view tensors on `device`.  Dead rows (count 0) take no part.
+    Only rows whose column 0 lies in [lo, hi) (None: unbounded) are merged,
+    in key ranges that each fit max_bytes of device memory (see _merge_rows;
+    a test passes a small limit to force many ranges).  For each range in
+    key order, emit(representative key columns, exact int64 totals)
+    receives its groups, on `device`.  Returns the number of dead rows."""
+    device = torch.device(device)
+    live = [_live_run(cols, counts) for cols, counts in runs]
+    n_dead = sum(x[2] for x in live)
+    if not live:
+        return 0
+    key0s = [c[0] if isinstance(c[0], np.ndarray) else i32_to_u32(c[0])
+             for c, _, _ in live]
+    for first, end in _key_ranges(key0s, lo, hi,
+                                  _merge_rows(device, n_keys, max_bytes)):
+        n = int((end - first).sum())
+        if n == 0:
+            continue
+        cols = [torch.empty(n, dtype=torch.int32, device=device)
+                for _ in range(n_keys + 1)]
+        off = 0
+        for (run_cols, run_counts, _), a, b in zip(live, first, end):
+            a, b = int(a), int(b)
+            for dst, src in zip(cols, [*run_cols, run_counts]):
+                part = src[a:b]
+                if isinstance(part, np.ndarray):
+                    part = torch.from_numpy(part.view(np.int32))
+                dst[off:off + b - a].copy_(part)
+            off += b - a
+        reps, totals = _group_reduce(cols[:n_keys], cols[n_keys], n_keys,
+                                     drop_zero=False, wrap=False)
+        del cols
+        emit(reps, totals)
+    return n_dead
+
+
+def merge_runs_to_host(runs, n_keys: int, device, *, max_bytes=None):
+    """merge_runs with the groups copied back to host RAM: (sorted unique
+    key columns as uint32 numpy, exact uint64 totals, number of dead
+    rows)."""
+    parts = []
+
+    def emit(reps, totals):
+        parts.append(([_host_u32(c) for c in reps],
+                      totals.cpu().numpy().view(np.uint64)))
+
+    n_dead = merge_runs(runs, n_keys, device, emit, max_bytes=max_bytes)
+    if not parts:
+        return ([np.zeros(0, np.uint32) for _ in range(n_keys)],
+                np.zeros(0, np.uint64), n_dead)
+    if len(parts) == 1:
+        return parts[0][0], parts[0][1], n_dead
+    cols = [np.concatenate([p[0][j] for p in parts]) for j in range(n_keys)]
+    return cols, np.concatenate([p[1] for p in parts]), n_dead
+
+
+def remerge_runs(runs, n_keys: int, device, *, max_bytes=None):
+    """The runs collapsed into one sorted unique run, (uint32 key columns
+    tuple, uint32 counts), merged on `device`: totals clamp at 0xFFFFFFFF,
+    and one dead row (all-ones keys, count 0) follows the groups when the
+    runs held any, as kmc_tpu's host re-merge leaves them."""
+    cols, totals, n_dead = merge_runs_to_host(runs, n_keys, device,
+                                              max_bytes=max_bytes)
+    counts = np.minimum(totals, 0xFFFFFFFF).astype(np.uint32)
+    if n_dead:
+        cols = [np.append(c, np.uint32(0xFFFFFFFF)) for c in cols]
+        counts = np.append(counts, np.uint32(0))
+    return tuple(cols), counts
 
 
 def _acc_pair(v: int) -> np.ndarray:
@@ -268,6 +436,7 @@ class DeviceKmerStore:
         self.n_remerges = 0
         self.t_remerge = 0.0
         self.t_host_merge = 0.0
+        self.merge_launches = 0  # grouping-sort launches of the merges
         self.finalize_route = None  # "device", "replay" or "host"
 
     def _alloc_cols(self, rows: int):
@@ -459,12 +628,13 @@ class DeviceKmerStore:
                 "raise -m")
 
     def _remerge_spilled(self):
-        """Collapse every spilled run into one sorted unique run on the
-        host; totals clamp at 0xFFFFFFFF (kmc_tpu's _remerge_spilled)."""
+        """Collapse every spilled run into one sorted unique run, merged on
+        the store's device; totals clamp at 0xFFFFFFFF (kmc_tpu's
+        _remerge_spilled)."""
         t0 = time.perf_counter()
-        cols, totals = _merge_runs(self.spilled, self.n_cols)
-        self.spilled = [(tuple(cols),
-                         np.minimum(totals, 0xFFFFFFFF).astype(np.uint32))]
+        launches = radix_sort_columns.launches
+        self.spilled = [remerge_runs(self.spilled, self.n_cols, self.device)]
+        self.merge_launches += radix_sort_columns.launches - launches
         self.n_remerges += 1
         self.t_remerge += time.perf_counter() - t0
 
@@ -495,24 +665,22 @@ class DeviceKmerStore:
                 pos += take
             self.spilled.pop(0)
 
-    def _host_runs(self):
-        """Drain the store to host-side sorted runs: the spilled runs plus
-        the compacted device residue."""
+    def _host_merge(self):
+        """Merge the spilled runs and the compacted store by (bin, k-mer)
+        on the store's device and copy the groups to host RAM (kmc_tpu's
+        _host_merge, prefix policy).  Returns (bins u32, lanes (n, W) u32,
+        totals u64) of the valid groups in key order.  The store is
+        consumed."""
         self.compact()
         n = self.n_used
-        runs = list(self.spilled)
-        if n:
-            runs.append((tuple(_host_u32(c[:n]) for c in self.key_cols),
-                         _host_u32(self.counts[:n])))
+        runs = self.spilled + [([c[:n] for c in self.key_cols],
+                                self.counts[:n])]
         self.spilled = []
         self.key_cols = self.counts = None
-        return runs
-
-    def _host_merge(self):
-        """Merge the runs by (bin, k-mer) on the host (kmc_tpu's _host_merge,
-        prefix policy).  Returns (bins u32, lanes (n, W) u32, totals u64)
-        of the valid groups in key order."""
-        cols, totals = _merge_runs(self._host_runs(), self.n_cols)
+        launches = radix_sort_columns.launches
+        cols, totals, _ = merge_runs_to_host(runs, self.n_cols, self.device)
+        self.merge_launches += radix_sort_columns.launches - launches
+        del runs
         if self.fuse:
             bins = cols[0] >> np.uint32(2 * self.r0)
             lanes = [cols[0] & np.uint32((1 << (2 * self.r0)) - 1)] + cols[1:]

@@ -11,19 +11,30 @@ One process drives D shards of the store, each a DeviceKmerStore
             runner's.
   compact   when the fullest shard cannot take another batch, every shard
             merges its duplicates (grouping-sort kernel), kmc_tpu's
-            schedule; a store still full after that raises
-            NotImplementedError (sharded spill is ROADMAP A11a).
+            schedule.
+  spill     when the fullest shard still cannot take the batch after that,
+            every shard's live rows go to host RAM, each shard's sorted by
+            its key columns as a run of its own, and every shard starts
+            empty.  The runs are held to the -m plan's spill budget by
+            kmc_tpu's figure (8 + 4W + 4 bytes a row: an int64 bin, W
+            words, a u32 count): spills past it are re-merged into one run
+            (ops/store.py's merge_runs, on the first shard's device, totals
+            clamped at 0xFFFFFFFF), and a merged run still past it raises
+            MemoryError naming -m.
   finalize  owner o holds the contiguous bin range [bounds[o],
             bounds[o+1]), balanced from the live rows' per-bin histogram.
             Each sender sorts its live rows by key column 0 (which carries
             the bin), cuts them into owner segments of `capacity` rows, and
             the exchange kernel (parallel/exchange_kernel.py) moves them to
-            the owners.  Each owner runs the single-device group-reduce and
-            completer over what it received; its records are in (bin,
-            k-mer) order and its bins follow the previous owner's, so the
-            host concatenates the owners' records and sums their LUTs and
-            stats.  The database is byte-identical to the single-device
-            count's (and to kmc_tpu's).
+            the owners.  Each owner runs the single-device group-reduce over
+            what it received; after spills it then merges its groups with
+            the spilled rows of its own bin range on its own device (u64
+            sums clamped at 0xFFFFFFFF, as kmc_tpu's finalize merges them),
+            and runs the completer.  Its records are in (bin, k-mer) order
+            and its bins follow the previous owner's, so the host
+            concatenates the owners' records and sums their LUTs and stats.
+            The database is byte-identical to the single-device count's (and
+            to kmc_tpu's).
 
 Before the first compaction a row weighs 1 and only the key columns cross;
 after one, the counts ride along as one more column.  Multi-process runs
@@ -40,10 +51,10 @@ import torch
 
 from ..defs import MAX_K, calc_counter_size
 from ..io.readers import homopolymer_compress_stream
-from ..ops.extract import i32_to_u32
+from ..ops.extract import i32_to_u32, u32_to_i32
 from ..ops.sort_kernel import radix_sort_columns
 from ..ops.store import (DeviceKmerStore, _completer, _group_reduce,
-                         _split_bins)
+                         _host_u32, _split_bins, merge_runs, remerge_runs)
 from ..runner import MIN_DEVICE_K, n_cpus
 from .distributed import resolve_devices
 from .exchange_kernel import ragged_all_to_all
@@ -78,7 +89,10 @@ class ShardedKmerStore:
 
     def __init__(self, devices, capacity_rows_per_device: int, *, k: int,
                  sig_len: int = 9, both_strands: bool = True,
-                 n_bins: int = 512, initial_rows: int | None = None):
+                 n_bins: int = 512, initial_rows: int | None = None,
+                 spill_budget_bytes: int | None = None):
+        """spill_budget_bytes: the -m plan's budget for spilled rows (None
+        sets none)."""
         self.devices = resolve_devices(devices)
         self.D = len(self.devices)
         self.cap = int(capacity_rows_per_device)
@@ -93,11 +107,20 @@ class ShardedKmerStore:
         self.fuse = first.fuse
         self.n_cols = first.n_cols
         self.n_used_bins = first.n_used_bins
+        # kmc_tpu's spilled row: an int64 bin, W u32 words and a u32 count
+        self.spill_row_bytes = 8 + 4 * first.W + 4
         self._rows_per_device = 0  # rows of the fullest shard
         self._carry = None  # last signature of the latest ingested batch
         self.n_compactions = 0
         self.exchange_bytes = 0  # bytes the exchange read and wrote
-        self.timings: dict[str, float] = {}
+        # host-side spilled rows: per spill, each shard's sorted run
+        # (uint32 key columns tuple, uint32 counts)
+        self.spilled: list[list] = []
+        self.spill_budget_bytes = spill_budget_bytes
+        self.n_spills = 0
+        self.n_remerges = 0
+        self.merge_launches = 0  # grouping-sort launches of the merges
+        self.timings: dict[str, float] = dict(spill_s=0.0, remerge_s=0.0)
 
     # -- ingest --
 
@@ -108,11 +131,7 @@ class ShardedKmerStore:
         if self._rows_per_device + s > self.cap:
             self.compact()
             if self._rows_per_device + s > self.cap:
-                raise NotImplementedError(
-                    f"per-device store of {self.cap} rows overflows after "
-                    f"compaction ({self._rows_per_device} unique rows + a "
-                    f"{s}-row batch); sharded spill is ROADMAP A11a — raise "
-                    "-m or capacity_rows_per_device")
+                self.spill()
         for shard, item in zip(self.shards, items):
             if self._carry is not None:
                 shard.prev_sig = self._carry.to(shard.device)
@@ -129,6 +148,60 @@ class ShardedKmerStore:
             shard.compact()
         self.n_compactions += 1
         self._rows_per_device = max(sh.n_used for sh in self.shards)
+
+    # -- spill to host RAM under the -m budget --
+
+    def spill(self):
+        """Move every shard's live rows to host RAM, each shard's as one run
+        sorted by its key columns, and start every shard empty (mirrors
+        kmc_tpu's spill, which pulls the live rows as they stand: no
+        compaction first); then hold the runs to the budget."""
+        t0 = time.perf_counter()
+        runs = []
+        for shard in self.shards:
+            shard._materialize_counts()
+            cols, counts = shard._live_rows()
+            rows = radix_sort_columns(cols + [counts], self.n_cols)
+            runs.append((tuple(_host_u32(c) for c in rows[:-1]),
+                         _host_u32(rows[-1])))
+            shard.n_used = 0
+            shard._since_compact = 0
+        self.timings["spill_s"] += time.perf_counter() - t0
+        self.spilled.append(runs)
+        self.n_spills += 1
+        self._rows_per_device = 0
+        self._enforce_spill_budget()
+
+    def _spilled_bytes(self) -> int:
+        """The spilled rows' bytes as kmc_tpu counts them."""
+        return self.spill_row_bytes * sum(
+            len(counts) for runs in self.spilled for _, counts in runs)
+
+    def _enforce_spill_budget(self):
+        """-m enforcement (mirrors kmc_tpu): re-merge the spills when their
+        bytes cross the budget; one merged run still over it means the
+        unique set does not fit -m."""
+        b = self.spill_budget_bytes
+        if b is None or self._spilled_bytes() <= b:
+            return
+        if len(self.spilled) > 1:
+            self._remerge_spilled()
+        if self._spilled_bytes() > b:
+            raise MemoryError(
+                f"unique k-mer set exceeds the -m/max_ram_gb host budget "
+                f"({self._spilled_bytes()} spilled bytes > {b}); raise -m")
+
+    def _remerge_spilled(self):
+        """Collapse every spilled run into one sorted unique run, merged on
+        the first shard's device; totals clamp at 0xFFFFFFFF (kmc_tpu's
+        _remerge_spilled)."""
+        t0 = time.perf_counter()
+        launches = radix_sort_columns.launches
+        runs = [run for spill in self.spilled for run in spill]
+        self.spilled = [[remerge_runs(runs, self.n_cols, self.devices[0])]]
+        self.merge_launches += radix_sort_columns.launches - launches
+        self.n_remerges += 1
+        self.timings["remerge_s"] += time.perf_counter() - t0
 
     def total_occurrences(self) -> int:
         return sum(sh.total_occurrences() for sh in self.shards)
@@ -163,8 +236,9 @@ class ShardedKmerStore:
         return _round_pow2(int(seg.max()) if seg.size else 64), bounds
 
     def _received_rows(self):
-        """Exchange: returns per owner (key columns, counts or None) of the
-        rows it owns, from every shard."""
+        """Exchange: returns (per owner (key columns, counts or None) of the
+        rows it owns, from every shard; the owners' bin bounds, None for
+        one owner)."""
         D = self.D
         t0 = time.perf_counter()
         senders = [sh._live_rows() for sh in self.shards]
@@ -174,7 +248,7 @@ class ShardedKmerStore:
         if D == 1:  # single owner = self: no sort, no exchange
             self.timings["owner_hist_s"] = time.perf_counter() - t0
             self.timings["exchange_groupsort_s"] = 0.0
-            return senders
+            return senders, None
         nh = self.n_used_bins + 1
         sorted_rows, edges = [], []
         for (cols, counts), dev in zip(senders, self.devices):
@@ -219,19 +293,30 @@ class ShardedKmerStore:
             received.append((cols[:self.n_cols],
                              cols[self.n_cols] if has_counts else None))
         self.timings["exchange_groupsort_s"] = time.perf_counter() - t0
-        return received
+        return received, bounds
+
+    def _owner_keys(self, bounds, o: int):
+        """The column-0 values [lo, hi) of owner o's bins (None:
+        unbounded)."""
+        if bounds is None:
+            return None, None
+        shift = 2 * self.r0 if self.fuse else 0
+        lo = int(bounds[o]) << shift if o > 0 else None
+        hi = int(bounds[o + 1]) << shift if o < self.D - 1 else None
+        return lo, hi
 
     def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
                          counter_max: int, lut_prefix_len: int,
                          counter_size: int):
-        """Exchange, then per owner the grouping sort and the completer.
+        """Exchange, then per owner the grouping sort, the merge with the
+        spilled rows of its bins (when the store spilled) and the completer.
         Returns (rec u8[N, record_bytes] in (bin, k-mer) order,
         cutoff-filtered; lut uint64[n_used_bins << 2*lpl]; (n_unique,
         n_below, n_above); n_total; n_super_kmers).  The store is
         consumed."""
         n_total = self.total_occurrences()
         n_skm = self.total_super_kmers()
-        received = self._received_rows()
+        received, bounds = self._received_rows()
         t0 = time.perf_counter()
         grouped = [_group_reduce(cols, counts, self.n_cols)
                    for cols, counts in received]
@@ -239,16 +324,37 @@ class ShardedKmerStore:
         _sync(self.devices)
         self.timings["exchange_groupsort_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
+        spilled = [run for spill in self.spilled for run in spill]
+        self.spilled = []
+        launches = radix_sort_columns.launches
         parts = []
-        for reps, totals in grouped:
+
+        def complete(reps, totals):
             bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
             parts.append(_completer(
                 bins, wr, totals, cutoff_min=cutoff_min,
                 cutoff_max=cutoff_max, counter_max=counter_max, k=self.k,
                 lut_prefix_len=lut_prefix_len, counter_size=counter_size,
                 n_bins=self.n_used_bins))
-        del grouped
+
+        for o in range(self.D):
+            reps, totals = grouped[o]
+            grouped[o] = None
+            if not spilled:
+                complete(reps, totals)
+                continue
+            # the owner's groups (totals mod 2^32, none 0) and the spilled
+            # rows of its bins, summed exactly and clamped at 0xFFFFFFFF as
+            # kmc_tpu's finalize merges them
+            lo, hi = self._owner_keys(bounds, o)
+            merge_runs([(reps, u32_to_i32(totals))] + spilled, self.n_cols,
+                       self.devices[o],
+                       lambda r, t: complete(r, t.clamp_(max=0xFFFFFFFF)),
+                       lo=lo, hi=hi)
+            del reps, totals
+        del spilled
         _sync(self.devices)
+        self.merge_launches += radix_sort_columns.launches - launches
         self.timings["finalize_exec_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         recs, lut, stats = [], None, np.zeros(3, np.int64)
@@ -409,9 +515,13 @@ def distributed_count(
 
     capacity_rows_per_device: rows of each shard; None derives them from
     max_ram_gb like the single-device runner.  strict_memory_mode halves
-    them.  Everything outside this slice raises NotImplementedError naming
-    its ROADMAP item: k <= 13, the greedy map, -e / --opt-out-size, KFF,
-    BAM and -fkmc input, multi-process runs."""
+    them.  Shards that overflow spill to host RAM under max_ram_gb's spill
+    budget (MemoryError naming -m past it); "n_spills", "n_remerges" and
+    "merge_launches" (grouping-sort launches of the merges of spilled
+    runs) report it, and with spills the "finalize_exec_s" timing holds
+    the owners' merges.  Everything outside this slice raises
+    NotImplementedError naming its ROADMAP item: k <= 13, the greedy map,
+    -e / --opt-out-size, KFF, BAM and -fkmc input, multi-process runs."""
     from ..formats.kmc_db import DbInfo, Kmc2DbWriter, pick_lut_prefix_len
     from ..io.readers import BatchStream, ParseState, set_chunk_bytes
     from ..memory import plan_memory
@@ -436,7 +546,8 @@ def distributed_count(
     on_card = all(d.type == "cuda" for d in devices)
     store = ShardedKmerStore(devices, capacity, k=k, sig_len=sig_len,
                              both_strands=both_strands, n_bins=n_bins,
-                             initial_rows=None if on_card else 2 * s)
+                             initial_rows=None if on_card else 2 * s,
+                             spill_budget_bytes=plan.spill_budget_bytes)
     bs = BatchStream(s, k)
 
     t_ingest0 = time.perf_counter()
@@ -490,7 +601,9 @@ def distributed_count(
         "n_devices": D,
         "n_processes": 1,
         "n_compactions": store.n_compactions,
-        "n_spills": 0,
+        "n_spills": store.n_spills,
+        "n_remerges": store.n_remerges,
+        "merge_launches": store.merge_launches,
         "exchange_bytes": store.exchange_bytes,
         "timings": timings,
     }

@@ -8,8 +8,9 @@ results and fluent setters (KMC's kmc_runner.h:100-255), for the default
            ingest (splitter-scan kernel), compacting (grouping-sort kernel)
            whenever the store fills and spilling the compacted store to
            host RAM (under the -m budget) when compaction frees too little;
-  stage 2  finalize_records (spill replay or host merge, grouping sort +
-           completer) -> Kmc2DbWriter.
+  stage 2  finalize_records (spill replay, or the runs merged on the device
+           and the host completer; grouping sort + completer) ->
+           Kmc2DbWriter.
 
 Stage-1 state checkpoints to .npz files in kmc_tpu's format
 (save_stage1_checkpoint / resume_stage1_checkpoint), so a checkpoint
@@ -372,6 +373,7 @@ class Runner:
                     t_spill_d2h=store.t_spill_d2h,
                     n_remerges=store.n_remerges, t_remerge=store.t_remerge,
                     t_host_merge=store.t_host_merge,
+                    merge_launches=store.merge_launches,
                     finalize_route=store.finalize_route)
 
     # ---------------- checkpoint / resume ----------------

@@ -436,3 +436,86 @@ def test_spilling_count_on_card_matches_cpu(tmp_path, genome_len, route):
     assert stats["cuda"]["n_spills"] == stats["cpu"]["n_spills"] >= 1
     assert stats["cuda"]["finalize_route"] == stats["cpu"]["finalize_route"] \
         == route
+    if route == "host":  # the runs and the store merged on the card
+        assert stats["cuda"]["merge_launches"] >= 1
+
+
+def _sorted_run(rng, n, n_keys, dead_tail=1):
+    """A spilled run: unique rows sorted by their key columns (few column-0
+    values, so runs share keys), counts up to 2^32 - 1, dead rows after."""
+    cols = [rng.integers(0, 300, n).astype(np.uint32) << np.uint32(20)]
+    cols += [rng.integers(0, 16, n).astype(np.uint32)
+             for _ in range(n_keys - 1)]
+    order = np.lexsort(tuple(cols[::-1]))
+    cols = [c[order] for c in cols]
+    new = np.ones(n, bool)
+    new[1:] = np.any([c[1:] != c[:-1] for c in cols], axis=0)
+    cols = [np.append(c[new], np.full(dead_tail, 0xFFFFFFFF, np.uint32))
+            for c in cols]
+    counts = rng.integers(1, 1 << 32, int(new.sum()), dtype=np.uint64)
+    return tuple(cols), np.append(counts.astype(np.uint32),
+                                  np.zeros(dead_tail, np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_keys", [2, 3])
+@pytest.mark.parametrize("ranges", ["one", "many"])
+def test_merge_runs_on_card_matches_cpu(n_keys, ranges):
+    """The merge of spilled runs on the card (the grouping-sort kernel)
+    against the same merge on the CPU (its plain version): sorted unique
+    rows, exact u64 totals, and the re-merge's clamp and dead row."""
+    _need_card()
+    from kmc_tpu_torch.ops.store import (_merge_row_bytes, merge_runs_to_host,
+                                         remerge_runs)
+
+    rng = np.random.default_rng(n_keys)
+    runs = [_sorted_run(rng, 50_000, n_keys) for _ in range(3)]
+    n_rows = sum(len(counts) for _, counts in runs)
+    limit = (None if ranges == "one"
+             else _merge_row_bytes(n_keys) * (n_rows // 6))  # ~6 ranges
+    want = merge_runs_to_host(runs, n_keys, "cpu")
+    before = radix_sort_columns.launches
+    got = merge_runs_to_host(runs, n_keys, "cuda", max_bytes=limit)
+    launches = radix_sort_columns.launches - before
+    assert launches == 1 if limit is None else launches > 1  # one a range
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == np.uint32 and np.array_equal(a, b)
+    assert np.array_equal(got[1], want[1]) and got[2] == want[2] == 3
+    assert want[1].max() > 0xFFFFFFFF
+    got_r = remerge_runs(runs, n_keys, "cuda", max_bytes=limit)
+    want_r = remerge_runs(runs, n_keys, "cpu")
+    for a, b in zip(got_r[0] + (got_r[1],), want_r[0] + (want_r[1],)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sharded_spilling_count_on_card_matches_cpu(tmp_path):
+    """A sharded count whose shards spill (on distinct cards where there
+    are several): the card's database equals the CPU's, with the same
+    spills, and the merges ran the grouping-sort kernel."""
+    _need_card()
+    from kmc_tpu_torch import distributed_count
+
+    rng = np.random.default_rng(3)
+    genome = rng.integers(0, 4, 60000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "in.fastq", "wb") as f:
+        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    n = torch.cuda.device_count()
+    kw = dict(k=27, cutoff_min=1, batch_positions=1 << 13,
+              capacity_rows_per_device=1 << 15)
+    s_gpu = distributed_count([str(tmp_path / "in.fastq")],
+                              str(tmp_path / "gpu"),
+                              devices=[f"cuda:{i % n}" for i in range(4)],
+                              **kw)
+    s_cpu = distributed_count([str(tmp_path / "in.fastq")],
+                              str(tmp_path / "cpu"), devices=["cpu"] * 4, **kw)
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"gpu{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    for key in ("n_unique", "n_total", "n_compactions", "n_spills",
+                "n_remerges"):
+        assert s_gpu[key] == s_cpu[key], key
+    assert s_gpu["n_spills"] >= 1 and s_gpu["merge_launches"] >= 1

@@ -123,11 +123,20 @@ def test_unported_knobs_raise(reads_file, tmp_path, kw, item):
 
 
 def test_overflow_after_compaction_raises(reads_file, tmp_path):
-    # the unique set outgrows the shards: kmc_tpu would spill to host RAM
-    with pytest.raises(NotImplementedError, match="A11a"):
-        distributed_count([reads_file], str(tmp_path / "db"), k=25,
-                          devices=["cpu"] * 4, batch_positions=1 << 9,
-                          capacity_rows_per_device=1 << 10)
+    """The unique set outgrows the shards, which raised before the port had
+    the sharded spill: now every shard spills to host RAM, as kmc_tpu's do,
+    and the database and stats are kmc_tpu's."""
+    kw = dict(k=25, cutoff_min=1, batch_positions=1 << 9,
+              capacity_rows_per_device=1 << 10)
+    sj = jax_distributed_count([reads_file], str(tmp_path / "jax"),
+                               mesh=jax_make_mesh(4), **kw)
+    st = distributed_count([reads_file], str(tmp_path / "db"),
+                           devices=["cpu"] * 4, **kw)
+    for suf in SUFFIXES:
+        assert (tmp_path / f"db{suf}").read_bytes() == \
+            (tmp_path / f"jax{suf}").read_bytes(), suf
+    assert {k: st[k] for k in STATS} == {k: sj[k] for k in STATS}
+    assert st["n_spills"] >= 2
 
 
 def test_make_mesh_cpu_and_device_lists():
