@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase (the contract's run)
     python3 chip_smoke.py 2 6        # phase 1, the phases named and those
                                      # whose results they take (PHASES)
+    python3 chip_smoke.py 14         # the other routes (with phases 4, 5)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -73,14 +74,28 @@ Phases (any failure exits non-zero):
      owners merge the spilled runs on their cards, n_total must be n_reads
      x 124 and the DB must equal phase 12's non-spilling DB byte for byte;
      wall, stage splits, spills, re-merges, merge seconds and each card's
-     peak memory printed.
+     peak memory printed;
+ 14. the other routes of one device.  On phase 4's FASTQ, card against
+     CPU, byte for byte and with equal results: KFF output (-okff), -w,
+     small k (k = 13 and 9, KMC1; k = 13 KFF), the host buckets
+     (--no-device-store, KMC2 and KFF), --opt-out-size, KFF through the
+     replay and the host finalize routes (phase 11's stores), and -e
+     through the CLI (its histogram file).  On phase 5's FASTQ, timed on
+     the card: KFF (its records = phase 5's kept k-mers), -w, host-bucket
+     KFF (its sorted (k-mer, count) set = the device store's KFF's) and
+     --opt-out-size, each with phase 5's n_total, n_unique, n_below and
+     n_above; small k at k = 13 (n_total = n_reads x 138); -e alone.  Each
+     prints its wall and stage seconds, the launches of the fused ingest,
+     the scan entry and the radix sort (each route must launch the kernels
+     it uses: the store's routes the fused ingest, the host buckets the
+     scan entry, both the sort) and its peak device memory.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
-from its own calls in phase 2, the 1-D entry and the probes from their own
-entries in phase 10) and its times from phases 2, 3, 7 and 10.  Every
-path must ingest through the fused kernel and never through the scan
-entry.  Shards sit on distinct cards when the machine has two or more,
+from phase 14's full-size host-bucket run, the 1-D entry and the probes
+from their own entries in phase 10) and its times from phases 2, 3, 7 and
+10.  Every device-store path must ingest through the fused kernel and
+never through the scan entry.  Shards sit on distinct cards when the machine has two or more,
 else all on card 0.  The last line is {"ok": true, "device": {...}}.
 Imports neither jax nor kmc_tpu.  Times come from CUDA events around
 repeated launches after a warm-up; bounds are the bytes each function
@@ -701,7 +716,7 @@ def run_count(fq, out, device, profiler=None, **kw):
     p1 = Stage1Params(input_files=[str(fq)], kmer_len=27)
     p2 = Stage2Params(output_file_name=str(out), cutoff_min=2)
     for key, val in kw.items():
-        setattr(p1, key, val)
+        setattr(p1 if hasattr(p1, key) else p2, key, val)
     runner = Runner(device=device)
     if profiler is not None:
         profiler.start()
@@ -825,7 +840,7 @@ def phase_full():
         f"{r2.time_finalize_d2h:.3f} compactions {n_comp} "
         f"max_memory_allocated {peak} launches {launches} "
         f"kmers_per_s {r2.n_total_kmers / wall:.0f}")
-    return fq, n_reads
+    return fq, n_reads, r2
 
 
 def _union_us(spans):
@@ -970,7 +985,7 @@ def phase_profile(full):
     """The full-size run once more under torch.profiler: device busy time
     (union of kernel, copy and memset spans) against the wall, and the
     kernels that take the most device time."""
-    fq, _ = full
+    fq, _, _ = full
     prof = device_profiler()
     with labelled_store():
         _, r2, _, wall = run_count(fq, WORK / "bench_prof", "cuda",
@@ -1201,7 +1216,7 @@ def phase_sharded_mid(fq):
 def phase_sharded_full(full):
     """distributed_count at full size: phase 5's input and knobs, the -m 12
     plan per shard."""
-    fq, n_reads = full
+    fq, n_reads, _ = full
     devices = shard_devices()
     kind = ("distinct cards" if len(set(devices)) > 1
             else "4 shards on card 0")
@@ -1555,6 +1570,215 @@ def phase_sharded_spill_full(spill):
     torch.cuda.empty_cache()
 
 
+# phase 14's routes at mid size, card against CPU: (name, knobs)
+MID_ROUTES = (
+    ("kff", dict(output_file_type="KFF")),
+    ("w", dict(without_output=True)),
+    ("smallk13", dict(kmer_len=13)),
+    ("smallk9", dict(kmer_len=9)),
+    ("smallk13_kff", dict(kmer_len=13, output_file_type="KFF")),
+    ("buckets", dict(device_store=False)),
+    ("buckets_kff", dict(device_store=False, output_file_type="KFF")),
+    ("opt_out_size", dict(estimate_histogram_cfg="ESTIMATE_AND_COUNT_KMERS")),
+    ("kff_replay", dict(output_file_type="KFF",
+                        batch_positions=MID_SPILL["replay"][0],
+                        device_store_rows=MID_SPILL["replay"][1])),
+    ("kff_host", dict(output_file_type="KFF",
+                      batch_positions=MID_SPILL["host"][0],
+                      device_store_rows=MID_SPILL["host"][1])),
+)
+ROUTE_KERNELS = ("fused_ingest", "splitter_scan", "radix_sort")
+
+
+def _route_knobs(kw):
+    from kmc_tpu_torch import EstimateHistogramCfg, OutputFileType
+
+    kw = dict(kw)
+    if "output_file_type" in kw:
+        kw["output_file_type"] = OutputFileType[kw["output_file_type"]]
+    if "estimate_histogram_cfg" in kw:
+        kw["estimate_histogram_cfg"] = EstimateHistogramCfg[
+            kw["estimate_histogram_cfg"]]
+    return kw
+
+
+def _route_launches():
+    wrappers = _wrappers()
+    return {name: wrappers[name].launches for name in ROUTE_KERNELS}
+
+
+def _route_uses(kw):
+    """The kernels a route must launch: the store's ingest and sort, or the
+    host buckets' scan entry and sort; small k and -e launch neither."""
+    estimate = getattr(kw.get("estimate_histogram_cfg"), "name", "")
+    if kw.get("kmer_len", 27) < 14 or estimate == "ONLY_ESTIMATE":
+        return ()
+    if kw.get("device_store") is False:
+        return ("splitter_scan", "radix_sort")
+    return ("fused_ingest", "radix_sort")
+
+
+def _check_launches(name, kw, launches):
+    uses = _route_uses(kw)
+    if any((launches[k] > 0) != (k in uses) for k in ROUTE_KERNELS):
+        raise SystemExit(f"phase 14: route {name} launched {launches}, "
+                         f"it must launch {uses} and no other kernel")
+
+
+def _no_times(res):
+    import dataclasses
+
+    return {k: v for k, v in dataclasses.asdict(res).items()
+            if k not in ("time", "time_strict_mem", "time_finalize_exec",
+                         "time_finalize_d2h")}
+
+
+def _route_files(prefix: Path):
+    return sorted(p.name[len(prefix.name):]
+                  for p in prefix.parent.glob(prefix.name + ".*"))
+
+
+def _kff_sorted(path):
+    """(k-mers as big-endian integers, counts) of a KFF file, in k-mer
+    order (k <= 32: a k-mer fits a uint64)."""
+    from kmc_tpu_torch.formats.kff import read_kff
+
+    data = read_kff(str(path))
+    key = np.zeros(len(data.kmers), np.uint64)
+    for j in range(data.kmers.shape[1]):
+        key = (key << np.uint64(8)) | data.kmers[:, j]
+    order = np.argsort(key, kind="stable")
+    return key[order], data.counts[order]
+
+
+def _cli_estimate(fq, out, device):
+    """-e through the port's CLI: the histogram file, as a user runs it."""
+    from kmc_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    rc = cli_main(["-k27", "-e", "-hp", f"-S{1 << 20}", f"--device={device}",
+                   str(fq), str(out), str(WORK)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"phase 14: kmc_tpu_torch.cli -e on {device} "
+                         f"exited {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_other_routes(fq_mid, full):
+    """Phase 14: the other routes of one device.  At mid size (phase 4's
+    FASTQ) each route's card output against its CPU output, byte for byte,
+    and its results apart from times; at full size (phase 5's FASTQ) the
+    card's timed runs, held to phase 5's counts."""
+    base = dict(batch_positions=1 << 20, device_store_rows=3 << 20)
+    for name, knobs in MID_ROUTES:
+        kw = dict(base, **_route_knobs(knobs))
+        outs = {dev: WORK / f"mid14_{name}_{dev}" for dev in ("cuda", "cpu")}
+        reset_counts()
+        r1, r2, runner, wall = run_count(fq_mid, outs["cuda"], "cuda", **kw)
+        launches = _route_launches()
+        c1, c2, c_runner, c_wall = run_count(fq_mid, outs["cpu"], "cpu", **kw)
+        if (_no_times(r1), _no_times(r2)) != (_no_times(c1), _no_times(c2)):
+            raise SystemExit(f"phase 14: route {name}: card results "
+                             f"{r1} {r2} differ from the CPU's {c1} {c2}")
+        files = _route_files(outs["cpu"])
+        if files != _route_files(outs["cuda"]) or bool(files) == (
+                name == "w"):
+            raise SystemExit(f"phase 14: route {name} wrote {files} on the "
+                             f"CPU, {_route_files(outs['cuda'])} on the card")
+        for suf in files:
+            if ((outs["cuda"].parent / (outs["cuda"].name + suf)).read_bytes()
+                    != (outs["cpu"].parent
+                        / (outs["cpu"].name + suf)).read_bytes()):
+                raise SystemExit(f"phase 14: route {name}: card and CPU "
+                                 f"{suf} differ")
+        _check_launches(name, kw, launches)
+        route = runner.spill_stats.get("finalize_route")
+        if name.startswith("kff_") and route != name[len("kff_"):]:
+            raise SystemExit(f"phase 14: route {name} finalized by {route}")
+        written = ", ".join(files) or "no files"
+        log(f"[phase 14] mid {name}: card == CPU ({written}; results "
+            f"equal); n_unique {r2.n_unique_kmers} n_total "
+            f"{r2.n_total_kmers}; launches {launches}; card {wall:.2f} s, "
+            f"cpu {c_wall:.2f} s")
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        wall = _cli_estimate(fq_mid, WORK / f"mid14_e_{dev}.hist", dev)
+        hist[dev] = (WORK / f"mid14_e_{dev}.hist").read_bytes()
+        n_lines = hist[dev].count(b"\n")
+        log(f"[phase 14] mid -e (CLI) on {dev}: {wall:.2f} s, {n_lines} "
+            f"histogram lines, launches {_route_launches()}")
+    if hist["cuda"] != hist["cpu"] or not hist["cuda"]:
+        raise SystemExit("phase 14: the -e histogram files differ")
+
+    fq, n_reads, ref = full
+    want = (n_reads * (150 - 27 + 1), ref.n_unique_kmers,
+            ref.n_below_cutoff_min, ref.n_above_cutoff_max)
+    kept = ref.n_unique_kmers - ref.n_below_cutoff_min - ref.n_above_cutoff_max
+    full_routes = (
+        ("kff", dict(output_file_type="KFF")),
+        ("w", dict(without_output=True)),
+        ("buckets_kff", dict(device_store=False, output_file_type="KFF")),
+        ("opt_out_size",
+         dict(estimate_histogram_cfg="ESTIMATE_AND_COUNT_KMERS")),
+        ("smallk13", dict(kmer_len=13)),
+        ("estimate", dict(estimate_histogram_cfg="ONLY_ESTIMATE")),
+    )
+    scan_launches = 0
+    for name, knobs in full_routes:
+        kw = _route_knobs(knobs)
+        out = WORK / f"full14_{name}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r1, r2, runner, wall = run_count(fq, out, "cuda", **kw)
+        launches = _route_launches()
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(name, kw, launches)
+        got = (r2.n_total_kmers, r2.n_unique_kmers, r2.n_below_cutoff_min,
+               r2.n_above_cutoff_max)
+        if name.startswith("smallk"):
+            if r2.n_total_kmers != n_reads * (150 - 13 + 1):
+                raise SystemExit(f"phase 14: small-k n_total {got[0]} != "
+                                 f"{n_reads} reads x 138")
+        elif name == "estimate":
+            if sum(r1.estimated_histogram) <= 0:
+                raise SystemExit("phase 14: -e estimated nothing")
+        elif got != want:
+            raise SystemExit(f"phase 14: full {name}: (n_total, n_unique, "
+                             f"n_below, n_above) {got} != phase 5's {want}")
+        if name == "kff":
+            kff_ref = _kff_sorted(out.with_suffix(".kff"))
+            if len(kff_ref[0]) != kept:
+                raise SystemExit(f"phase 14: the KFF holds {len(kff_ref[0])}"
+                                 f" records, phase 5 kept {kept}")
+        if name == "buckets_kff":
+            scan_launches = launches["splitter_scan"]
+            keys, counts = _kff_sorted(out.with_suffix(".kff"))
+            if not (np.array_equal(keys, kff_ref[0])
+                    and np.array_equal(counts, kff_ref[1])):
+                raise SystemExit("phase 14: the host-bucket KFF's (k-mer, "
+                                 "count) set differs from the device "
+                                 "store's")
+        if name == "opt_out_size":
+            suf = (out.parent / (out.name + ".kmc_suf")).stat().st_size
+            if (suf - 8) % kept or not r1.estimated_histogram:
+                raise SystemExit(f"phase 14: the --opt-out-size .kmc_suf of "
+                                 f"{suf} bytes does not hold {kept} records")
+        log(f"[phase 14] full {name}: (n_total, n_unique, n_below, n_above) "
+            f"{got}; wall_s {wall:.3f} stage1_s {r1.time:.3f} stage2_s "
+            f"{r2.time:.3f} finalize_exec_s {r2.time_finalize_exec:.3f} "
+            f"finalize_d2h_s {r2.time_finalize_d2h:.3f} launches {launches} "
+            f"max_memory_allocated {peak}"
+            + (f" estimated_histogram[1:4] {r1.estimated_histogram[1:4]}"
+               if r1.estimated_histogram else ""))
+        for p in out.parent.glob(out.name + ".*"):
+            p.unlink()
+    return scan_launches
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -1572,21 +1796,22 @@ def phase_scan_and_ingest():
     return scan, fused
 
 
-# The phases in order: (number, function, the phase whose result it takes,
-# or None).  Phase 1 (phase_card) always runs first.
+# The phases in order: (number, function, the phases whose results it
+# takes).  Phase 1 (phase_card) always runs first.
 PHASES = (
-    (2, phase_scan_and_ingest, None),
-    (3, phase_sort, None),
-    (4, phase_card_vs_cpu, None),
-    (5, phase_full, None),
-    (6, phase_profile, 5),
-    (7, phase_exchange, None),
-    (8, phase_sharded_mid, 4),
-    (9, phase_sharded_full, 5),
-    (10, phase_last_kernels, None),
-    (11, phase_spill_mid, 4),
-    (12, phase_spill_full, None),
-    (13, phase_sharded_spill_full, 12),
+    (2, phase_scan_and_ingest, ()),
+    (3, phase_sort, ()),
+    (4, phase_card_vs_cpu, ()),
+    (5, phase_full, ()),
+    (6, phase_profile, (5,)),
+    (7, phase_exchange, ()),
+    (8, phase_sharded_mid, (4,)),
+    (9, phase_sharded_full, (5,)),
+    (10, phase_last_kernels, ()),
+    (11, phase_spill_mid, (4,)),
+    (12, phase_spill_full, ()),
+    (13, phase_sharded_spill_full, (12,)),
+    (14, phase_other_routes, (4, 5)),
 )
 
 
@@ -1598,18 +1823,19 @@ def main(argv=()) -> int:
     sys.path.insert(0, str(ROOT))
     WORK.mkdir(exist_ok=True)
     only = {int(a) for a in argv}
-    need = only | {dep for n, _, dep in PHASES if n in only and dep}
+    need = only | {dep for n, _, deps in PHASES if n in only for dep in deps}
     t_all = time.perf_counter()
     phase_card()
     got = {}
-    for n, fn, dep in PHASES:
+    for n, fn, deps in PHASES:
         if not only or n in need:
-            got[n] = timed(n, fn, *(() if dep is None else (got[dep],)))
+            got[n] = timed(n, fn, *(got[dep] for dep in deps))
     if only:  # a quick check: no kernels line, no ok line
         log(f"[done] phases {sorted(need)} passed")
         return 0
     (scan, fused), sort, exchange = got[2], got[3], got[7]
     sharded, (scan_1d, probes) = got[9], got[10]
+    bucket_scans = got[14]  # the host-bucket route's scan-entry launches
 
     s27 = scan[(27, True)]
     f27 = fused[(27, "bounds")]  # the main path's feed
@@ -1627,7 +1853,7 @@ def main(argv=()) -> int:
         {"name": "splitter_scan", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/pallas_extract.py:312",
-         "launches": s27["launches"],
+         "launches": bucket_scans,
          "max_abs_err": max(r["max_abs_err"] for r in scan.values()),
          "ms": s27["ms"], "plain_ms": s27["plain_ms"],
          "bound_ms": s27["bound_ms"], "bound_by": s27["bound_by"],

@@ -2,8 +2,8 @@
 
 Same flag grammar, positional arguments, summary text and -j JSON schema as
 kmc_tpu's CLI (and KMC's kmc binary), plus --device=<cuda|cpu> (default
-cuda).  Options the port does not count yet exit with an error that names
-their ROADMAP item.
+cuda).  BAM and KMC-database input (-fbam, -fkmc) exit with an error that
+names their ROADMAP item.
 
     python -m kmc_tpu_torch.cli -k27 -ci2 reads.fastq out_db tmp_dir
 """
@@ -32,7 +32,7 @@ Parameters:
   @input_file_names - file name with list of input files in specified (-f switch) format (gziped or not)
 Options:
   -v - verbose mode (shows all parameter settings); default: false
-  -k<len> - k-mer length (k from 14 to {defs.MAX_K}; default: 25)
+  -k<len> - k-mer length (k from {defs.MIN_K} to {defs.MAX_K}; default: 25)
   -m<size> - max amount of RAM in GB (from 1 to 1024); default: 12
   -sm - use strict memory mode (memory limit from -m<n> switch will not be exceeded)
   -hc - count homopolymer compressed k-mers (approximate and experimental)
@@ -49,12 +49,16 @@ Options:
   -sp<value> - number of splitting threads (no-op: splitting runs on the device)
   -sr<value> - number of threads for 2nd stage (no-op: stage 2 runs on the device)
   -j<file_name> - file name with execution summary in JSON format
+  -w - without output
+  -o<kmc/kff> - output in KMC of KFF format; default: KMC
   -hp - hide percentage progress (default: false)
+  -e - only estimate histogram of k-mers occurrences instead of exact k-mer counting
+  --opt-out-size - optimize output database size (may increase running time)
 Device options:
   -S<value> - device batch size (candidate k-mer positions per batch)
+  --no-device-store - stage bins in host RAM instead of device memory
   --device=<cuda|cpu> - device to count on (default: cuda; never falls back)
-Not ported yet (exit with an error): k < 14, -e, --opt-out-size, -w, -okff,
-  -fbam, -fkmc, --no-device-store
+Not ported yet (exit with an error): -fbam, -fkmc
 Example:
 kmc_tpu_torch -k27 -m24 NA19238.fastq NA.res /data/kmc_tmp_dir/
 """
@@ -77,8 +81,8 @@ def parse_args(argv):
             positional.append(a)
             continue
         if a == "--opt-out-size":
-            # estimate + count (reference kmc.h:1436-1447); not ported yet,
-            # so Stage1Params.check_ported rejects it
+            # estimate + count: the histogram estimate drives the
+            # lut_prefix_len choice (reference kmc.h:1436-1447)
             if s1.estimate_histogram_cfg == EstimateHistogramCfg.DONT_ESTIMATE:
                 s1.estimate_histogram_cfg = (
                     EstimateHistogramCfg.ESTIMATE_AND_COUNT_KMERS
@@ -258,13 +262,17 @@ def main(argv=None) -> int:
     try:
         runner = Runner(device=cli["device"])
         s2.validate()
-        s2.check_ported()
         r1 = runner.run_stage1(s1)
         r2 = runner.run_stage2(s2)
     except (ValueError, FileNotFoundError, NotImplementedError,
             RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if s1.estimate_histogram_cfg == EstimateHistogramCfg.ONLY_ESTIMATE:
+        with open(s2.output_file_name, "w") as f:
+            for i, v in enumerate(r1.estimated_histogram):
+                if i >= 1:
+                    f.write(f"{i}\t{v}\n")
     print(format_summary(s1, r1, r2))
     if cli["json_summary"]:
         save_json_summary(cli["json_summary"], s1, r1, r2)

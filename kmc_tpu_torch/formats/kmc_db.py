@@ -1,10 +1,17 @@
-"""KMC2 database (.kmc_pre / .kmc_suf) writer.
+"""KMC database (.kmc_pre / .kmc_suf) writers.
 
 The writer side of kmc_tpu/formats/kmc_db.py, byte-compatible with KMC's
-KMC2 layout (version 0x200; kb_completer.cpp:117-326 writes it,
-kmc_api/kmc_file.cpp:184-260 reads it).  The device completer emits the
-record bytes and the per-(bin, prefix) LUT counts; this module only lays
-them out on disk.
+layouts:
+  * KMC2 (version 0x200; kb_completer.cpp:117-326 writes it,
+    kmc_api/kmc_file.cpp:184-260 reads it): the device completer emits
+    the record bytes and the per-(bin, prefix) LUT counts in one piece
+    (write_all_records), the host-bucket route one bin at a time
+    (put_bin);
+  * KMC1 (version 0x0; the small-k completer, kb_completer.h:199-305):
+    write_kmc1_db.
+A batch of k-mers is a (N, KB) uint8 array, KB = ceil(k/4), holding the
+2-bit packed k-mer as a big-endian, right-aligned integer, so the on-disk
+suffix is its trailing suffix_bytes columns.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 PRE_MARKER = b"KMCP"
 SUF_MARKER = b"KMCS"
 KMC2_VER = 0x200
+KMC1_VER = 0x0
 
 
 @dataclass
@@ -54,30 +62,67 @@ class DbInfo:
         return (self.kmer_len + 3) // 4
 
 
-def pick_lut_prefix_len(k: int, n_bins: int, n_est_unique: int) -> int:
-    """LUT prefix length minimizing LUT + suffix bytes for a KMC2 database
-    (kmc.h:1450-1467: lut_prefix_len in [2, 15], suffix % 4 == 0, n_bins
-    LUTs).  The KMC1 branch of kmc_tpu's function belongs to small k, which
-    this package does not count yet."""
+def kmer_bytes_to_prefix_ids(kmers: np.ndarray, k: int,
+                             lut_prefix_len: int) -> np.ndarray:
+    """Big-endian integer value of the prefix columns of (N, KB) k-mer
+    bytes."""
+    suffix_bytes = (k - lut_prefix_len) // 4
+    kb = kmers.shape[1]
+    pre = kmers[:, : kb - suffix_bytes].astype(np.uint64)
+    out = np.zeros(len(kmers), dtype=np.uint64)
+    for j in range(pre.shape[1]):
+        out = (out << np.uint64(8)) | pre[:, j]
+    return out
+
+
+def pick_lut_prefix_len(k: int, n_bins: int, n_est_unique: int,
+                        kmc1: bool = False) -> int:
+    """LUT prefix length minimizing LUT + suffix bytes.
+
+    KMC2: kmc.h:1450-1467 (lut_prefix_len in [2, 15], suffix % 4 == 0,
+    n_bins LUTs).  KMC1 small-k: kmc.h:905-939 (lut_prefix_len in [1, 15],
+    one LUT, the suffix may be empty)."""
     best_len = 0
     best_mem = 1 << 62
-    for lpl in range(2, 16):
-        if lpl > k:
-            continue
-        suffix_len = k - lpl
+    for lpl in range(1 if kmc1 else 2, 16):
+        if kmc1:
+            suffix_len = 0 if lpl > k else k - lpl
+        else:
+            if lpl > k:
+                continue
+            suffix_len = k - lpl
         if suffix_len % 4:
             continue
-        est_suf_mem = n_est_unique * suffix_len // 4
-        lut_mem = n_bins * (1 << (2 * lpl)) * 8
+        if kmc1:
+            est_suf_mem = n_est_unique * (suffix_len // 4)
+            lut_mem = (1 << (2 * lpl)) * 8
+        else:
+            est_suf_mem = n_est_unique * suffix_len // 4
+            lut_mem = n_bins * (1 << (2 * lpl)) * 8
         if est_suf_mem + lut_mem < best_mem:
             best_len = lpl
             best_mem = est_suf_mem + lut_mem
     return best_len
 
 
+def _records(kmers: np.ndarray, counts, suffix_bytes: int,
+             counter_size: int) -> np.ndarray:
+    """(N, suffix_bytes + counter_size) on-disk records: the k-mers' last
+    suffix_bytes bytes, then the little-endian counter."""
+    rec = np.empty((len(kmers), suffix_bytes + counter_size), dtype=np.uint8)
+    rec[:, :suffix_bytes] = kmers[:, kmers.shape[1] - suffix_bytes:]
+    c = np.asarray(counts, dtype=np.uint64)
+    for j in range(counter_size):
+        rec[:, suffix_bytes + j] = ((c >> np.uint64(8 * j))
+                                    & np.uint64(0xFF)).astype(np.uint8)
+    return rec
+
+
 class Kmc2DbWriter:
-    """Writer for a KMC2 database whose records arrive in one piece
-    (write_all_records), already in final (bin, k-mer) order."""
+    """Writer for a KMC2 database.  Records arrive either in one piece
+    (write_all_records), already in final (bin, k-mer) order, or one bin
+    at a time in increasing bin order (put_bin, KMC's completer order,
+    kb_completer.cpp:130-222); close() emits the bins never put, empty."""
 
     def __init__(self, path_prefix: str, info: DbInfo, sig_map_bins: np.ndarray):
         """sig_map_bins: int32 array (4^sig_len + 1) mapping signature ->
@@ -85,8 +130,11 @@ class Kmc2DbWriter:
         self.info = info
         self.path_prefix = str(path_prefix)
         self._sig_map_bins = np.asarray(sig_map_bins)
-        self._sig_map_out = None
-        self._n_recs = 0
+        self._sig_map_out = np.zeros(len(sig_map_bins), dtype=np.uint32)
+        self._n_recs = 0  # running record count (cumulative LUT base)
+        self._lut_pos = 0
+        self._next_bin = 0
+        self._lut_size = 1 << (2 * info.lut_prefix_len)
         self._pre = open(self.path_prefix + ".kmc_pre", "wb")
         self._suf = open(self.path_prefix + ".kmc_suf", "wb")
         self._pre.write(PRE_MARKER)
@@ -100,8 +148,8 @@ class Kmc2DbWriter:
         """rec = (N, record_bytes) suffix+counter bytes in final order and
         cutoff-filtered; lut_counts = uint64[n_bins << 2*lpl] records per
         (bin, prefix).  Must be the only write call; close() afterwards."""
-        if self._sig_map_out is not None:
-            raise RuntimeError("write_all_records may be called only once")
+        if self._next_bin or self._n_recs:
+            raise RuntimeError("write_all_records must be the only write")
         np.ascontiguousarray(rec, dtype=np.uint8).tofile(self._suf)
         lut_counts = np.asarray(lut_counts, dtype=np.uint64)
         shifted = np.empty_like(lut_counts)
@@ -109,14 +157,52 @@ class Kmc2DbWriter:
         np.cumsum(lut_counts[:-1], out=shifted[1:])
         shifted.astype("<u8").tofile(self._pre)
         self._n_recs = len(rec)
+        self._lut_pos = self._next_bin = self.info.n_bins
         # every bin is emitted in order, so the LUT index equals the bin id
         valid = self._sig_map_bins >= 0
         self._sig_map_out = np.where(valid, self._sig_map_bins, 0).astype(np.uint32)
 
-    def close(self):
-        if self._sig_map_out is None:
-            raise RuntimeError("close() before write_all_records()")
+    def put_bin(self, bin_id: int, kmers: np.ndarray, counts: np.ndarray,
+                stats=None):
+        """kmers: (N, KB) uint8 sorted ascending; counts: (N,) clamped to
+        counter_max; both already cutoff-filtered.  Empty bins in [next,
+        bin_id) are emitted first.  stats: the bin's n_unique,
+        n_below_min, n_above_max and n_total, added to the writer's."""
+        while self._next_bin < bin_id:
+            self._put_one(self._next_bin, None, None)
+        self._put_one(bin_id, kmers, counts)
+        if stats is not None:
+            self.n_unique += stats["n_unique"]
+            self.n_below_min += stats["n_below_min"]
+            self.n_above_max += stats["n_above_max"]
+            self.n_total += stats["n_total"]
+
+    def _put_one(self, bin_id, kmers, counts):
         info = self.info
+        if kmers is None or len(kmers) == 0:
+            lut = np.zeros(self._lut_size, dtype=np.uint64)
+        else:
+            prefix_ids = kmer_bytes_to_prefix_ids(kmers, info.kmer_len,
+                                                  info.lut_prefix_len)
+            lut = np.bincount(prefix_ids.astype(np.int64),
+                              minlength=self._lut_size).astype(np.uint64)
+            _records(kmers, counts, info.suffix_bytes,
+                     info.counter_size).tofile(self._suf)
+        # per-prefix counts -> running cumulative offsets
+        shifted = np.empty_like(lut)
+        shifted[0] = 0
+        np.cumsum(lut[:-1], out=shifted[1:])
+        shifted += np.uint64(self._n_recs)
+        self._n_recs += int(lut.sum())
+        shifted.astype("<u8").tofile(self._pre)
+        self._sig_map_out[self._sig_map_bins == bin_id] = self._lut_pos
+        self._lut_pos += 1
+        self._next_bin = bin_id + 1
+
+    def close(self):
+        info = self.info
+        while self._next_bin < info.n_bins:
+            self._put_one(self._next_bin, None, None)
         self._suf.write(SUF_MARKER)
         self._suf.close()
         pre = self._pre
@@ -141,3 +227,46 @@ class Kmc2DbWriter:
         pre.write(struct.pack("<I", len(header)))  # header_offset = 68
         pre.write(PRE_MARKER)
         pre.close()
+
+
+def write_kmc1_db(path_prefix: str, info: DbInfo, kmers: np.ndarray,
+                  counts: np.ndarray):
+    """Write a KMC1 (version 0) database from globally sorted records
+    (CSmallKCompleter::CompleteKMCFormat, kb_completer.h:199-305, and
+    kmc_tools' CKMC1DbWriter)."""
+    lut_size = 1 << (2 * info.lut_prefix_len)
+    suffix_bytes = (info.kmer_len - info.lut_prefix_len) // 4
+    with open(path_prefix + ".kmc_suf", "wb") as suf:
+        suf.write(SUF_MARKER)
+        if len(kmers):
+            _records(kmers, counts, suffix_bytes, info.counter_size).tofile(suf)
+        suf.write(SUF_MARKER)
+    with open(path_prefix + ".kmc_pre", "wb") as pre:
+        pre.write(PRE_MARKER)
+        hist = np.zeros(lut_size, dtype=np.uint64)
+        if len(kmers):
+            prefix_ids = kmer_bytes_to_prefix_ids(kmers, info.kmer_len,
+                                                  info.lut_prefix_len)
+            hist = np.bincount(prefix_ids.astype(np.int64),
+                               minlength=lut_size).astype(np.uint64)
+        lut = np.zeros(lut_size, dtype=np.uint64)
+        np.cumsum(hist[:-1], out=lut[1:])
+        lut.astype("<u8").tofile(pre)
+        header = struct.pack(
+            "<IIIIIIQB",
+            info.kmer_len,
+            info.mode,
+            info.counter_size,
+            info.lut_prefix_len,
+            info.cutoff_min,
+            info.cutoff_max & 0xFFFFFFFF,
+            len(kmers),
+            0 if info.both_strands else 1,
+        )
+        header += b"\x00" * 3
+        header += struct.pack("<I", (info.cutoff_max >> 32) & 0xFFFFFFFF)
+        header += b"\x00" * 20
+        header += struct.pack("<I", KMC1_VER)
+        pre.write(header)
+        pre.write(struct.pack("<I", len(header)))  # 64
+        pre.write(PRE_MARKER)

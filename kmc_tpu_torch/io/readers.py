@@ -48,15 +48,19 @@ class ParseState:
     consumed_bytes: int = 0  # raw (compressed) input bytes consumed so far
 
 
-def file_code_stream(paths, fmt: str,
-                     state: ParseState | None = None) -> Iterator[np.ndarray]:
+def file_code_stream(paths, fmt: str, state: ParseState | None = None,
+                     max_bytes: int | None = None) -> Iterator[np.ndarray]:
     """Yield code-array chunks for a list of input files, parsed serially by
     the native C parser/inflater (native/kmc_host.cpp).  The parser resumes
     mid-line, so chunks need no newline alignment and no leftover copies;
-    one sentinel follows each file, so k-mers never span files."""
+    one sentinel follows each file, so k-mers never span files.  max_bytes
+    stops the stream after the chunk at which that many input bytes have
+    been consumed (the stage-0 sample, KMC's defs.h:37 STATS_FASTQ_SIZE),
+    at the same chunk as kmc_tpu's stream."""
     from .native import NativeGzReader, NativeParser
 
     own_state = state or ParseState()
+    consumed = 0
     buf = np.empty(CHUNK_BYTES, dtype=np.uint8)
     for path in paths:
         parser = NativeParser(fmt)
@@ -74,13 +78,19 @@ def file_code_stream(paths, fmt: str,
                     break
                 ended_with_newline = buf[n - 1] == 10
                 yield parser.parse(buf[:n])
+                consumed += n
                 own_state.consumed_bytes += n
-            if not ended_with_newline:
+                if max_bytes is not None and consumed >= max_bytes:
+                    break
+            if not ended_with_newline and (max_bytes is None
+                                           or consumed < max_bytes):
                 yield parser.parse(np.frombuffer(b"\n", dtype=np.uint8))
         finally:
             reader.close()
         own_state.n_reads += parser.n_reads
         yield np.full(1, CODE_INVALID, dtype=np.uint8)
+        if max_bytes is not None and consumed >= max_bytes:
+            break
 
 
 def _scan_record_start(win: bytes, fmt: str) -> int | None:

@@ -29,7 +29,9 @@ after every live row.  Counts are implicitly 1 until the first compaction
             LUT, copied to the host in one piece.  When the replayed unique
             set outgrows the store, the runs and the store are merged and
             the host completer (NumPy) writes the records instead: the
-            "host" route.
+            "host" route.  KFF output and -w take the words-path
+            finalize (finalize) over the same three routes: the groups'
+            bins, k-mer lanes and clamped counts in record order.
   merge     every merge of spilled runs (the re-merge and the host route's
             merge; the sharded store's too) runs on the store's device
             (merge_runs): the runs stay in host RAM and are cut at common
@@ -129,6 +131,16 @@ def _split_bins(cols, *, fuse: bool, r0: int):
     return i32_to_u32(cols[0]), [i32_to_u32(c) for c in cols[1:]]
 
 
+def _cutoffs(bins, totals, *, cutoff_min, cutoff_max, n_bins):
+    """(keep mask, (n_unique, n_below, n_above) tensors) of grouped rows:
+    a group of a valid bin counts as unique, and is kept within the
+    cutoffs."""
+    valid = bins < n_bins
+    below = valid & (totals < cutoff_min)
+    above = valid & (totals > cutoff_max)
+    return valid & ~below & ~above, (valid.sum(), below.sum(), above.sum())
+
+
 def _completer(bins, wr, totals, *, cutoff_min, cutoff_max, counter_max, k,
                lut_prefix_len, counter_size, n_bins):
     """KMC2 completer over grouped rows in (bin, k-mer) order (mirrors
@@ -136,11 +148,8 @@ def _completer(bins, wr, totals, *, cutoff_min, cutoff_max, counter_max, k,
     lut int64[n_bins << 2*lpl], (n_unique, n_below, n_above) tensors)."""
     W = (k + 15) // 16
     r0 = k - 16 * (W - 1)
-    group_valid = bins < n_bins
-    n_unique = group_valid.sum()
-    below = group_valid & (totals < cutoff_min)
-    above = group_valid & (totals > cutoff_max)
-    keep = group_valid & ~below & ~above
+    keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
+                           cutoff_max=cutoff_max, n_bins=n_bins)
     bins, totals = bins[keep], totals[keep]
     wr = [w[keep] for w in wr]
 
@@ -169,7 +178,7 @@ def _completer(bins, wr, totals, *, cutoff_min, cutoff_max, counter_max, k,
     lut_size = n_bins << (2 * lut_prefix_len)
     lut = torch.bincount((bins << (2 * lut_prefix_len)) | prefix,
                          minlength=lut_size)
-    return rec, lut, (n_unique, below.sum(), above.sum())
+    return rec, lut, stats
 
 
 class _SpillOverflow(Exception):
@@ -783,6 +792,51 @@ class DeviceKmerStore:
         self.t_finalize_d2h = time.perf_counter() - t0
         self.key_cols = self.counts = None
         return rec_h, lut_h, stats_h
+
+    def finalize(self, *, cutoff_min: int, cutoff_max: int,
+                 counter_max: int):
+        """Words-path finalize (KFF output and -w; kmc_tpu's finalize):
+        returns (bins int32, words uint32[N, W], counts uint32, (n_unique,
+        n_below, n_above)) as host arrays in final record order,
+        cutoff-filtered and clamped to counter_max.  Same three routes and
+        count arithmetics as finalize_records: the device and replay
+        routes take u32 group totals (a group that wraps to 0 is dropped),
+        the host route u64 totals.  The store is consumed."""
+        replayed = bool(self.spilled)
+        try:
+            self._replay_spills()
+        except _SpillOverflow:
+            self.finalize_route = "host"
+            t0 = time.perf_counter()
+            bins, lanes, totals = self._host_merge()
+            self.t_host_merge = time.perf_counter() - t0
+            below = totals < cutoff_min
+            above = totals > cutoff_max
+            keep = ~below & ~above
+            cnt = np.minimum(totals[keep], np.uint64(counter_max))
+            return (bins[keep].astype(np.int32), lanes[keep],
+                    cnt.astype(np.uint32),
+                    (len(bins), int(below.sum()), int(above.sum())))
+        self.finalize_route = "replay" if replayed else "device"
+        t0 = time.perf_counter()
+        cols, counts = self._live_rows()
+        reps, totals = _group_reduce(cols, counts, self.n_cols)
+        del cols, counts
+        bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
+        keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
+                               cutoff_max=cutoff_max, n_bins=self.n_used_bins)
+        out_bins = bins[keep].to(torch.int32)
+        words = torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1)
+        cnt = u32_to_i32(torch.clamp(totals[keep], max=counter_max))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.t_finalize_exec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = (out_bins.cpu().numpy(), _host_u32(words), _host_u32(cnt),
+               tuple(int(x) for x in torch.stack(stats).cpu()))
+        self.t_finalize_d2h = time.perf_counter() - t0
+        self.key_cols = self.counts = None
+        return out
 
     # -- stage-1 checkpoints, in kmc_tpu's file format --
 

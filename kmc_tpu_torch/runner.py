@@ -1,23 +1,39 @@
 """Orchestrator: the two-stage counting pipeline and its public API.
 
 The port's counterpart of kmc_tpu/runner.py, with the same parameters,
-results and fluent setters (KMC's kmc_runner.h:100-255), for the default
-`kmc` run:
+results and fluent setters (KMC's kmc_runner.h:100-255), over kmc_tpu's
+single-device routes:
 
-  stage 1  parse -> BatchStream -> pack_codes_boundaries -> device store
-           ingest (splitter-scan kernel), compacting (grouping-sort kernel)
-           whenever the store fills and spilling the compacted store to
-           host RAM (under the -m budget) when compaction frees too little;
-  stage 2  finalize_records (spill replay, or the runs merged on the device
-           and the host completer; grouping sort + completer) ->
-           Kmc2DbWriter.
+  device store (the default, k >= 14)
+    stage 1  parse -> BatchStream -> pack_codes_boundaries -> device store
+             ingest (fused ingest kernel), compacting (grouping-sort
+             kernel) whenever the store fills and spilling the compacted
+             store to host RAM (under the -m budget) when compaction frees
+             too little;
+    stage 2  finalize_records (spill replay, or the runs merged on the
+             device and the host completer) -> Kmc2DbWriter, or for KFF
+             output and -w the words-path finalize -> KffWriter;
+  host buckets (--no-device-store, k >= 14)
+    stage 0  a sampled signature histogram (splitter-scan kernel) -> the
+             greedy signature -> bin map (signatures.py);
+    stage 1  per batch: splitter scan + grouping sort -> unique rows,
+             routed by bin into host RAM;
+    stage 2  per bin: merge_count_bin on the device -> Kmc2DbWriter.put_bin
+             or one KFF section;
+  small k (k <= 13)
+    stage 1  a dense 4^k histogram on the device (ops/smallk.py);
+    stage 2  thresholds -> a KMC1 database or one KFF section;
+  -e / --opt-out-size: the ntCard estimator (ops/nthash.py) hashes every
+    parsed chunk on the device; -e stops after stage 1 with the estimated
+    histogram, --opt-out-size picks the LUT prefix length from it.
 
-Stage-1 state checkpoints to .npz files in kmc_tpu's format
+Stage-1 device-store state checkpoints to .npz files in kmc_tpu's format
 (save_stage1_checkpoint / resume_stage1_checkpoint), so a checkpoint
 written by either package resumes in the other.
 
-Every option outside that path raises NotImplementedError naming the
-ROADMAP item that ports it; nothing falls back silently.
+The greedy signature map of the device store (ROADMAP A7) and BAM / KMC
+database input (A10) raise NotImplementedError; nothing falls back
+silently.
 """
 from __future__ import annotations
 
@@ -31,11 +47,13 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import defs
 from .defs import calc_counter_size
 from .device import device_name, resolve_device
-from .formats.kmc_db import DbInfo, Kmc2DbWriter, pick_lut_prefix_len
+from .formats.kmc_db import (DbInfo, Kmc2DbWriter, pick_lut_prefix_len,
+                             write_kmc1_db)
 from .io.native import pack_codes_boundaries, pack_codes_fused
 from .io.readers import (
     BatchStream,
@@ -46,8 +64,9 @@ from .io.readers import (
     set_chunk_bytes,
 )
 from .memory import plan_memory
+from .signatures import build_signature_map, map_size, n_used_bins
 
-MIN_DEVICE_K = 14  # k <= 13 is kmc_tpu's small-k path (KMC1 output)
+MIN_DEVICE_K = 14  # k <= 13 is the small-k path (KMC1 output)
 
 
 class InputFileType(Enum):
@@ -128,20 +147,11 @@ class Stage1Params:
     def check_ported(self):
         """Raise NotImplementedError for options this package does not
         count yet."""
-        if self.kmer_len < MIN_DEVICE_K:
-            raise NotImplementedError(
-                f"k={self.kmer_len}: k <= 13 (small-k path, KMC1 output) is "
-                "ROADMAP A9")
-        if self.signature_map_policy != "prefix":
+        if (self.signature_map_policy != "prefix" and self.device_store
+                and self.kmer_len >= MIN_DEVICE_K):
             raise NotImplementedError(
                 f"signature_map_policy={self.signature_map_policy!r}: the "
-                "greedy policy is ROADMAP A7")
-        if not self.device_store:
-            raise NotImplementedError(
-                "device_store=False (host buckets) is ROADMAP A9")
-        if self.estimate_histogram_cfg != EstimateHistogramCfg.DONT_ESTIMATE:
-            raise NotImplementedError(
-                "-e / --opt-out-size (histogram estimation) is ROADMAP A12")
+                "device store's greedy policy is ROADMAP A7")
         if self.input_file_type in (InputFileType.BAM, InputFileType.KMC):
             raise NotImplementedError(
                 f"input format {self.input_file_type.value!r} is ROADMAP A10")
@@ -165,14 +175,6 @@ class Stage2Params:
             raise ValueError("cutoff_min must be >= 1")
         if self.counter_max < 1:
             raise ValueError("counter_max must be >= 1")
-
-    def check_ported(self):
-        """Raise NotImplementedError for options this package does not
-        write yet."""
-        if self.without_output or self.output_file_type != OutputFileType.KMC:
-            raise NotImplementedError(
-                "KFF output and -w (without output) need the words-path "
-                "finalize, ROADMAP A6")
 
 
 @dataclass
@@ -219,6 +221,15 @@ class Runner:
         self._sig_map = None
         self._n_used_bins = 0
         self._n_reads = 0
+        self._small_k = False
+        self._smallk_hist = None  # int64[4^k] on the device, mod 2^32
+        self._estimator = None
+        self._estimated_histogram = None
+        # host-bucket route: per bin, the batches' (uint32 lanes (n, W),
+        # uint32 counts) parts, their rows and their occurrences
+        self._buckets = None
+        self._bucket_rows = None
+        self._bucket_occurrences = None
         self.n_compactions = 0  # store compactions in the last stage 1
         # spills, re-merges and the finalize route of the last count, with
         # their bytes and times (set by stage 1, completed by stage 2)
@@ -231,13 +242,50 @@ class Runner:
         self._s1 = params
         t0 = time.perf_counter()
         results = Stage1Results()
-        self._run_stage1_device_store(params, results)
+        k = params.kmer_len
+        self._small_k = k < MIN_DEVICE_K
+        self._estimator = None
+        self.n_compactions = 0
+        self.spill_stats = {}  # the device-store route sets them
+        if params.estimate_histogram_cfg != EstimateHistogramCfg.DONT_ESTIMATE:
+            if self._small_k:
+                raise ValueError(
+                    "histogram estimation not supported with small-k "
+                    "optimization")  # kmc.h:779-785
+            from .ops.nthash import NtCardEstimator
+
+            # sampling prefix width by predicted input size (kmc.h:
+            # 1118-1121: s = 7 under 50 GB, s = 11 above)
+            predicted = sum(Path(p).stat().st_size
+                            for p in params.input_files if Path(p).exists())
+            self._estimator = NtCardEstimator(
+                k, s=7 if predicted < 50_000_000_000 else 11,
+                device=self.device)
+        if params.estimate_histogram_cfg == EstimateHistogramCfg.ONLY_ESTIMATE:
+            for chunk, _ in self._chunks(params):
+                self._estimator.process_codes(chunk)
+        elif self._small_k:
+            self._run_stage1_small_k(params)
+        elif params.device_store:
+            self._run_stage1_device_store(params, results)
+        else:
+            # host buckets route by bin during stage 1, so the map must
+            # exist up front: KMC's sampled stage 0
+            self._run_stage0(params)
+            self._run_stage1_host_buckets(params)
+        if self._estimator is not None:
+            results.estimated_histogram = self._estimator.estimate_histogram()
+            self._estimated_histogram = results.estimated_histogram
+            self._estimator = None  # frees the counters
         results.n_sequences = self._n_reads
+        results.was_small_k_opt_used = self._small_k
         results.time = time.perf_counter() - t0
         return results
 
     def _memory_plan(self, params: Stage1Params):
-        """The -m carve for this run; also sizes the parse chunks."""
+        """The -m carve for this run; also sizes the parse chunks.  As in
+        kmc_tpu, only the device-store route applies it: the other routes
+        parse with the chunk size in force."""
         plan = plan_memory(
             params.max_ram_gb, k=params.kmer_len,
             batch_positions=params.batch_positions,
@@ -247,23 +295,109 @@ class Runner:
         set_chunk_bytes(plan.parse_chunk_bytes)
         return plan
 
-    def _chunks(self, params: Stage1Params):
+    def _chunks(self, params: Stage1Params, max_bytes=None):
+        """Parsed code chunks, as kmc_tpu cuts them: the estimator of
+        --opt-out-size hashes each chunk of the full parse alone, so the
+        chunks must be kmc_tpu's (the same readers, the same chunk bytes).
+        max_bytes: stage 0's sample, read serially."""
         state = ParseState()
         fmt = params.input_file_type.value
+        feed_estimator = (
+            max_bytes is None and self._estimator is not None
+            and params.estimate_histogram_cfg
+            == EstimateHistogramCfg.ESTIMATE_AND_COUNT_KMERS)
         # -sf bounds the reader pool independently of -t
         n_th = params.n_reader_threads or params.n_threads or n_cpus()
-        if n_th > 1:
+        if n_th > 1 and max_bytes is None:
             # N parser threads over record-aligned shards; the chunk stream
             # is a boundary refinement of the serial one
             source = parallel_code_stream(params.input_files, fmt, state,
                                           n_threads=n_th)
         else:
-            source = file_code_stream(params.input_files, fmt, state)
+            source = file_code_stream(params.input_files, fmt, state,
+                                      max_bytes=max_bytes)
         if params.homopolymer_compressed:
             source = homopolymer_compress_stream(source)
         for chunk in source:
+            if feed_estimator:
+                self._estimator.process_codes(chunk)
             yield chunk, state
         self._n_reads = state.n_reads
+
+    def _batches(self, params: Stage1Params, max_bytes=None):
+        """The device batches of the parse, as uint8 numpy arrays."""
+        bs = BatchStream(params.batch_positions, params.kmer_len)
+        return bs.batches(c for c, _ in self._chunks(params, max_bytes))
+
+    def _codes_on_device(self, batch: np.ndarray):
+        return torch.from_numpy(batch).to(self.device)
+
+    def _run_stage0(self, params: Stage1Params):
+        """The sampled signature histogram (on the device, kmc_tpu's
+        _run_stage0) -> the greedy signature -> bin map."""
+        from .ops.sortcount import stage0_accum
+
+        m = params.signature_len
+        hist = torch.zeros(map_size(m), dtype=torch.int64, device=self.device)
+        for batch in self._batches(params, max_bytes=defs.STATS_SAMPLE_BYTES):
+            stage0_accum(self._codes_on_device(batch), hist,
+                         s=params.batch_positions, k=params.kmer_len,
+                         sig_len=m)
+        self._sig_map = build_signature_map(
+            hist.cpu().numpy().astype(np.uint64), m, params.n_bins)
+        self._n_used_bins = n_used_bins(self._sig_map)
+
+    def _run_stage1_host_buckets(self, params: Stage1Params):
+        """Unique rows of each batch (splitter scan + grouping sort on the
+        device), routed by bin into host RAM (kmc_tpu's
+        _run_stage1_host_buckets: a stable sort by bin in each batch)."""
+        from .ops.sortcount import stage1_batch
+
+        n_bins = self._n_used_bins
+        buckets = [[] for _ in range(n_bins)]
+        bucket_rows = np.zeros(n_bins, dtype=np.int64)
+        bucket_occ = np.zeros(n_bins, dtype=np.int64)
+        sig_to_bin = torch.from_numpy(self._sig_map.astype(np.int64)).to(
+            self.device)
+        for batch in self._batches(params):
+            sig, lanes, counts = stage1_batch(
+                self._codes_on_device(batch), s=params.batch_positions,
+                k=params.kmer_len, sig_len=params.signature_len,
+                both_strands=params.canonical_kmers)
+            keep = sig != -1  # INVALID_SIG as an int32
+            bins = sig_to_bin[sig[keep].to(torch.int64)]
+            bins, order = torch.sort(bins, stable=True)
+            words = torch.stack([c[keep][order] for c in lanes], dim=1)
+            counts = counts[keep][order]
+            rows = torch.bincount(bins, minlength=n_bins)
+            occ = torch.zeros(n_bins, dtype=torch.int64,
+                              device=self.device).index_add_(0, bins, counts)
+            words = words.cpu().numpy().view(np.uint32)
+            counts = counts.cpu().numpy().astype(np.uint32)
+            rows = rows.cpu().numpy()
+            bounds = np.concatenate([[0], np.cumsum(rows)])
+            for b in np.flatnonzero(rows):
+                lo, hi = bounds[b], bounds[b + 1]
+                buckets[b].append((words[lo:hi], counts[lo:hi]))
+            bucket_rows += rows
+            bucket_occ += occ.cpu().numpy()
+        self._buckets = buckets
+        self._bucket_rows = bucket_rows
+        self._bucket_occurrences = bucket_occ
+
+    def _run_stage1_small_k(self, params: Stage1Params):
+        """The dense 4^k histogram on the device (kmc_tpu's
+        _run_stage1_small_k)."""
+        from .ops.smallk import smallk_batch, smallk_histogram_size
+
+        k, s = params.kmer_len, params.batch_positions
+        hist = torch.zeros(smallk_histogram_size(k), dtype=torch.int64,
+                           device=self.device)
+        for batch in self._batches(params):
+            smallk_batch(self._codes_on_device(pack_codes_fused(batch)), hist,
+                         s=s, k=k, both_strands=params.canonical_kmers)
+        # kmc_tpu's u32 histogram wraps; the invalid slot is dropped
+        self._smallk_hist = hist.bitwise_and_(0xFFFFFFFF)[:-1]
 
     def _run_stage1_device_store(self, params: Stage1Params,
                                  results: Stage1Results):
@@ -406,6 +540,7 @@ class Runner:
         params.validate()
         params.check_ported()
         self._s1 = params
+        self._small_k = params.kmer_len < MIN_DEVICE_K
         self._n_reads = int(meta["n_reads"])
         self._store = DeviceKmerStore.load_checkpoint(
             path, capacity_rows=self._memory_plan(params).device_store_rows,
@@ -418,19 +553,33 @@ class Runner:
     # ---------------- stage 2 ----------------
     def run_stage2(self, params: Stage2Params) -> Stage2Results:
         params.validate()
-        params.check_ported()
-        if self._s1 is None or self._store is None:
+        if self._s1 is None:
             raise RuntimeError("run_stage1 first")
         t0 = time.perf_counter()
         results = Stage2Results()
-        self._run_stage2_device_store(params, results)
+        if self._s1.estimate_histogram_cfg == EstimateHistogramCfg.ONLY_ESTIMATE:
+            return results  # kmc.h:1411-1412: no stage 2 under -e
+        if self._small_k:
+            self._run_stage2_small_k(params, results)
+        elif self._s1.device_store:
+            if self._store is None:
+                raise RuntimeError("run_stage1 first")
+            self._run_stage2_device_store(params, results)
+        else:
+            self._run_stage2_host_buckets(params, results)
         results.time = time.perf_counter() - t0
         return results
 
     def _make_db_info(self, params: Stage2Params) -> DbInfo:
         s1 = self._s1
         k = s1.kmer_len
-        n_est_unique = 4 * self._n_reads  # KMC's heuristic, kmc.h:1436
+        if self._estimated_histogram:
+            # estimated unique k-mers within the cutoffs (kmc.h:1437-1446)
+            hist = self._estimated_histogram
+            end = min(params.cutoff_max + 1, len(hist))
+            n_est_unique = sum(hist[params.cutoff_min:end])
+        else:
+            n_est_unique = 4 * self._n_reads  # KMC's heuristic, kmc.h:1436
         lut_prefix_len = pick_lut_prefix_len(k, self._n_used_bins, n_est_unique)
         counter_size = calc_counter_size(params.cutoff_max, params.counter_max)
         return DbInfo(
@@ -446,10 +595,34 @@ class Runner:
 
     def _run_stage2_device_store(self, params: Stage2Params,
                                  results: Stage2Results):
-        """KMC2 output: the device completer emits the on-disk payload
-        (mirrors kmc_tpu's _run_stage2_device_store, KMC branch)."""
+        """KMC2 output: the device completer emits the on-disk payload;
+        KFF output and -w: the words-path finalize (mirrors kmc_tpu's
+        _run_stage2_device_store)."""
         store = self._store
         n_total = store.total_occurrences()
+        if params.without_output or params.output_file_type == OutputFileType.KFF:
+            bins, words, counts, (n_unique, n_below, n_above) = store.finalize(
+                cutoff_min=params.cutoff_min, cutoff_max=params.cutoff_max,
+                counter_max=params.counter_max)
+            results.time_finalize_exec = store.t_finalize_exec
+            results.time_finalize_d2h = store.t_finalize_d2h
+            self.spill_stats = self._spill_stats(store)
+            self._store = None
+            results.n_unique_kmers = n_unique
+            results.n_below_cutoff_min = n_below
+            results.n_above_cutoff_max = n_above
+            results.n_total_kmers = n_total
+            if params.without_output:
+                return
+            # one section per bin that keeps a k-mer after the cutoffs
+            bounds = np.searchsorted(bins, np.arange(self._n_used_bins + 1))
+            w = self._kff_writer(params)
+            kmer_bytes = words_to_kmer_bytes(words, self._s1.kmer_len)
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                if lo < hi:
+                    w.store_section(kmer_bytes[lo:hi], counts[lo:hi])
+            w.close()
+            return
         info = self._make_db_info(params)
         rec, lut, (n_unique, n_below, n_above) = store.finalize_records(
             cutoff_min=params.cutoff_min,
@@ -483,6 +656,138 @@ class Runner:
         if self._s1.verbose:
             print(f"[stage2] db write: {time.perf_counter() - t0:.2f}s")
 
+    def _kff_writer(self, params: Stage2Params):
+        """A KFF writer for the output (KMC's completer KFF path,
+        kb_completer.cpp:172-177)."""
+        from .formats.kff import KffWriter
+
+        return KffWriter(
+            params.output_file_name + ".kff",
+            canonical=self._s1.canonical_kmers, k=self._s1.kmer_len,
+            counter_size=calc_counter_size(params.cutoff_max,
+                                           params.counter_max),
+            min_count=params.cutoff_min, max_count=params.cutoff_max)
+
+    def _run_stage2_host_buckets(self, params: Stage2Params,
+                                 results: Stage2Results):
+        """Each bin's rows merged on the device (merge_count_bin), written
+        bin by bin as KMC2 or as one KFF section each (kmc_tpu's
+        _run_stage2_host_buckets)."""
+        from .ops.sortcount import merge_count_bin
+
+        k = self._s1.kmer_len
+        info = self._make_db_info(params)
+        writer = kff = None
+        if not params.without_output:
+            if params.output_file_type == OutputFileType.KFF:
+                kff = self._kff_writer(params)
+            else:
+                writer = Kmc2DbWriter(params.output_file_name, info,
+                                      self._sig_map)
+        for b in range(self._n_used_bins):
+            parts = self._buckets[b]
+            if not int(self._bucket_rows[b]):
+                continue
+            # kmc_tpu pads each bin to a power of two for its static
+            # shapes; rows of count 0 add nothing, so none are added here
+            words = np.concatenate([w for w, _ in parts]).view(np.int32)
+            counts = np.concatenate([c for _, c in parts]).view(np.int32)
+            kept, kept_counts, (n_unique, n_below, n_above) = merge_count_bin(
+                [torch.from_numpy(np.ascontiguousarray(words[:, t])).to(
+                    self.device) for t in range(words.shape[1])],
+                torch.from_numpy(counts).to(self.device),
+                cutoff_min=params.cutoff_min, cutoff_max=params.cutoff_max,
+                counter_max=params.counter_max)
+            kw = kept.cpu().numpy().astype(np.uint32)
+            kc = kept_counts.cpu().numpy().astype(np.uint32)
+            n_total = int(self._bucket_occurrences[b])
+            results.n_unique_kmers += n_unique
+            results.n_below_cutoff_min += n_below
+            results.n_above_cutoff_max += n_above
+            results.n_total_kmers += n_total
+            if writer is not None:
+                writer.put_bin(b, words_to_kmer_bytes(kw, k), kc, stats={
+                    "n_unique": n_unique, "n_below_min": n_below,
+                    "n_above_max": n_above, "n_total": n_total})
+            elif kff is not None:
+                kff.store_section(words_to_kmer_bytes(kw, k), kc)
+            self._buckets[b] = None  # free as we go
+        if writer is not None:
+            writer.close()
+        if kff is not None:
+            kff.close()
+
+    def _run_stage2_small_k(self, params: Stage2Params,
+                            results: Stage2Results):
+        s1 = self._s1
+        (results.n_unique_kmers, results.n_below_cutoff_min,
+         results.n_above_cutoff_max, results.n_total_kmers) = \
+            smallk_finalize_and_write(
+                self._smallk_hist, s1.kmer_len,
+                cutoff_min=params.cutoff_min, cutoff_max=params.cutoff_max,
+                counter_max=params.counter_max, canonical=s1.canonical_kmers,
+                output_file_name=params.output_file_name,
+                output_kff=params.output_file_type == OutputFileType.KFF,
+                write=not params.without_output)
+        self._smallk_hist = None
+
+
+def smallk_finalize_and_write(hist: torch.Tensor, k: int, *, cutoff_min,
+                              cutoff_max, counter_max, canonical,
+                              output_file_name, output_kff=False,
+                              write=True):
+    """The small-k (k <= 13) finalize (kmc_tpu's smallk_finalize_and_write;
+    KMC's CSmallKCompleter, kb_completer.h:92, kmc.h:677-970): threshold
+    the dense histogram (int64[4^k] of u32 counts, on its device) and
+    write a KMC1 database or one KFF section.  Returns (n_unique, n_below,
+    n_above, n_total)."""
+    nonzero = torch.nonzero(hist).squeeze(1)
+    cnts = hist[nonzero]
+    below = cnts < cutoff_min
+    above = cnts > cutoff_max
+    keep = ~below & ~above
+    kmers_int = nonzero[keep].cpu().numpy().astype(np.uint64)
+    counts = torch.clamp(cnts[keep], max=counter_max).cpu().numpy().astype(
+        np.uint32)
+    stats = (nonzero.shape[0], int(below.sum()), int(above.sum()),
+             int(cnts.sum()))
+    if not write:
+        return stats
+    counter_size = calc_counter_size(cutoff_max, counter_max)
+    kb = (k + 3) // 4
+    kmer_bytes = np.zeros((len(kmers_int), kb), dtype=np.uint8)
+    v = kmers_int.copy()
+    for j in range(kb - 1, -1, -1):
+        kmer_bytes[:, j] = (v & np.uint64(0xFF)).astype(np.uint8)
+        v >>= np.uint64(8)
+    if output_kff:
+        from .formats.kff import KffWriter
+
+        w = KffWriter(output_file_name + ".kff", canonical=canonical, k=k,
+                      counter_size=counter_size, min_count=cutoff_min,
+                      max_count=cutoff_max)
+        w.store_section(kmer_bytes, counts)
+        w.close()
+    else:
+        info = DbInfo(
+            kmer_len=k, counter_size=counter_size,
+            lut_prefix_len=pick_lut_prefix_len(k, 1, len(kmers_int),
+                                               kmc1=True),
+            cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+            both_strands=canonical, version=0)
+        write_kmc1_db(output_file_name, info, kmer_bytes, counts)
+    return stats
+
+
+def words_to_kmer_bytes(words: np.ndarray, k: int) -> np.ndarray:
+    """(N, W) uint32 MSW-first lanes -> (N, KB) right-aligned big-endian
+    bytes (kmc_tpu's words_to_kmer_bytes)."""
+    n, W = words.shape
+    kb = (k + 3) // 4
+    b = np.ascontiguousarray(words).astype(">u4").view(np.uint8).reshape(
+        n, 4 * W)
+    return np.ascontiguousarray(b[:, 4 * W - kb:])
+
 
 def count(
     input_files,
@@ -506,7 +811,6 @@ def count(
             raise TypeError(f"unknown parameter {key}")
     r = Runner(device=device)
     p2.validate()
-    p2.check_ported()  # before stage 1 spends its time
     res1 = r.run_stage1(p1)
     res2 = r.run_stage2(p2)
     return res1, res2

@@ -9,6 +9,7 @@ import torch
 
 import kmc_tpu_torch
 from kmc_tpu_torch import Runner, count, distributed_count, make_mesh
+from kmc_tpu_torch.ops.nthash import NtCardEstimator
 from kmc_tpu_torch.ops.store import DeviceKmerStore
 from kmc_tpu_torch.parallel.multihost import ShardedKmerStore
 
@@ -29,7 +30,12 @@ bad = sorted(m for m in sys.modules
              or m.startswith("kmc_tpu."))
 print(len(names), bad)
 assert not bad, bad
-for name in ("kmc_tpu_torch.parallel.distributed",
+for name in ("kmc_tpu_torch.formats.kff",
+             "kmc_tpu_torch.ops.nthash",
+             "kmc_tpu_torch.ops.smallk",
+             "kmc_tpu_torch.ops.sortcount",
+             "kmc_tpu_torch.signatures",
+             "kmc_tpu_torch.parallel.distributed",
              "kmc_tpu_torch.parallel.exchange_kernel",
              "kmc_tpu_torch.parallel.multihost",
              "kmc_tpu_torch.microbench_sort",
@@ -68,6 +74,7 @@ def test_count_without_device_raises_without_card(tmp_path, monkeypatch):
     lambda: make_mesh(),
     lambda: make_mesh(2),
     lambda: ShardedKmerStore(None, 64, k=27),
+    lambda: NtCardEstimator(27, r=10),
 ])
 def test_entry_points_default_to_cuda(monkeypatch, make):
     _no_card(monkeypatch)

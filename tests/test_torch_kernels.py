@@ -519,3 +519,173 @@ def test_sharded_spilling_count_on_card_matches_cpu(tmp_path):
                 "n_remerges"):
         assert s_gpu[key] == s_cpu[key], key
     assert s_gpu["n_spills"] >= 1 and s_gpu["merge_launches"] >= 1
+
+
+# -- the other routes of one device: small k, the estimator, host buckets,
+# the per-bin merge and the words-path finalize --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 9, 13])
+@pytest.mark.parametrize("both", [True, False])
+def test_smallk_batch_on_card_matches_plain(k, both):
+    _need_card()
+    from kmc_tpu_torch.io.native import pack_codes_fused
+    from kmc_tpu_torch.ops.smallk import smallk_batch, smallk_histogram_size
+
+    s = 1 << 20
+    rng = np.random.default_rng(k)
+    hists = {dev: torch.zeros(smallk_histogram_size(k), dtype=torch.int64,
+                              device=dev) for dev in ("cuda", "cpu")}
+    for _ in range(2):
+        codes = rng.integers(0, 4, batch_len(s, k)).astype(np.uint8)
+        codes[rng.random(len(codes)) < 0.01] = 4
+        buf = torch.from_numpy(pack_codes_fused(codes))
+        for dev, hist in hists.items():
+            smallk_batch(buf.to(dev), hist, s=s, k=k, both_strands=both)
+    assert torch.equal(hists["cuda"].cpu(), hists["cpu"])
+
+
+@pytest.mark.gpu
+def test_estimator_on_card_matches_plain():
+    _need_card()
+    from kmc_tpu_torch.ops.nthash import NtCardEstimator, nthash_canonical
+
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, 1 << 16).astype(np.uint8)
+    chunks = []
+    for _ in range(3):
+        starts = rng.integers(0, len(genome) - 150, 20000)
+        reads = genome[starts[:, None] + np.arange(150)]
+        chunks.append(np.concatenate(
+            [reads, np.full((len(starts), 1), 4, np.uint8)], axis=1).ravel())
+    h_gpu, v_gpu = nthash_canonical(torch.from_numpy(chunks[0]).cuda(), 27)
+    h_cpu, v_cpu = nthash_canonical(torch.from_numpy(chunks[0]), 27)
+    assert torch.equal(h_gpu.cpu(), h_cpu) and torch.equal(v_gpu.cpu(), v_cpu)
+    est = {dev: NtCardEstimator(27, s=7, device=dev) for dev in ("cuda", "cpu")}
+    for chunk in chunks:
+        for e in est.values():
+            e.process_codes(chunk)
+    for a, b in zip(est["cuda"].counters, est["cpu"].counters):
+        assert torch.equal(a.cpu(), b)
+    hist = est["cuda"].estimate_histogram()
+    assert hist == est["cpu"].estimate_histogram() and sum(hist) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,both", [(27, True), (33, True), (31, False)])
+def test_host_bucket_batch_on_card_matches_plain(k, both):
+    """Stage 0's histogram and stage 1's batch grouping: the scan entry and
+    the grouping sort on the card against their plain versions."""
+    _need_card()
+    from kmc_tpu_torch.ops.sortcount import stage0_accum, stage1_batch
+
+    s = 1 << 20
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 1 << 15).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - 150, batch_len(s, k) // 151 + 1)
+    codes = np.concatenate([np.append(genome[st:st + 150], np.uint8(4))
+                            for st in starts])[:batch_len(s, k)]
+    codes = torch.from_numpy(codes.astype(np.uint8))
+    scans, sorts = extract_splitter_scan.launches, radix_sort_columns.launches
+    got = stage1_batch(codes.cuda(), s=s, k=k, sig_len=M, both_strands=both)
+    want = stage1_batch(codes, s=s, k=k, sig_len=M, both_strands=both)
+    assert extract_splitter_scan.launches == scans + 1
+    assert radix_sort_columns.launches == sorts + 1
+    for a, b in zip([got[0], *got[1], got[2]], [want[0], *want[1], want[2]]):
+        assert torch.equal(a.cpu(), b)
+    assert int(want[2].sum()) == s
+    hists = {dev: torch.zeros((1 << 2 * M) + 1, dtype=torch.int64,
+                              device=dev) for dev in ("cuda", "cpu")}
+    for dev, hist in hists.items():
+        stage0_accum(codes.to(dev), hist, s=s, k=k, sig_len=M)
+    assert torch.equal(hists["cuda"].cpu(), hists["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 2, 3])
+def test_merge_count_bin_on_card_matches_plain(W):
+    _need_card()
+    from kmc_tpu_torch.ops.sortcount import merge_count_bin
+
+    rng = np.random.default_rng(W)
+    n = 1 << 20
+    keys = rng.integers(0, n // 4, n)
+    cols = [torch.from_numpy(((keys * 2654435761 + t) & 0xFFFFFFFF)
+                             .astype(np.uint32).view(np.int32))
+            for t in range(W)]
+    counts = rng.integers(1, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    counts = torch.from_numpy(counts.view(np.int32))
+    kw = dict(cutoff_min=1 << 28, cutoff_max=2**31, counter_max=255)
+    before = radix_sort_columns.launches
+    got = merge_count_bin([c.cuda() for c in cols], counts.cuda(), **kw)
+    assert radix_sort_columns.launches == before + 1
+    want = merge_count_bin(cols, counts, **kw)
+    assert got[2] == want[2] and want[2][1] > 0 and want[2][2] > 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _fastq(path, genome_len, n_reads, seed):
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for i, st in enumerate(rng.integers(0, genome_len - 150, n_reads)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    return str(path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,genome_len,kw", [
+    ("kff_device", 20000, dict(output_file_type="KFF")),
+    ("kff_replay", 20000, dict(output_file_type="KFF",
+                               device_store_rows=1 << 15)),
+    ("kff_host", 60000, dict(output_file_type="KFF",
+                             device_store_rows=1 << 15)),
+    ("w", 20000, dict(without_output=True)),
+    ("smallk", 20000, dict(kmer_len=11)),
+    ("smallk_kff", 20000, dict(kmer_len=13, output_file_type="KFF")),
+    ("buckets", 20000, dict(device_store=False)),
+    ("buckets_kff", 20000, dict(device_store=False, output_file_type="KFF")),
+    ("estimate", 20000, dict(estimate_histogram_cfg="ONLY_ESTIMATE")),
+    ("opt_out_size", 20000,
+     dict(estimate_histogram_cfg="ESTIMATE_AND_COUNT_KMERS")),
+])
+def test_route_on_card_matches_cpu(tmp_path, name, genome_len, kw):
+    """Each route of one device counts on the card as on the CPU: the same
+    files byte for byte, the same results apart from times."""
+    _need_card()
+    import dataclasses
+
+    from kmc_tpu_torch import (EstimateHistogramCfg, OutputFileType, Runner,
+                               Stage1Params, Stage2Params)
+
+    fq = _fastq(tmp_path / "in.fastq", genome_len, 4000, seed=2)
+    kw = dict(kw)
+    if "output_file_type" in kw:
+        kw["output_file_type"] = OutputFileType[kw["output_file_type"]]
+    if "estimate_histogram_cfg" in kw:
+        kw["estimate_histogram_cfg"] = EstimateHistogramCfg[
+            kw["estimate_histogram_cfg"]]
+    times = {"time", "time_strict_mem", "time_finalize_exec",
+             "time_finalize_d2h"}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p1 = Stage1Params(input_files=[fq], kmer_len=27,
+                          batch_positions=1 << 14)
+        p2 = Stage2Params(output_file_name=str(tmp_path / dev), cutoff_min=2)
+        for key, val in kw.items():
+            setattr(p1 if hasattr(p1, key) else p2, key, val)
+        r = Runner(device=dev)
+        res[dev] = [{k: v for k, v in dataclasses.asdict(x).items()
+                     if k not in times}
+                    for x in (r.run_stage1(p1), r.run_stage2(p2))]
+    assert res["cuda"] == res["cpu"]
+    files = sorted(p.name[len("cpu"):] for p in tmp_path.glob("cpu.*"))
+    assert files == sorted(p.name[len("cuda"):]
+                           for p in tmp_path.glob("cuda.*"))
+    for suf in files:
+        assert (tmp_path / f"cuda{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes(), suf
+    assert bool(files) == (name not in ("w", "estimate"))

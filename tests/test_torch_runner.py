@@ -15,8 +15,8 @@ import kmc_tpu.cli as jax_cli  # noqa: E402
 import kmc_tpu_torch.cli as torch_cli  # noqa: E402
 from kmc_tpu.runner import InputFileType as JaxInputFileType  # noqa: E402
 from kmc_tpu.runner import count as jax_count  # noqa: E402
-from kmc_tpu_torch import (EstimateHistogramCfg, InputFileType,  # noqa: E402
-                           OutputFileType, Runner, Stage1Params, count)
+from kmc_tpu_torch import (InputFileType, Runner, Stage1Params,  # noqa: E402
+                           count, distributed_count)
 
 _TIMES = {"time", "time_strict_mem", "time_finalize_exec", "time_finalize_d2h"}
 
@@ -99,12 +99,7 @@ def test_cli_json_and_db_identical(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(k=13), "A9"),
     (dict(signature_map_policy="greedy"), "A7"),
-    (dict(device_store=False), "A9"),
-    (dict(without_output=True), "A6"),
-    (dict(output_file_type=OutputFileType.KFF), "A6"),
-    (dict(estimate_histogram_cfg=EstimateHistogramCfg.ONLY_ESTIMATE), "A12"),
     (dict(input_file_type=InputFileType.BAM), "A10"),
     (dict(input_file_type=InputFileType.KMC), "A10"),
 ])
@@ -115,6 +110,50 @@ def test_unported_options_raise(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         count([inp], str(tmp_path / "db"), k=k, device="cpu", **kw)
     assert not (tmp_path / "db.kmc_pre").exists()
+
+
+@pytest.mark.parametrize("kw", [dict(output_type="kff"), dict(k=13),
+                                dict(estimate_only=True)])
+def test_sharded_unported_options_raise(tmp_path, kw):
+    """KFF output, small k and -e run on one device (Runner) but not yet
+    over shards (ROADMAP A11b)."""
+    inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
+    kw = dict(kw)
+    k = kw.pop("k", 27)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        distributed_count([inp], str(tmp_path / "db"), k=k,
+                          devices=["cpu"] * 2, **kw)
+    assert not list(tmp_path.glob("db*"))
+
+
+@pytest.mark.parametrize("args,sufs", [
+    (["-okff"], [".kff"]),
+    (["-w"], []),
+    (["-k9"], [".kmc_pre", ".kmc_suf"]),
+    (["-k13", "-okff", "-b"], [".kff"]),
+    (["--no-device-store"], [".kmc_pre", ".kmc_suf"]),
+    (["--no-device-store", "-okff", "-k31"], [".kff"]),
+])
+def test_cli_routes_identical(tmp_path, args, sufs):
+    reads = random_reads(200, 90, seed=6, genome_len=2000)
+    inp = write_fastq(tmp_path / "in.fastq", reads)
+    base = ["-k25", "-ci1", "-hp", "-S4096"]
+    docs = {}
+    for name, cli, extra in (("jdb", jax_cli, []),
+                             ("tdb", torch_cli, ["--device=cpu"])):
+        assert cli.main(base + args + extra + [
+            f"-j{tmp_path / (name + '.json')}", inp, str(tmp_path / name),
+            str(tmp_path)]) == 0
+        docs[name] = json.loads((tmp_path / f"{name}.json").read_text())
+        for key in ("1st_stage", "2nd_stage", "Total"):
+            docs[name].pop(key)
+    assert docs["tdb"] == docs["jdb"]
+    assert docs["tdb"]["Stats"]["#Unique_k-mers"] > 0
+    for suf in sufs:
+        assert (tmp_path / f"tdb{suf}").read_bytes() == \
+            (tmp_path / f"jdb{suf}").read_bytes(), suf
+    if not sufs:
+        assert not list(tmp_path.glob("tdb.kmc*"))
 
 
 def test_checkpoints_raise(tmp_path):
