@@ -5,6 +5,7 @@
     python3 chip_smoke.py 2 6        # phase 1, the phases named and those
                                      # whose results they take (PHASES)
     python3 chip_smoke.py 14         # the other routes (with phases 4, 5)
+    python3 chip_smoke.py 15         # -fbam, -fkmc, the readers (4, 5)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -88,7 +89,23 @@ Phases (any failure exits non-zero):
      prints its wall and stage seconds, the launches of the fused ingest,
      the scan entry and the radix sort (each route must launch the kernels
      it uses: the store's routes the fused ingest, the host buckets the
-     scan entry, both the sort) and its peak device memory.
+     scan entry, both the sort) and its peak device memory;
+ 15. BAM and KMC-database input, and the database readers.  At mid size,
+     card against CPU byte for byte: -fbam over a BGZF BAM of phase 4's
+     reads (also == phase 4's DB), -fkmc from phase 4's DB at k = 27 and
+     21, -fkmc from a KMC1 DB (k = 13 -> 9), and distributed_count over
+     2 shards with -fbam (== phase 4's DB) and -fkmc (== the single-device
+     -fkmc DB).  At full size, timed: -fbam over phase 5's reads (DB ==
+     phase 5's, n_total = n_reads x 124), -fkmc from phase 5's DB at
+     k = 21 (n_total = n_records x 7) and at k = 27 (each record once,
+     the same k-mers; under torch.profiler: device busy and idle share);
+     each with its host parse alone, its launches (every -fkmc launch
+     takes the fused ingest's packed+mask entry, no -fbam launch does)
+     and its peak device memory.  Then the readers on phase 5's DB:
+     read_db, kmc_dump (native) == dump_db_file, OpenForListing over 10^6
+     k-mers == sorted_records, and OpenForRA in memory and on disk:
+     CheckKmer on 10^4 records and GetCountersForRead on 10^5 reads ==
+     the records.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
@@ -109,6 +126,7 @@ import json
 import os
 import re
 import resource
+import struct
 import subprocess
 import sys
 import time
@@ -229,24 +247,29 @@ def read_like_codes(L, seed, tail=0, read=150):
     return codes
 
 
-def _profiled_device(fn, reps):
+def _profiled_device(fn, reps, attempts=3):
     """(device ms, device items) per call of fn, summed over the kernel,
-    copy and memset spans that torch.profiler saw in reps calls."""
+    copy and memset spans that torch.profiler saw in reps calls; a trace
+    with no device span (the profiler now and then records none) is taken
+    again, up to `attempts` times, and then (None, None, {})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    trace = WORK / "ingest_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text()).get("traceEvents", [])
-    trace.unlink()
-    dev = [e for e in events if e.get("cat") in
-           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if not dev:
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        trace = WORK / "ingest_trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        trace.unlink()
+        dev = [e for e in events if e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        if dev:
+            break
+    else:
         return None, None, {}
     by_name = {}
     for e in dev:
@@ -544,9 +567,15 @@ def phase_ingest(s=1 << 22):
                         st["n_used"] = 12345
 
                     dev_ms, _, by_name = _profiled_device(kernel, 10)
+                    stream_ms = cuda_ms(kernel, 20)
+                    if dev_ms is None:
+                        log(f"[phase 2] fused ingest k={k} feed={feed}: "
+                            "torch.profiler saw no device span; kernel_ms "
+                            "is the CUDA-event stream time")
                     row = dict(
                         max_abs_err=err,
-                        ms=dev_ms, stream_ms=cuda_ms(kernel, 20),
+                        ms=stream_ms if dev_ms is None else dev_ms,
+                        stream_ms=stream_ms,
                         kernels=by_name,
                         plain_ms=cuda_ms(plain, 3),
                         route_ms=cuda_ms(lambda: _torch_op_route(
@@ -689,15 +718,21 @@ def phase_sort():
     return rows
 
 
-def write_fastq(path: Path, genome_len: int, coverage: int, seed: int):
-    """bench.py's synthetic reads: a random genome, reads of 150 bp at
-    uniform starts, written in blocks."""
-    read_len = 150
+def bench_reads(genome_len: int, coverage: int, seed: int):
+    """bench.py's synthetic reads: a random genome (2-bit codes) and the
+    starts of its reads of 150 bp, uniform."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    n_reads = genome_len * coverage // 150
+    return genome, rng.integers(0, genome_len - 150, n_reads)
+
+
+def write_fastq(path: Path, genome_len: int, coverage: int, seed: int):
+    """bench_reads' reads as a FASTQ, written in blocks."""
+    read_len = 150
+    genome, starts = bench_reads(genome_len, coverage, seed)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    n_reads = genome_len * coverage // read_len
-    starts = rng.integers(0, genome_len - read_len, n_reads)
+    n_reads = len(starts)
     qual = b"I" * read_len
     with open(path, "wb") as f:
         block = 1 << 16
@@ -754,6 +789,7 @@ def _wrappers():
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["fused_ingest"].mask_launches = 0
 
 
 def read_counts(names=("fused_ingest", "radix_sort")):
@@ -1779,6 +1815,376 @@ def phase_other_routes(fq_mid, full):
     return scan_launches
 
 
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
+
+
+def _bgzf_member(payload: bytes) -> bytes:
+    """One BGZF member: a raw-deflate gzip member whose BC extra field
+    holds its size (SAM spec 4.1)."""
+    import zlib
+
+    co = zlib.compressobj(1, zlib.DEFLATED, -15)
+    comp = co.compress(payload) + co.flush()
+    return (b"\x1f\x8b\x08\x04" + b"\x00" * 6 + b"\x06\x00BC\x02\x00"
+            + struct.pack("<H", len(comp) + 25) + comp
+            + struct.pack("<II", zlib.crc32(payload), len(payload)))
+
+
+def write_bam(path: Path, genome_len: int, coverage: int, seed: int):
+    """bench_reads' reads as a BGZF BAM of unmapped records (flag 4, no
+    reference), in members of 65,280 bytes compressed on a thread pool:
+    the reads of write_fastq with the same arguments, in the same order.
+    Fixed-width records (name r + 9 digits) let NumPy build them in
+    blocks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    genome, starts = bench_reads(genome_len, coverage, seed)
+    name_len, seq_len = 11, 75
+    rec_len = 36 + name_len + seq_len + 150
+    head = np.frombuffer(struct.pack(
+        "<iiiBBHHHiiii", rec_len - 4, -1, -1, name_len, 0, 4680, 0, 4, 150,
+        -1, -1, 0), np.uint8)
+    nib = np.array([1, 2, 4, 8], np.uint8)
+    body = [b"BAM\x01" + struct.pack("<ii", 0, 0)]
+    block = 1 << 16
+    for lo in range(0, len(starts), block):
+        idx = np.arange(lo, min(lo + block, len(starts)))
+        rec = np.empty((len(idx), rec_len), np.uint8)
+        rec[:, :36] = head
+        rec[:, 36] = ord("r")
+        for j in range(9):
+            rec[:, 37 + j] = 48 + (idx // 10 ** (8 - j)) % 10
+        rec[:, 46] = 0
+        seq = nib[genome[starts[idx, None] + np.arange(150)[None, :]]]
+        rec[:, 47:47 + seq_len] = (seq[:, 0::2] << 4) | seq[:, 1::2]
+        rec[:, 47 + seq_len:] = 0xFF
+        body.append(rec.tobytes())
+    data = b"".join(body)
+    step = 65280
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        members = ex.map(_bgzf_member, (data[lo:lo + step]
+                                        for lo in range(0, len(data), step)))
+        with open(path, "wb") as f:
+            for m in members:
+                f.write(m)
+            f.write(BGZF_EOF)
+    return len(starts)
+
+
+def _db_records(prefix: Path):
+    """(k-mers as big-endian uint64, counts) of a KMC database (k <= 32),
+    in k-mer order."""
+    from kmc_tpu_torch.formats.kmc_db import read_db, sorted_records
+
+    kmers, counts = sorted_records(read_db(str(prefix)))
+    key = np.zeros(len(kmers), np.uint64)
+    for j in range(kmers.shape[1]):
+        key = (key << np.uint64(8)) | kmers[:, j]
+    return key, counts
+
+
+def _input_run(src, out, device, fmt, profiler=None, **kw):
+    """run_count over -fbam / -fkmc input; with the launches of the fused
+    ingest (and of its packed+mask entry) and of the radix sort, and the
+    peak device memory, of the card's run."""
+    from kmc_tpu_torch import InputFileType
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r1, r2, runner, wall = run_count(src, out, device, profiler=profiler,
+                                     input_file_type=InputFileType(fmt),
+                                     **kw)
+    launches = dict(read_counts(), mask=_wrappers()["fused_ingest"]
+                    .mask_launches)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return r1, r2, wall, launches, peak
+
+
+def _check_feed(label, fmt, launches):
+    """A -fkmc batch takes the packed+mask entry (a separator every
+    k_in + 1 codes is too dense for the boundary-delta feed), all but
+    perhaps the stream's last batch, whose few records before the padding
+    may fit the delta list; a -fbam run of 150 bp reads takes the
+    boundary entry only."""
+    n, mask = launches["fused_ingest"], launches["mask"]
+    if n == 0 or launches["radix_sort"] == 0:
+        raise SystemExit(f"phase 15: {label}: a kernel never launched: "
+                         f"{launches}")
+    if not (n - 1 <= mask <= n if fmt == "kmc" else mask == 0):
+        raise SystemExit(f"phase 15: {label}: {mask} packed+mask launches "
+                         f"of {n}")
+
+
+def _host_parse_s(fmt, src):
+    """Seconds of the host's input work alone: BAM inflate and parse, or
+    read_db and the decode of -fkmc, over the whole input."""
+    from kmc_tpu_torch.io.readers import ParseState
+    from kmc_tpu_torch.runner import bam_chunks, kmc_db_code_chunks, n_cpus
+
+    t0 = time.perf_counter()
+    if fmt == "bam":
+        chunks = bam_chunks([str(src)], ParseState(), both_strands=True,
+                            n_threads=n_cpus())
+    else:
+        chunks = kmc_db_code_chunks([str(src)], ParseState())
+    n = sum(len(c) for c in chunks)
+    return time.perf_counter() - t0, n
+
+
+def phase_inputs_mid(fq_mid):
+    """Phase 15's mid-size half: -fbam and -fkmc, card against CPU."""
+    from kmc_tpu_torch import distributed_count
+
+    bam = WORK / "mid.bam"
+    write_bam(bam, 1 << 20, 10, seed=1)  # phase 4's reads
+    base = dict(batch_positions=1 << 20, device_store_rows=3 << 20)
+    runs = (  # (name, input, format, knobs, the DB it must also equal)
+        ("fbam", bam, "bam", {}, "mid_cuda"),
+        ("fkmc_k27", WORK / "mid_cuda", "kmc", dict(cutoff_min=1), None),
+        ("fkmc_k21", WORK / "mid_cuda", "kmc",
+         dict(kmer_len=21, cutoff_min=1), None),
+        ("kmc1_k13", fq_mid, "fastq", dict(kmer_len=13, cutoff_min=1),
+         None),
+        ("fkmc_kmc1_k9", WORK / "mid15_kmc1_k13_cuda", "kmc",
+         dict(kmer_len=9, cutoff_min=1), None),
+    )
+    for name, src, fmt, knobs, also in runs:
+        outs = {dev: WORK / f"mid15_{name}_{dev}" for dev in ("cuda", "cpu")}
+        kw = dict(base, **knobs)
+        r1, r2, wall, launches, _ = _input_run(src, outs["cuda"], "cuda",
+                                               fmt, **kw)
+        c1, c2, c_wall, _, _ = _input_run(src, outs["cpu"], "cpu", fmt, **kw)
+        if (_no_times(r1), _no_times(r2)) != (_no_times(c1), _no_times(c2)):
+            raise SystemExit(f"phase 15: mid {name}: card results {r1} {r2} "
+                             f"differ from the CPU's {c1} {c2}")
+        for other in ["cpu"] + ([also] if also else []):
+            path = outs["cpu"] if other == "cpu" else WORK / other
+            if not _same_db(outs["cuda"], path):
+                raise SystemExit(f"phase 15: mid {name}: the card DB "
+                                 f"differs from {path.name}")
+        if kw.get("kmer_len", 27) >= 14:
+            _check_feed(f"mid {name}", fmt, launches)
+        log(f"[phase 15] mid {name}: card DB == CPU DB"
+            + (f" == {also} DB" if also else "") + f" byte for byte; "
+            f"n_reads {r1.n_sequences} n_total {r2.n_total_kmers} n_unique "
+            f"{r2.n_unique_kmers}; launches {launches}; card {wall:.2f} s, "
+            f"cpu {c_wall:.2f} s")
+    for name, src, fmt, k, single in (
+            ("fbam", bam, "bam", 27, "mid_cuda"),
+            ("fkmc_k21", WORK / "mid_cuda", "kmc", 21,
+             "mid15_fkmc_k21_cuda")):
+        reset_counts()
+        t0 = time.perf_counter()
+        st = distributed_count([str(src)], str(WORK / f"mid15_d2_{name}"),
+                               k=k, cutoff_min=2 if fmt == "bam" else 1,
+                               devices=["cuda:0"] * 2,
+                               batch_positions=1 << 18,
+                               capacity_rows_per_device=3 << 19,
+                               input_file_type=fmt)
+        _sync_all()
+        wall = time.perf_counter() - t0
+        launches = dict(read_counts(SHARDED_PATH),
+                        mask=_wrappers()["fused_ingest"].mask_launches)
+        if not _same_db(WORK / f"mid15_d2_{name}", WORK / single):
+            raise SystemExit(f"phase 15: the sharded {name} DB differs from "
+                             f"the single-device {single}")
+        _check_feed(f"sharded {name}", fmt, launches)
+        if launches["ragged_all_to_all"] == 0:
+            raise SystemExit(f"phase 15: sharded {name}: the exchange never "
+                             f"launched: {launches}")
+        log(f"[phase 15] mid sharded {name}, 2 shards on cuda:0: DB == "
+            f"{single} DB byte for byte; n_total {st['n_total']}; launches "
+            f"{launches}; {wall:.2f} s")
+
+
+def phase_inputs_full(full):
+    """Phase 15's full-size half: -fbam over phase 5's reads, -fkmc from
+    phase 5's database, timed on the card and held to phase 5's counts."""
+    fq, n_reads, ref = full
+    db5 = WORK / "bench_out"
+    bam = WORK / "bench.bam"
+    t0 = time.perf_counter()
+    write_bam(bam, 1 << 23, 30, seed=0)
+    log(f"[phase 15] wrote {bam.name}: {n_reads} reads, "
+        f"{bam.stat().st_size} bytes, in {time.perf_counter() - t0:.1f} s")
+    keys5, counts5 = _db_records(db5)
+    n_rec = len(keys5)
+    runs = (  # (name, input, format, knobs, (n_total, n_unique) or None)
+        ("fbam", bam, "bam", {}, (n_reads * (150 - 27 + 1),
+                                   ref.n_unique_kmers)),
+        ("fkmc_k21", db5, "kmc", dict(kmer_len=21, cutoff_min=1),
+         (n_rec * (27 - 21 + 1), None)),
+        ("fkmc_k27", db5, "kmc", dict(cutoff_min=1), (n_rec, n_rec)),
+    )
+    for name, src, fmt, knobs, want in runs:
+        parse_s, n_codes = _host_parse_s(fmt, src)
+        out = WORK / f"full15_{name}"
+        prof = device_profiler() if name == "fkmc_k27" else None
+        with labelled_store() if prof else contextlib.nullcontext():
+            r1, r2, wall, launches, peak = _input_run(src, out, "cuda", fmt,
+                                                      profiler=prof, **knobs)
+        _check_feed(f"full {name}", fmt, launches)
+        got = (r2.n_total_kmers, r2.n_unique_kmers)
+        if got[0] != want[0] or (want[1] is not None and got[1] != want[1]):
+            raise SystemExit(f"phase 15: full {name}: (n_total, n_unique) "
+                             f"{got}, expected {want}")
+        if name == "fbam" and not _same_db(out, db5):
+            raise SystemExit("phase 15: the full-size -fbam DB differs from "
+                             "phase 5's")
+        if name == "fkmc_k27":
+            keys, counts = _db_records(out)
+            if not np.array_equal(keys, keys5) or (counts != 1).any():
+                raise SystemExit("phase 15: -fkmc at k = k_in did not give "
+                                 "back phase 5's k-mers, each once")
+        log(f"[phase 15] full {name}: n_reads {r1.n_sequences} (n_total, "
+            f"n_unique) {got}" + (" DB == phase 5 DB byte for byte"
+                                  if name == "fbam" else "")
+            + f"; wall_s {wall:.3f} stage1_s {r1.time:.3f} stage2_s "
+            f"{r2.time:.3f} finalize_exec_s {r2.time_finalize_exec:.3f}; "
+            f"host parse alone {parse_s:.3f} s ({n_codes} codes); launches "
+            f"{launches}; max_memory_allocated {peak}")
+        if prof is not None:
+            _device_time(prof, f"[phase 15] full {name}", wall,
+                         also=INGEST_KERNELS)
+        for p in out.parent.glob(out.name + ".*"):
+            p.unlink()
+    bam.unlink()
+    return keys5, counts5
+
+
+def phase_readers(full, records):
+    """Phase 15's readers on phase 5's database: read_db, kmc_dump, the
+    listing and the random-access API, each timed and held to the
+    database's own records."""
+    from kmc_tpu_torch import dump_cli
+    from kmc_tpu_torch.api import KMCFile, KmerAPI
+    from kmc_tpu_torch.formats.dump import dump_db_file
+    from kmc_tpu_torch.formats.kmc_db import read_db
+    from kmc_tpu_torch.tools import native_tools
+
+    fq, n_reads, ref = full
+    keys5, counts5 = records
+    db5 = str(WORK / "bench_out")
+    t0 = time.perf_counter()
+    db = read_db(db5)
+    t_read = time.perf_counter() - t0
+    log(f"[phase 15] read_db: {db.n_records} records in {t_read:.3f} s")
+
+    dumped = []
+    run_dump = native_tools.run_dump
+
+    def counted(*args, **kw):
+        dumped.append(run_dump(*args, **kw))
+        return dumped[-1]
+
+    out = WORK / "full15.dump"
+    native_tools.run_dump = counted
+    try:
+        t0 = time.perf_counter()
+        rc = dump_cli.main([db5, str(out)])
+        t_dump = time.perf_counter() - t0
+    finally:
+        native_tools.run_dump = run_dump
+    if rc != 0 or dumped != [db.n_records]:
+        raise SystemExit(f"phase 15: kmc_dump exited {rc}, native dump "
+                         f"{dumped}")
+    t0 = time.perf_counter()
+    text = dump_db_file(db5, sorted_output=False)
+    t_text = time.perf_counter() - t0
+    if out.read_text() != text:
+        raise SystemExit("phase 15: kmc_dump's file differs from "
+                         "dump_db_file's")
+    log(f"[phase 15] kmc_dump (native, listing order): {out.stat().st_size} "
+        f"bytes in {t_dump:.3f} s == dump_db_file (NumPy) in {t_text:.3f} s")
+    out.unlink()
+    del text
+
+    n_list = 10 ** 6
+    f = KMCFile()
+    t0 = time.perf_counter()
+    if not f.OpenForListing(db5):
+        raise SystemExit("phase 15: OpenForListing failed")
+    km = KmerAPI()
+    codes, got_c = [], np.zeros(n_list, np.uint32)
+    for i in range(n_list):
+        ok, got_c[i] = f.ReadNextKmer(km)
+        if not ok:
+            raise SystemExit(f"phase 15: the listing stopped at {i}")
+        codes.append(km.codes.copy())
+    t_list = time.perf_counter() - t0
+    f.Close()
+    got = np.zeros(n_list, np.uint64)
+    for col in np.stack(codes).T.astype(np.uint64):
+        got = (got << np.uint64(2)) | col
+    if not (np.array_equal(got, keys5[:n_list])
+            and np.array_equal(got_c, counts5[:n_list])):
+        raise SystemExit("phase 15: the listing's first 10^6 k-mers differ "
+                         "from sorted_records'")
+    log(f"[phase 15] OpenForListing + {n_list} ReadNextKmer in "
+        f"{t_list:.3f} s, in order, == sorted_records")
+
+    # 10^5 sampled reads: every window's count through the API, and from
+    # the records by a search of the canonical 27-mer's key; 10^4 sampled
+    # records through CheckKmer
+    genome, starts = bench_reads(1 << 23, 30, seed=0)
+    rng = np.random.default_rng(15)
+    pick = starts[rng.choice(len(starts), 10 ** 5, replace=False)]
+    codes = genome[pick[:, None] + np.arange(150)[None, :]].astype(np.uint64)
+    fwd = np.zeros((len(pick), 124), np.uint64)
+    rev = np.zeros_like(fwd)
+    for j in range(27):
+        fwd = (fwd << np.uint64(2)) | codes[:, j:j + 124]
+        rev |= (np.uint64(3) - codes[:, j:j + 124]) << np.uint64(2 * j)
+    canon = np.minimum(fwd, rev)
+    pos = np.searchsorted(keys5, canon).clip(max=len(keys5) - 1)
+    want = np.where(keys5[pos] == canon, counts5[pos], 0).astype(np.int64)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    chars = acgt[codes.astype(np.int64)]
+    reads = [row.tobytes() for row in chars]
+    sample = rng.choice(len(keys5), 10 ** 4, replace=False)
+    shifts = np.arange(52, -2, -2, dtype=np.uint64)
+    chars = acgt[((keys5[sample, None] >> shifts[None, :])
+                  & np.uint64(3)).astype(np.int64)]
+    queries = [row.tobytes().decode() for row in chars]
+    for mode, threshold in (("in memory", None), ("on disk", "0")):
+        if threshold is None:
+            os.environ.pop("KMC_TPU_RA_THRESHOLD", None)
+        else:
+            os.environ["KMC_TPU_RA_THRESHOLD"] = threshold
+        f = KMCFile()
+        t0 = time.perf_counter()
+        if not f.OpenForRA(db5) or f._is_file_ra() != (threshold == "0"):
+            raise SystemExit(f"phase 15: OpenForRA ({mode}) failed")
+        t_open = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = [f.CheckKmer(q) for q in queries]
+        t_check = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        per_read = np.array([f.GetCountersForRead(r)[1] for r in reads],
+                            np.int64)
+        t_reads = time.perf_counter() - t0
+        if hits != [(True, int(c)) for c in counts5[sample]]:
+            raise SystemExit(f"phase 15: CheckKmer ({mode}) disagrees with "
+                             "the records")
+        if not np.array_equal(per_read, want):
+            raise SystemExit(f"phase 15: GetCountersForRead ({mode}) "
+                             "disagrees with the records")
+        log(f"[phase 15] OpenForRA {mode}: open {t_open:.3f} s, 10^4 "
+            f"CheckKmer {t_check:.3f} s, 10^5 reads' counters "
+            f"{t_reads:.3f} s, == the records")
+    os.environ.pop("KMC_TPU_RA_THRESHOLD", None)
+
+
+def phase_inputs_and_readers(fq_mid, full):
+    """Phase 15: BAM and KMC-database input, and the database readers."""
+    phase_inputs_mid(fq_mid)
+    records = phase_inputs_full(full)
+    phase_readers(full, records)
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -1812,6 +2218,7 @@ PHASES = (
     (12, phase_spill_full, ()),
     (13, phase_sharded_spill_full, (12,)),
     (14, phase_other_routes, (4, 5)),
+    (15, phase_inputs_and_readers, (4, 5)),
 )
 
 

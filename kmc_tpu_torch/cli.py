@@ -2,14 +2,15 @@
 
 Same flag grammar, positional arguments, summary text and -j JSON schema as
 kmc_tpu's CLI (and KMC's kmc binary), plus --device=<cuda|cpu> (default
-cuda).  BAM and KMC-database input (-fbam, -fkmc) exit with an error that
-names their ROADMAP item.
+cuda).  With KMC_TPU_DEVELOP set (kmc_tpu's variable) it also writes the
+develop-mode files beside the output (develop.py).
 
     python -m kmc_tpu_torch.cli -k27 -ci2 reads.fastq out_db tmp_dir
 """
 from __future__ import annotations
 
 import json
+import os
 import random
 import sys
 
@@ -37,7 +38,7 @@ Options:
   -sm - use strict memory mode (memory limit from -m<n> switch will not be exceeded)
   -hc - count homopolymer compressed k-mers (approximate and experimental)
   -p<par> - signature length (5, 6, 7, 8, 9, 10, 11); default: 9
-  -f<a/q/m> - input in FASTA format (-fa), FASTQ format (-fq) or multi FASTA (-fm); default: FASTQ
+  -f<a/q/m/bam/kmc> - input in FASTA format (-fa), FASTQ format (-fq), multi FASTA (-fm) or BAM (-fbam) or KMC (-fkmc); default: FASTQ
   -ci<value> - exclude k-mers occurring less than <value> times (default: 2)
   -cs<value> - maximal value of a counter (default: 255)
   -cx<value> - exclude k-mers occurring more of than <value> times (default: 1e9)
@@ -58,7 +59,6 @@ Device options:
   -S<value> - device batch size (candidate k-mer positions per batch)
   --no-device-store - stage bins in host RAM instead of device memory
   --device=<cuda|cpu> - device to count on (default: cuda; never falls back)
-Not ported yet (exit with an error): -fbam, -fkmc
 Example:
 kmc_tpu_torch -k27 -m24 NA19238.fastq NA.res /data/kmc_tmp_dir/
 """
@@ -276,6 +276,18 @@ def main(argv=None) -> int:
     print(format_summary(s1, r1, r2))
     if cli["json_summary"]:
         save_json_summary(cli["json_summary"], s1, r1, r2)
+    if os.environ.get("KMC_TPU_DEVELOP"):
+        # develop-mode diagnostics (KMC's DEVELOP_MODE, develop.cpp):
+        # signature map + per-bin stats next to the output database
+        from .develop import dump_bin_stats, dump_signature_map
+
+        out = s2.output_file_name
+        if runner._sig_map is not None:
+            dump_signature_map(runner._sig_map, s1.signature_len,
+                               out + ".sig_map.develop")
+        if not s2.without_output and s2.output_file_type == OutputFileType.KMC \
+                and not r1.was_small_k_opt_used:
+            dump_bin_stats(out, out + ".bin_stats.develop")
     return 0
 
 

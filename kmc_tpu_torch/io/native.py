@@ -45,6 +45,8 @@ def _load() -> ctypes.CDLL:
     lib.parse_fastq.argtypes = [u8p, ctypes.c_int64, u8p, i64p]
     lib.parse_fasta.restype = ctypes.c_int64
     lib.parse_fasta.argtypes = [u8p, ctypes.c_int64, u8p, i64p]
+    lib.parse_bam.restype = ctypes.c_int64
+    lib.parse_bam.argtypes = [u8p, ctypes.c_int64, u8p, i64p, i64p]
     lib.gz_open.restype = ctypes.c_void_p
     lib.gz_open.argtypes = [ctypes.c_char_p, ctypes.c_int64]
     lib.gz_read.restype = ctypes.c_int64
@@ -98,6 +100,38 @@ class NativeParser:
             self.state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
         return out[:n]
+
+
+class NativeBamParser:
+    """Resumable BAM record parser backed by the C library (parse_bam):
+    feed inflated BGZF bytes, get code chunks.  Unconsumed tail bytes (a
+    record split across feeds) are carried internally."""
+
+    def __init__(self, both_strands: bool = True):
+        self.lib = get_lib()
+        self.state = np.zeros(5, dtype=np.int64)
+        self.state[4] = 1 if both_strands else 0
+        self._carry = np.zeros(0, dtype=np.uint8)
+
+    @property
+    def n_reads(self) -> int:
+        return int(self.state[3])
+
+    def parse(self, chunk: np.ndarray) -> np.ndarray:
+        if len(self._carry):
+            chunk = np.concatenate([self._carry, chunk])
+        n = len(chunk)
+        out = np.empty(2 * n + n // 16 + 64, dtype=np.uint8)
+        consumed = ctypes.c_int64(0)
+        m = self.lib.parse_bam(
+            _u8ptr(chunk), n, _u8ptr(out),
+            self.state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.byref(consumed),
+        )
+        if m < 0:
+            raise ValueError("malformed BAM stream")
+        self._carry = chunk[consumed.value :].copy()
+        return out[:m]
 
 
 class NativeGzReader:

@@ -21,6 +21,12 @@ import numpy as np
 
 from ..defs import CODE_INVALID
 
+# byte -> code translation: ACGTacgt -> 0..3, everything else -> 4
+CODE_LUT = np.full(256, CODE_INVALID, dtype=np.uint8)
+for i, ch in enumerate(b"ACGT"):
+    CODE_LUT[ch] = i
+    CODE_LUT[ord(chr(ch).lower())] = i
+
 TAIL = 16  # extra codes needed past the last k-mer start for packing windows
 
 

@@ -187,7 +187,9 @@ def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
     of its own.
 
     A CPU feed takes the plain version; a CUDA feed launches the kernel on
-    the current stream (and counts the launch); anything else raises."""
+    the current stream and counts the launch in ingest.launches, and a
+    launch of the packed+mask entry (kmc_ingest_mask) in
+    ingest.mask_launches too; anything else raises."""
     _check(buf, tail_start, key_cols, counts, n_used, occ_acc, skm_acc,
            prev_sig, s, k, sig_len, prefix_bits, fuse)
     if buf.device.type == "cpu":
@@ -222,7 +224,10 @@ def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
             prefix_bits, int(fuse), stream)
     _build.check(lib, err, "fused ingest launch")
     ingest.launches += 1
+    if tail_start is None:
+        ingest.mask_launches += 1
     return prev_out
 
 
 ingest.launches = 0
+ingest.mask_launches = 0

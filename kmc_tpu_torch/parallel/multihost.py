@@ -371,17 +371,28 @@ class ShardedKmerStore:
 def _process_chunk_gen(input_files, fmt, state, *, shard_input,
                        n_parse_threads, min_shard_bytes):
     """The input's code-chunk stream (mirrors kmc_tpu's _process_chunk_gen
-    for one process and text formats): one record-aligned shard list read
-    by N parser threads, or the serial stream when not shard_input."""
+    for one process): for text formats one record-aligned shard list read
+    by N parser threads, or the serial stream when not shard_input; BAM
+    and KMC-database files are read whole, as kmc_tpu reads them (both
+    strands of every BAM record, whatever both_strands says)."""
     from ..io.readers import (file_code_stream, process_input_shards,
                               shard_code_stream)
 
     if not shard_input:
         return file_code_stream(input_files, fmt, state)
+    n_th = n_parse_threads or n_cpus()
+    if fmt == "bam":
+        from ..runner import bam_chunks
+
+        return bam_chunks(input_files, state, both_strands=True,
+                          n_threads=n_th)
+    if fmt == "kmc":
+        from ..runner import kmc_db_code_chunks
+
+        return kmc_db_code_chunks(input_files, state)
     parts = process_input_shards(input_files, fmt, 1,
                                  min_shard_bytes=min_shard_bytes)
-    return shard_code_stream(parts[0], fmt, state,
-                             n_threads=n_parse_threads or n_cpus())
+    return shard_code_stream(parts[0], fmt, state, n_threads=n_th)
 
 
 def _groups(batches, D: int):
@@ -477,9 +488,6 @@ def _check_ported(*, k, input_file_type, output_type, signature_map_policy,
     if output_type != "kmc":
         raise NotImplementedError(
             f"output_type={output_type!r}: sharded KFF output is ROADMAP A11b")
-    if input_file_type not in ("fastq", "fasta", "multifasta"):
-        raise NotImplementedError(
-            f"input format {input_file_type!r} is ROADMAP A10")
 
 
 def distributed_count(
@@ -521,7 +529,9 @@ def distributed_count(
     runs) report it, and with spills the "finalize_exec_s" timing holds
     the owners' merges.  Everything outside this slice raises
     NotImplementedError naming its ROADMAP item: k <= 13, the greedy map,
-    -e / --opt-out-size, KFF, BAM and -fkmc input, multi-process runs."""
+    -e / --opt-out-size, KFF, multi-process runs.  input_file_type takes
+    "fastq", "fasta", "multifasta", "bam" and "kmc" (-fkmc: database
+    prefixes)."""
     from ..formats.kmc_db import DbInfo, Kmc2DbWriter, pick_lut_prefix_len
     from ..io.readers import BatchStream, ParseState, set_chunk_bytes
     from ..memory import plan_memory

@@ -27,13 +27,17 @@ single-device routes:
     parsed chunk on the device; -e stops after stage 1 with the estimated
     histogram, --opt-out-size picks the LUT prefix length from it.
 
+Input is FASTQ / FASTA (plain or gzip), BAM (-fbam: io/bam.py, BGZF
+inflated on a thread pool, records parsed by the native runtime) or the
+k-mers of KMC databases (-fkmc: kmc_db_code_chunks, one read per stored
+k-mer), on every route.
+
 Stage-1 device-store state checkpoints to .npz files in kmc_tpu's format
 (save_stage1_checkpoint / resume_stage1_checkpoint), so a checkpoint
 written by either package resumes in the other.
 
-The greedy signature map of the device store (ROADMAP A7) and BAM / KMC
-database input (A10) raise NotImplementedError; nothing falls back
-silently.
+The greedy signature map of the device store (ROADMAP A7) raises
+NotImplementedError; nothing falls back silently.
 """
 from __future__ import annotations
 
@@ -152,9 +156,6 @@ class Stage1Params:
             raise NotImplementedError(
                 f"signature_map_policy={self.signature_map_policy!r}: the "
                 "device store's greedy policy is ROADMAP A7")
-        if self.input_file_type in (InputFileType.BAM, InputFileType.KMC):
-            raise NotImplementedError(
-                f"input format {self.input_file_type.value!r} is ROADMAP A10")
 
 
 @_fluent
@@ -299,7 +300,8 @@ class Runner:
         """Parsed code chunks, as kmc_tpu cuts them: the estimator of
         --opt-out-size hashes each chunk of the full parse alone, so the
         chunks must be kmc_tpu's (the same readers, the same chunk bytes).
-        max_bytes: stage 0's sample, read serially."""
+        max_bytes: stage 0's sample of text input, read serially (BAM and
+        KMC-database input are read whole, as in kmc_tpu)."""
         state = ParseState()
         fmt = params.input_file_type.value
         feed_estimator = (
@@ -308,7 +310,13 @@ class Runner:
             == EstimateHistogramCfg.ESTIMATE_AND_COUNT_KMERS)
         # -sf bounds the reader pool independently of -t
         n_th = params.n_reader_threads or params.n_threads or n_cpus()
-        if n_th > 1 and max_bytes is None:
+        if fmt == "bam":
+            source = bam_chunks(params.input_files, state,
+                                both_strands=params.canonical_kmers,
+                                n_threads=n_th)
+        elif fmt == "kmc":
+            source = kmc_db_code_chunks(params.input_files, state)
+        elif n_th > 1 and max_bytes is None:
             # N parser threads over record-aligned shards; the chunk stream
             # is a boundary refinement of the serial one
             source = parallel_code_stream(params.input_files, fmt, state,
@@ -730,6 +738,43 @@ class Runner:
                 output_kff=params.output_file_type == OutputFileType.KFF,
                 write=not params.without_output)
         self._smallk_hist = None
+
+
+def bam_chunks(paths, state, *, both_strands: bool, n_threads: int):
+    """-fbam input: each file's code chunks (io/bam.py), with its reads
+    added to state.n_reads; n_threads inflate the BGZF blocks."""
+    from .io.bam import bam_code_chunks
+
+    for path in paths:
+        for codes, n_reads in bam_code_chunks(path, both_strands,
+                                              n_threads=n_threads):
+            state.n_reads += n_reads
+            yield codes
+
+
+def kmc_db_code_chunks(paths, state):
+    """-fkmc input: every k-mer stored in the database becomes one read
+    of k_in codes and a separator (counters ignored), matching
+    CBinaryFilesReader::ProcessKMC (binary_reader.h:238-305)."""
+    from .formats.kmc_db import read_db
+
+    for path in paths:
+        db = read_db(path)
+        kmers = db.kmers_bytes()
+        k_in = db.info.kmer_len
+        block = 1 << 16
+        for lo in range(0, len(kmers), block):
+            rows = kmers[lo : lo + block]
+            n, kb = rows.shape
+            codes = np.empty((n, kb * 4), np.uint8)
+            codes[:, 0::4] = (rows >> 6) & 3
+            codes[:, 1::4] = (rows >> 4) & 3
+            codes[:, 2::4] = (rows >> 2) & 3
+            codes[:, 3::4] = rows & 3
+            out = np.full((n, k_in + 1), defs.CODE_INVALID, np.uint8)
+            out[:, :k_in] = codes[:, kb * 4 - k_in :]
+            state.n_reads += n
+            yield out.reshape(-1)
 
 
 def smallk_finalize_and_write(hist: torch.Tensor, k: int, *, cutoff_min,

@@ -1,4 +1,5 @@
-"""The greedy signature -> bin map (a NumPy copy of kmc_tpu/signatures.py).
+"""Signatures and the greedy signature -> bin map (a NumPy copy of
+kmc_tpu/signatures.py).
 
 KMC gives every k-mer a signature, the smallest allowed canonical m-mer in
 it, and partitions the signatures into bins.  The host-bucket route needs
@@ -6,11 +7,17 @@ the signature -> bin map before stage 1, so it samples a signature
 histogram first (stage 0) and builds the map here with KMC's greedy
 balance (s_mapper.h:141-235); the allowed-signature rule is mmer.h:40-63.
 Signatures whose canonical norm is S = 4^m (no allowed m-mer) go to the
-special bin, the last one.
+special bin, the last one.  The per-m-mer norm table and the per-position
+signatures of a code stream (norm_table, kmer_signatures_numpy) serve the
+database API's binned lookups.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .defs import MAX_SL, MIN_SL
+
+_norm_cache: dict[int, np.ndarray] = {}
 
 
 def is_allowed(mmer: np.ndarray, sig_len: int) -> np.ndarray:
@@ -27,6 +34,38 @@ def is_allowed(mmer: np.ndarray, sig_len: int) -> np.ndarray:
         x = x >> np.uint32(2)
     ok &= (x != 0) & (x != 0x04) & ((x & 0xF) != 0)
     return ok
+
+
+def rev_comp_mmer(mmer: np.ndarray, sig_len: int) -> np.ndarray:
+    """Reverse complement of a 2-bit packed m-mer (mmer.h:68-79)."""
+    m = np.asarray(mmer, dtype=np.uint32)
+    rev = np.zeros_like(m)
+    shift = 2 * (sig_len - 1)
+    for _ in range(sig_len):
+        rev += (np.uint32(3) - (m & np.uint32(3))) << np.uint32(shift)
+        m = m >> np.uint32(2)
+        shift -= 2
+    return rev
+
+
+def norm_table(sig_len: int) -> np.ndarray:
+    """norm[x] for all 4^sig_len m-mers, as uint32 (mmer.h:81-91).
+
+    norm[x] = min over both strands of (value if allowed else special),
+    special = 4^sig_len.
+    """
+    if sig_len in _norm_cache:
+        return _norm_cache[sig_len]
+    if not (MIN_SL <= sig_len <= MAX_SL):
+        raise ValueError(f"signature length must be in [{MIN_SL},{MAX_SL}]")
+    special = np.uint32(1 << (2 * sig_len))
+    vals = np.arange(1 << (2 * sig_len), dtype=np.uint32)
+    rev = rev_comp_mmer(vals, sig_len)
+    fwd_val = np.where(is_allowed(vals, sig_len), vals, special)
+    rev_val = np.where(is_allowed(rev, sig_len), rev, special)
+    table = np.minimum(fwd_val, rev_val)
+    _norm_cache[sig_len] = table
+    return table
 
 
 def special_signature(sig_len: int) -> int:
@@ -149,3 +188,69 @@ def build_signature_map(stats: np.ndarray, sig_len: int, n_bins: int) -> np.ndar
 def n_used_bins(sig_map: np.ndarray) -> int:
     """Number of bins actually addressed by the map (max bin id + 1)."""
     return int(sig_map.max()) + 1
+
+
+def sig_of_lanes_numpy(lanes: np.ndarray, k: int, sig_len: int) -> np.ndarray:
+    """Signature of each k-mer row from its packed lanes (host mirror of
+    the device's signature of word columns).
+
+    lanes: uint32[n, W] MSW-first right-aligned 2-bit lanes.  Exact for any
+    strand: the m-mer norm is strand-invariant (mmer.h:81-91), so the
+    minimum over the stored k-mer's own m-mers equals the splitter's
+    per-window signature."""
+    n, W = lanes.shape
+    table = norm_table(sig_len)
+    special = np.uint32(special_signature(sig_len))
+    mask_m = np.uint32((1 << (2 * sig_len)) - 1)
+    best = np.full(n, special, np.uint32)
+    for j in range(k - sig_len + 1):
+        shift = 2 * (k - sig_len - j)
+        lane = W - 1 - (shift // 32)
+        off = shift % 32
+        v = lanes[:, lane] >> np.uint32(off)
+        if off + 2 * sig_len > 32 and lane > 0:
+            v = v | (lanes[:, lane - 1] << np.uint32(32 - off))
+        best = np.minimum(best, table[v & mask_m])
+    return best
+
+
+def kmer_signatures_numpy(codes: np.ndarray, k: int, sig_len: int) -> np.ndarray:
+    """Per-position signature (min window norm) over a code stream; oracle/test
+    helper — the device path computes the same thing in the splitter scan.
+
+    codes: uint8 array, values 0..3 valid, >=4 invalid.  Returns, for every
+    start position i (len(codes)-k+1 entries), min norm over the k-mer's
+    m-mer window; positions whose k-mer window contains an invalid code get
+    special+1 (an out-of-band marker).
+    """
+    c = codes.astype(np.uint32)
+    n = len(c)
+    if n < k:
+        return np.zeros(0, dtype=np.uint32)
+    table = norm_table(sig_len)
+    special = np.uint32(special_signature(sig_len))
+    # m-mer values at each position
+    n_mm = n - sig_len + 1
+    mm = np.zeros(n_mm, dtype=np.uint32)
+    for j in range(sig_len):
+        mm = (mm << np.uint32(2)) | c[j : j + n_mm].clip(max=3)
+    norms = table[mm]
+    # invalidate m-mers containing invalid codes
+    bad = c >= 4
+    cs = np.concatenate([[0], np.cumsum(bad)])
+    mm_bad = (cs[sig_len:] - cs[:-sig_len]) > 0
+    norms = np.where(mm_bad, special + np.uint32(1), norms)
+    # sliding window min over k - sig_len + 1 norms (log-step doubling:
+    # acc[j] covers [j, j+covered) and is extended by the shifted acc itself)
+    w = k - sig_len + 1
+    acc = norms
+    covered = 1
+    while covered < w:
+        step = min(covered, w - covered)
+        acc = np.minimum(acc[: len(acc) - step], acc[step:])
+        covered += step
+    out = acc[: n - k + 1]
+    # mark kmers containing invalid codes
+    km_bad = (cs[k:] - cs[: n - k + 1]) > 0
+    out = np.where(km_bad, special + np.uint32(1), out)
+    return out

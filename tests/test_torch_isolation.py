@@ -30,7 +30,15 @@ bad = sorted(m for m in sys.modules
              or m.startswith("kmc_tpu."))
 print(len(names), bad)
 assert not bad, bad
-for name in ("kmc_tpu_torch.formats.kff",
+for name in ("kmc_tpu_torch.api",
+             "kmc_tpu_torch.dump_cli",
+             "kmc_tpu_torch.develop",
+             "kmc_tpu_torch.py_kmc_api",
+             "kmc_tpu_torch.io.bam",
+             "kmc_tpu_torch.formats.dump",
+             "kmc_tpu_torch.formats.streaming",
+             "kmc_tpu_torch.tools.native_tools",
+             "kmc_tpu_torch.formats.kff",
              "kmc_tpu_torch.ops.nthash",
              "kmc_tpu_torch.ops.smallk",
              "kmc_tpu_torch.ops.sortcount",
@@ -44,6 +52,48 @@ for name in ("kmc_tpu_torch.formats.kff",
              "kmc_tpu_torch.ops.store"):
     assert name in names, name
 """
+
+
+_READERS_PROBE = r"""
+import importlib, sys
+import kmc_tpu_torch
+for name in ("kmc_tpu_torch.api", "kmc_tpu_torch.dump_cli",
+             "kmc_tpu_torch.formats", "kmc_tpu_torch.formats.kmc_db",
+             "kmc_tpu_torch.formats.dump", "kmc_tpu_torch.formats.kff",
+             "kmc_tpu_torch.formats.streaming", "kmc_tpu_torch.io.bam",
+             "kmc_tpu_torch.io.native", "kmc_tpu_torch.io.readers",
+             "kmc_tpu_torch.develop", "kmc_tpu_torch.py_kmc_api",
+             "kmc_tpu_torch.signatures", "kmc_tpu_torch.tools.native_tools"):
+    importlib.import_module(name)
+from kmc_tpu_torch.api import KMCFile, KmerAPI, KMCFileInfo
+from kmc_tpu_torch.formats import dump_db_file, read_db
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", "kmc_tpu"))
+assert not loaded, loaded
+# the counting names still resolve, and only then load torch
+from kmc_tpu_torch import count, distributed_count, Runner, make_mesh
+assert "torch" in sys.modules
+assert set(kmc_tpu_torch.__all__) <= set(dir(kmc_tpu_torch))
+for name in kmc_tpu_torch.__all__:
+    getattr(kmc_tpu_torch, name)
+try:
+    kmc_tpu_torch.no_such_name
+except AttributeError:
+    pass
+else:
+    raise SystemExit("unknown package attribute resolved")
+print("ok")
+"""
+
+
+def test_reader_modules_load_no_torch():
+    """The host modules (the readers, the API, kmc_dump, BAM parsing,
+    develop mode, the py_kmc_api shim) load neither torch, jax nor
+    kmc_tpu; the package's counting names load torch on first use."""
+    r = subprocess.run([sys.executable, "-c", _READERS_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_no_jax_or_kmc_tpu_import():

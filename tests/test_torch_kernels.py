@@ -689,3 +689,120 @@ def test_route_on_card_matches_cpu(tmp_path, name, genome_len, kw):
         assert (tmp_path / f"cuda{suf}").read_bytes() == \
             (tmp_path / f"cpu{suf}").read_bytes(), suf
     assert bool(files) == (name not in ("w", "estimate"))
+
+
+def _bam(path, genome_len, n_reads, seed):
+    """A BGZF BAM of 150 bp unmapped reads from a random genome, in
+    members of 60,000 bytes (so the parallel inflate has blocks to share
+    out)."""
+    import struct
+    import zlib
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len)
+    nib = np.array([1, 2, 4, 8], np.uint8)
+    body = bytearray(b"BAM\x01" + struct.pack("<ii", 0, 0))
+    for i, st in enumerate(rng.integers(0, genome_len - 150, n_reads)):
+        seq = nib[genome[st:st + 150]]
+        name = b"r%d\x00" % i
+        rec = struct.pack("<iiBBHHHiiii", -1, -1, len(name), 0, 4680, 0, 4,
+                          150, -1, -1, 0)
+        rec += name + ((seq[0::2] << 4) | seq[1::2]).tobytes() + b"\xff" * 150
+        body += struct.pack("<i", len(rec)) + rec
+    with open(path, "wb") as f:
+        for lo in range(0, len(body), 60000):
+            payload = bytes(body[lo:lo + 60000])
+            co = zlib.compressobj(6, zlib.DEFLATED, -15)
+            comp = co.compress(payload) + co.flush()
+            f.write(b"\x1f\x8b\x08\x04" + b"\x00" * 6 + b"\x06\x00BC\x02\x00"
+                    + struct.pack("<H", len(comp) + 25) + comp
+                    + struct.pack("<II", zlib.crc32(payload), len(payload)))
+    return str(path)
+
+
+def _kmc_input(tmp_path, fmt):
+    """A -fbam input, or a -fkmc input: a k = 27 database counted on the
+    CPU from a FASTQ."""
+    from kmc_tpu_torch import count
+
+    if fmt == "bam":
+        return _bam(tmp_path / "in.bam", 20000, 4000, seed=3)
+    fq = _fastq(tmp_path / "in.fastq", 20000, 4000, seed=3)
+    count([fq], str(tmp_path / "src"), k=27, cutoff_min=1,
+          batch_positions=1 << 14, device="cpu")
+    return str(tmp_path / "src")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,k", [("bam", 27), ("kmc", 27), ("kmc", 21)])
+def test_input_on_card_matches_cpu(tmp_path, fmt, k):
+    """-fbam and -fkmc count on the card as on the CPU.  -fkmc's batches
+    (one separator per 28 codes) are too dense for the boundary-delta
+    feed, so they take the packed+mask entry, all but the last, whose few
+    records before the padding fit the delta list; -fbam's 150 bp reads
+    take the boundary entry."""
+    _need_card()
+    from kmc_tpu_torch import InputFileType, count
+    from kmc_tpu_torch.ops.ingest_kernel import ingest
+
+    src = _kmc_input(tmp_path, fmt)
+    kw = dict(k=k, cutoff_min=1, batch_positions=1 << 14,
+              input_file_type=InputFileType(fmt))
+    launches, mask = ingest.launches, ingest.mask_launches
+    r_gpu = count([src], str(tmp_path / "gpu"), device="cuda", **kw)
+    n, n_mask = ingest.launches - launches, ingest.mask_launches - mask
+    r_cpu = count([src], str(tmp_path / "cpu"), device="cpu", **kw)
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"gpu{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert r_gpu[1].n_total_kmers == r_cpu[1].n_total_kmers > 0
+    assert r_gpu[0].n_sequences == r_cpu[0].n_sequences
+    assert n >= 2
+    if fmt == "kmc":
+        assert n - 1 <= n_mask <= n
+    else:
+        assert n_mask == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["bam", "kmc"])
+def test_sharded_input_on_card_matches_cpu(tmp_path, fmt):
+    _need_card()
+    from kmc_tpu_torch import distributed_count
+
+    src = _kmc_input(tmp_path, fmt)
+    kw = dict(k=25, cutoff_min=1, batch_positions=1 << 14,
+              capacity_rows_per_device=5 << 13, input_file_type=fmt)
+    s_gpu = distributed_count([src], str(tmp_path / "gpu"),
+                              devices=["cuda:0"] * 2, **kw)
+    s_cpu = distributed_count([src], str(tmp_path / "cpu"),
+                              devices=["cpu"] * 2, **kw)
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"gpu{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert s_gpu["n_unique"] == s_cpu["n_unique"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [21, 27])
+def test_fkmc_batch_takes_mask_entry(tmp_path, k):
+    """A -fkmc batch has no boundary-delta form, and kmc_ingest_mask
+    writes ingest_plain's rows and counters for it."""
+    _need_card()
+    from kmc_tpu_torch.io.native import (pack_codes_boundaries,
+                                         pack_codes_fused)
+    from kmc_tpu_torch.io.readers import BatchStream, ParseState
+    from kmc_tpu_torch.ops.ingest_kernel import ingest
+    from kmc_tpu_torch.runner import kmc_db_code_chunks
+
+    s = 1 << 14
+    chunks = kmc_db_code_chunks([_kmc_input(tmp_path, "kmc")], ParseState())
+    feeds = []
+    for batch in BatchStream(s, k).batches(chunks):
+        assert pack_codes_boundaries(batch) == (None, -1)
+        feeds.append((torch.from_numpy(pack_codes_fused(batch)), None))
+        if len(feeds) == 2:
+            break
+    mask = ingest.mask_launches
+    _check_ingest(k, True, s, 0, feeds, with_counts=True)
+    assert ingest.mask_launches == mask + 2

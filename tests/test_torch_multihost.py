@@ -110,8 +110,6 @@ def test_sharded_db_equals_single_device_count(results, reads_file,
     (dict(signature_map_policy="greedy"), "A11b"),
     (dict(estimate_only=True), "A11b"),
     (dict(opt_out_size=True), "A11b"),
-    (dict(input_file_type="bam"), "A10"),
-    (dict(input_file_type="kmc"), "A10"),
 ])
 def test_unported_knobs_raise(reads_file, tmp_path, kw, item):
     kw = dict(kw)

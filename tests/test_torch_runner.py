@@ -100,8 +100,6 @@ def test_cli_json_and_db_identical(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(signature_map_policy="greedy"), "A7"),
-    (dict(input_file_type=InputFileType.BAM), "A10"),
-    (dict(input_file_type=InputFileType.KMC), "A10"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
     inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
