@@ -6,6 +6,7 @@
                                      # whose results they take (PHASES)
     python3 chip_smoke.py 14         # the other routes (with phases 4, 5)
     python3 chip_smoke.py 15         # -fbam, -fkmc, the readers (4, 5)
+    python3 chip_smoke.py 16 17      # kmc_tools and the greedy map (4, 5)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -19,7 +20,12 @@ Phases (any failure exits non-zero):
      occ, skm and prev_sig equal; each timed beside its plain version and
      the parent's torch-op route (decode ops, the scan entry, binning ops),
      with its bound by bytes and, as a diagnostic, the time the design's
-     own SASS instructions per position take;
+     own SASS instructions per position take; the fused ingest's greedy
+     entry (a map from build_signature_map on a random histogram, m = 9
+     and 11, k in {27, 33, 55}, both feeds, with and without the stage-0
+     histogram output) and the prefix entry's histogram output, bit-exact
+     against ingest_plain, each timed at k = 27 with its bound by bytes
+     (the map's and the histogram's sectors that the batch touches);
      then one batch through DeviceKmerStore.ingest_boundaries /
      ingest_fused, device time and device items per batch;
   3. the grouping-sort (radix) kernel against its plain version at the
@@ -105,14 +111,41 @@ Phases (any failure exits non-zero):
      read_db, kmc_dump (native) == dump_db_file, OpenForListing over 10^6
      k-mers == sorted_records, and OpenForRA in memory and on disk:
      CheckKmer on 10^4 records and GetCountersForRead on 10^5 reads ==
-     the records.
+     the records;
+ 16. kmc_tools (`python -m kmc_tpu_torch.tools_cli`, each operation in a
+     process of its own): info, check, transform (histogram, dump -s,
+     reduce -ci3, compact, set_counts), simple with all six operations in
+     one pass (KMC1, then -okff), a complex file, compare A A and A B, and
+     filter.  At mid size (phase 4's DB and a count of its first quarter
+     of reads) the native route's files equal the NumPy route's
+     (KMC_TPU_NATIVE_TOOLS=0) and the streaming route's
+     (KMC_TPU_STREAM_THRESHOLD=0), byte for byte.  At full size (A =
+     phase 5's DB, B = a count of the first quarter of phase 5's reads at
+     its knobs, filter over 10^5 of its reads) each is timed with its
+     process's peak RSS; |A u B| + |A n B| = |A| + |B|, |A - B| = |A| -
+     |A n B|, union counters = sums capped at 255, histogram total = |A|,
+     and the NumPy route's union and histogram equal the native ones;
+ 17. the greedy signature map of the device store.  At mid size (phase
+     4's FASTQ), deferred and eager: card DB == CPU DB byte for byte,
+     deferred == eager, the replay and host spill routes == the
+     non-spilling DB, a deferred greedy checkpoint card -> CPU and CPU ->
+     card == the straight count.  At full size (phase 5's FASTQ and
+     knobs), deferred and eager, timed, with the peak device memory:
+     n_total = n_reads x 124, the (k-mer, count) set == phase 5's, the
+     .kmc_pre footer holds the greedy map; deferred launches every batch
+     on the prefix entry, the first 2^27 / 2^22 = 32 with the histogram,
+     and the collect's one radix sort, eager the scan entry's stage 0 and
+     every batch on the greedy entry; then the deferred run under
+     torch.profiler (device busy and idle share).
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
 from phase 14's full-size host-bucket run, the 1-D entry and the probes
 from their own entries in phase 10) and its times from phases 2, 3, 7 and
-10.  Every device-store path must ingest through the fused kernel and
-never through the scan entry.  Shards sit on distinct cards when the machine has two or more,
+10.  The fused ingest's row also holds the greedy entry's and the
+histogram's times from phase 2 and their launches in phase 17, the radix
+sort's row the collect's launches in phase 17.  Every device-store path
+must ingest through the fused kernel and never through the scan entry.  Shards sit on distinct cards when the machine has two or more,
 else all on card 0.  The last line is {"ok": true, "device": {...}}.
 Imports neither jax nor kmc_tpu.  Times come from CUDA events around
 repeated launches after a warm-up; bounds are the bytes each function
@@ -174,7 +207,8 @@ def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -184,6 +218,7 @@ def phase_card():
         for line in rep.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    return card
 
 
 def phase_scan():
@@ -605,6 +640,193 @@ def phase_ingest(s=1 << 22):
     return rows
 
 
+GREEDY_KS = (27, 33, 55)
+GREEDY_MS = (9, 11)
+
+
+def greedy_map(m, seed):
+    """A greedy signature -> bin map of 512 bins from build_signature_map
+    on a random skewed histogram over 20,000 signatures, as a store holds
+    it on the card (int32[4^m + 1], -1 slots routed to the dead bin), and
+    its n_used_bins."""
+    from kmc_tpu_torch.signatures import build_signature_map, map_size
+
+    rng = np.random.default_rng(seed)
+    hist = np.zeros(map_size(m), np.uint64)
+    hist[rng.integers(0, map_size(m), 20000)] = (
+        rng.pareto(1.2, 20000) * 1000).astype(np.uint64) + 1
+    sig_map = build_signature_map(hist, m, 512)
+    nb = int(sig_map.max()) + 1
+    return torch.from_numpy(np.where(sig_map < 0, nb, sig_map).astype(
+        np.int32)).cuda(), nb
+
+
+def _greedy_state(k, m, s, n0, sig_map, nb, with_hist, seed):
+    """_ingest_state for the greedy entry (sig_map given) or the prefix
+    entry (None) at signature length m, with a stage-0 histogram."""
+    from kmc_tpu_torch.ops.store import greedy_fuse, prefix_bin_bits
+    from kmc_tpu_torch.signatures import map_size
+
+    if sig_map is None:
+        prefix_bits, fuse = prefix_bin_bits(k, m, 512)
+    else:
+        prefix_bits, fuse = 0, greedy_fuse(k, nb)
+    n_cols = (k + 15) // 16 + (0 if fuse else 1)
+    cap = n0 + 2 * s + 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return dict(
+        cols=[torch.randint(-2**31, 2**31 - 1, (cap,), generator=g,
+                            dtype=torch.int32, device="cuda")
+              for _ in range(n_cols)],
+        counts=None, n_used=n0,
+        occ=torch.tensor(2**32 - 11, dtype=torch.int64, device="cuda"),
+        skm=torch.tensor(3, dtype=torch.int64, device="cuda"),
+        prev=torch.tensor([-1], dtype=torch.int32, device="cuda"),
+        hist=(torch.full((map_size(m),), 5, dtype=torch.int32,
+                         device="cuda") if with_hist else None),
+        kw=dict(k=k, sig_len=m, prefix_bits=prefix_bits, fuse=fuse,
+                sig_map=sig_map))
+
+
+def _run_greedy(fn, st, buf, ts, s):
+    st["prev"] = fn(buf, ts, st["cols"], st["counts"], st["n_used"],
+                    st["occ"], st["skm"], st["prev"], s=s, both_strands=True,
+                    hist=st["hist"], **st["kw"])
+    st["n_used"] += s
+
+
+def _clone_greedy(st):
+    out = _clone_state(st)
+    out["hist"] = None if st["hist"] is None else st["hist"].clone()
+    return out
+
+
+def touched_table_bytes(buf, ts, k, m, s):
+    """Bytes of an int32[4^m + 1] table (the greedy map, the histogram)
+    that one batch reaches: 32 B for each 32-byte sector that a valid
+    position's signature indexes.  The distinct signatures are the
+    nonzero slots of the plain version's histogram of the batch."""
+    from kmc_tpu_torch.ops.ingest_kernel import ingest_plain
+
+    st = _greedy_state(k, m, s, 0, None, 0, True, seed=0)
+    st["hist"].zero_()
+    _run_greedy(ingest_plain, st, buf, ts, s)
+    sigs = torch.nonzero(st["hist"]).flatten()
+    return 32 * torch.unique(sigs >> 3).numel()
+
+
+def phase_ingest_greedy(s=1 << 22):
+    """The fused ingest's greedy entry (bin = map[min(sig, 4^m)]) and its
+    stage-0 histogram output against ingest_plain on the card, bit for
+    bit: s = 2^22, m in GREEDY_MS, k in GREEDY_KS, both feeds, the greedy
+    entry with and without the histogram and the prefix entry with it,
+    two batches in a row from n_used = 12345.  Then at k = 27 on the
+    boundary-delta feed: the greedy entry's time (m = 9 and 11) and the
+    prefix entry's with the histogram (m = 9, the deferred fold's
+    launches), device time from torch.profiler as the prefix entry's in
+    phase_ingest, each beside its plain version and its bound by bytes
+    (the feed, the rows, the map sectors the batch's signatures touch read
+    once, the histogram's read and written once)."""
+    from kmc_tpu_torch.io.native import (pack_codes_boundaries,
+                                         pack_codes_fused)
+    from kmc_tpu_torch.io.readers import batch_len
+    from kmc_tpu_torch.ops.ingest_kernel import ingest, ingest_plain
+    from kmc_tpu_torch.signatures import map_size
+
+    rows = {}
+    for m in GREEDY_MS:
+        t0 = time.perf_counter()
+        sig_map, nb = greedy_map(m, seed=m)
+        log(f"[phase 2] greedy map m={m}: {nb} bins, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for k in GREEDY_KS:
+            L = batch_len(s, k)
+            read = max(150, 2 * k)
+            codes = [read_like_codes(L, seed=k + m, tail=1000, read=read),
+                     read_like_codes(L, seed=k + m + 1, read=read)]
+            feeds = {"bounds": [], "mask": []}
+            for c in codes:
+                buf, ts = pack_codes_boundaries(c)
+                feeds["bounds"].append((torch.from_numpy(buf).cuda(), ts))
+                feeds["mask"].append((torch.from_numpy(pack_codes_fused(c))
+                                      .cuda(), None))
+            for feed, batches in feeds.items():
+                for entry, smap, with_hist in (("greedy", sig_map, False),
+                                               ("greedy", sig_map, True),
+                                               ("prefix", None, True)):
+                    base = _greedy_state(k, m, s, 12345, smap, nb, with_hist,
+                                         seed=k)
+                    got, want = _clone_greedy(base), _clone_greedy(base)
+                    before = (ingest.greedy_launches, ingest.hist_launches)
+                    for buf, ts in batches:
+                        _run_greedy(ingest, got, buf, ts, s)
+                        _run_greedy(ingest_plain, want, buf, ts, s)
+                    torch.cuda.synchronize()
+                    if (ingest.greedy_launches - before[0],
+                            ingest.hist_launches - before[1]) != (
+                            2 * (smap is not None), 2 * with_hist):
+                        raise SystemExit("phase 2: the greedy / histogram "
+                                         "launches were not counted")
+                    pairs = list(zip(got["cols"], want["cols"]))
+                    if with_hist:
+                        pairs.append((got["hist"], want["hist"]))
+                    err = max(max_abs_err(a, b) for a, b in pairs)
+                    if err or not all(torch.equal(got[x], want[x])
+                                      for x in ("occ", "skm", "prev")):
+                        raise SystemExit(
+                            f"phase 2: the {entry} entry m={m} k={k} "
+                            f"feed={feed} hist={with_hist} differs from "
+                            f"ingest_plain (max_abs_err {err})")
+                    del got, want
+                    timed_row = (k == 27 and feed == "bounds"
+                                 and (with_hist == (smap is None))
+                                 and (smap is not None or m == 9))
+                    if timed_row:
+                        buf, ts = batches[0]
+
+                        def run(fn, st=base):
+                            _run_greedy(fn, st, buf, ts, s)
+                            st["n_used"] = 12345
+
+                        dev_ms, _, _ = _profiled_device(
+                            lambda: run(ingest), 10)
+                        row = dict(max_abs_err=err,
+                                   stream_ms=cuda_ms(lambda: run(ingest), 20),
+                                   plain_ms=cuda_ms(
+                                       lambda: run(ingest_plain), 3))
+                        row["ms"] = (row["stream_ms"] if dev_ms is None
+                                     else dev_ms)
+                        table = touched_table_bytes(buf, ts, k, m, s)
+                        nbytes = buf.numel() + 4 * len(base["cols"]) * s
+                        nbytes += table if smap is not None else 2 * table
+                        row.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                                   bound_by="bytes", bytes=nbytes,
+                                   table_bytes=table)
+                        name = "hist" if smap is None else "greedy"
+                        rows[(name, m)] = row
+                        log(f"[phase 2] {name} (m={m}, k=27, "
+                            f"boundary-delta, s=2^22): kernel_ms "
+                            f"{row['ms']:.4f} ("
+                            + ("CUDA events: torch.profiler saw no device "
+                               "span" if dev_ms is None else
+                               "device, torch.profiler")
+                            + f"; stream {row['stream_ms']:.4f}, CUDA "
+                            f"events) plain_ms {row['plain_ms']:.3f} "
+                            f"bound_ms {row['bound_ms']:.4f} (bytes: "
+                            f"{nbytes}, of them {table} for the "
+                            f"{table // 32} map / histogram sectors the "
+                            f"batch touches, of {4 * map_size(m)} in the "
+                            f"table; share "
+                            f"{row['bound_ms'] / row['ms']:.2f})")
+                    del base
+            log(f"[phase 2] greedy entry m={m} k={k}: bit-exact on both "
+                "feeds with and without the histogram; the prefix entry's "
+                "histogram bit-exact")
+            del feeds
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _sort_columns(n, n_keys, seed):
     rng = np.random.default_rng(seed)
     keys = [rng.integers(0, 2**32 - 1, n, dtype=np.uint32)
@@ -789,7 +1011,8 @@ def _wrappers():
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
-    _wrappers()["fused_ingest"].mask_launches = 0
+    ingest = _wrappers()["fused_ingest"]
+    ingest.mask_launches = ingest.greedy_launches = ingest.hist_launches = 0
 
 
 def read_counts(names=("fused_ingest", "radix_sort")):
@@ -2185,6 +2408,407 @@ def phase_inputs_and_readers(fq_mid, full):
     phase_readers(full, records)
 
 
+def _head_fastq(src: Path, dst: Path, n_reads: int) -> int:
+    """The first n_reads records of a FASTQ (four lines each) into dst."""
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        for i, line in enumerate(f):
+            if i == 4 * n_reads:
+                break
+            g.write(line)
+    return n_reads
+
+
+# the child reports its peak RSS: VmHWM where /proc has it, else
+# ru_maxrss.  It runs under sh, which forks it, so its ru_maxrss does not
+# start from the (large) peak of this process, as an exec would keep it.
+_TOOLS_CHILD = (
+    "import re, resource, sys\n"
+    "from kmc_tpu_torch.tools_cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "sys.stdout.flush()\n"
+    "hwm = re.search(r'VmHWM:\\s*(\\d+)', open('/proc/self/status').read())\n"
+    "kib = int(hwm.group(1)) if hwm else resource.getrusage("
+    "resource.RUSAGE_SELF).ru_maxrss\n"
+    "sys.stderr.write('PEAK_RSS %d\\n' % (1024 * kib))\n"
+    "sys.exit(rc)\n")
+
+
+def _tools_main(argv, out_file=None):
+    """kmc_tools as its users run it: `python -m kmc_tpu_torch.tools_cli`
+    in a process of its own (the environment's KMC_TPU_* knobs pass on),
+    standard output into out_file when given.  Returns (exit code, the
+    process's peak RSS in bytes)."""
+    with (open(out_file, "w") if out_file else contextlib.nullcontext()) \
+            as f:
+        r = subprocess.run(["sh", "-c", '"$@"; exit $?', "sh",
+                            sys.executable, "-c", _TOOLS_CHILD]
+                           + [str(a) for a in argv], cwd=ROOT,
+                           stdout=f if f else subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True, timeout=900)
+    peak = re.findall(r"PEAK_RSS (\d+)", r.stderr)
+    if not peak:
+        raise SystemExit(f"phase 16: kmc_tools {argv[0]} died: {r.stderr}")
+    return r.returncode, int(peak[-1])
+
+
+SIMPLE_OPS = ("intersect", "union", "kmers_subtract", "counters_subtract",
+              "reverse_kmers_subtract", "reverse_counters_subtract")
+
+
+def run_tools(a: Path, b: Path, reads: Path, d: Path, kmer: str) -> dict:
+    """Every kmc_tools operation of phase 16 on databases a and b into
+    directory d, each in a process of its own (_tools_main), timed: info,
+    check, the five transforms, the six simple operations in one pass (KMC1
+    outputs, then KFF), a complex file, compare a a and a b, and filter of
+    `reads` against a.  Returns {operation: (seconds, peak RSS bytes)}."""
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "ops.def").write_text(
+        f"INPUT:\na = {a} -ci3\nb = {b}\nOUTPUT:\n{d / 'cx'} = "
+        "(a *max b) + (a - b)\nOUTPUT_PARAMS:\n-cs1000\n")
+    runs = [
+        ("info", ["info", a], d / "info.txt", 0),
+        ("check", ["check", a, kmer], d / "check.txt", 0),
+        ("histogram", ["transform", a, "histogram", d / "hist.txt"], None, 0),
+        ("dump -s", ["transform", a, "dump", "-s", d / "dump.txt"], None, 0),
+        ("reduce -ci3", ["transform", a, "reduce", d / "red", "-ci3"],
+         None, 0),
+        ("compact", ["transform", a, "compact", d / "cmp"], None, 0),
+        ("set_counts", ["transform", a, "set_counts", "7", d / "sc"], None,
+         0),
+        ("simple x6", ["simple", a, b] + [x for op in SIMPLE_OPS
+                                          for x in (op, d / op)], None, 0),
+        ("simple x6 -okff", ["simple", a, b] + [
+            x for op in SIMPLE_OPS for x in (op, d / f"{op}_kff", "-okff")],
+         None, 0),
+        ("complex", ["complex", d / "ops.def"], None, 0),
+        ("compare a a", ["compare", a, a], None, 0),
+        ("compare a b", ["compare", a, b], None, 1),
+        ("filter", ["filter", a, reads, "-ci0.5", d / "filtered.fq"], None,
+         0),
+    ]
+    secs = {}
+    for name, argv, out_file, want_rc in runs:
+        t0 = time.perf_counter()
+        rc, peak = _tools_main(argv, out_file)
+        secs[name] = (time.perf_counter() - t0, peak)
+        if rc != want_rc:
+            raise SystemExit(f"phase 16: kmc_tools {name} exited {rc}, "
+                             f"expected {want_rc}")
+    return secs
+
+
+def _secs_json(secs) -> str:
+    """{operation: [seconds, peak RSS bytes]} for the log."""
+    return json.dumps({k: [round(t, 3), rss] for k, (t, rss) in
+                       secs.items()})
+
+
+def _dir_files(d: Path) -> dict:
+    return {p.name: p.read_bytes().replace(str(d).encode(), b"<D>")
+            for p in sorted(d.iterdir()) if p.is_file()
+            and p.name != "ops.def"}
+
+
+def _tool_routes(a, b, reads, d, kmer):
+    """run_tools on the native route, the NumPy route
+    (KMC_TPU_NATIVE_TOOLS=0) and the streaming route (and
+    KMC_TPU_STREAM_THRESHOLD=0); every file of the three must be equal."""
+    routes = {"native": {}, "numpy": {"KMC_TPU_NATIVE_TOOLS": "0"},
+              "streaming": {"KMC_TPU_NATIVE_TOOLS": "0",
+                            "KMC_TPU_STREAM_THRESHOLD": "0"}}
+    files, secs = {}, {}
+    for route, env in routes.items():
+        old = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        try:
+            secs[route] = run_tools(a, b, reads, d / route, kmer)
+        finally:
+            for key, val in old.items():
+                if val is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = val
+        files[route] = _dir_files(d / route)
+    for route in ("numpy", "streaming"):
+        if files[route].keys() != files["native"].keys():
+            raise SystemExit(f"phase 16: the {route} route wrote "
+                             f"{sorted(files[route])}, the native "
+                             f"{sorted(files['native'])}")
+        for name, data in files["native"].items():
+            if files[route][name] != data:
+                raise SystemExit(f"phase 16: {name} of the {route} route "
+                                 "differs from the native route's")
+    return secs, files["native"]
+
+
+def _kmer_of(key: int, k: int) -> str:
+    return "".join("ACGT"[(key >> (2 * (k - 1 - i))) & 3] for i in range(k))
+
+
+def phase_tools(fq_mid, full):
+    """Phase 16: kmc_tools.  At mid size (phase 4's DB and a count of the
+    first quarter of its reads) every operation of run_tools on the native
+    route equals the NumPy and the streaming routes byte for byte.  At
+    full size (phase 5's DB, A, and a count of the first quarter of phase
+    5's reads at its knobs, B) the native route is timed, with the host's
+    peak RSS, and held to the set identities of sorted_records and, for
+    union and histogram, to the NumPy route's bytes."""
+    from kmc_tpu_torch.tools import native_tools
+
+    fq5, n_reads, ref = full
+    t0 = time.perf_counter()
+    native_tools.get_lib()
+    log(f"[phase 16] native streaming core built / loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # mid size: three routes, byte for byte
+    mid_q = WORK / "mid_q1.fastq"
+    n_mid = sum(1 for _ in open(fq_mid, "rb")) // 4
+    _head_fastq(fq_mid, mid_q, n_mid // 4)
+    run_count(mid_q, WORK / "mid_q1", "cuda", batch_positions=1 << 20,
+              device_store_rows=3 << 20)
+    mid_reads = WORK / "mid_reads_1e4.fastq"
+    _head_fastq(fq_mid, mid_reads, 10 ** 4)
+    keys_a, _ = _db_records(WORK / "mid_cuda")
+    secs, files = _tool_routes(WORK / "mid_cuda", WORK / "mid_q1", mid_reads,
+                               WORK / "tools_mid", _kmer_of(int(keys_a[7]),
+                                                            27))
+    log(f"[phase 16] mid size (phase 4 DB, {len(keys_a)} records, and its "
+        f"first quarter): {len(files)} files of the native route == NumPy "
+        f"route == streaming route byte for byte; native [seconds, peak "
+        f"RSS] " + _secs_json(secs["native"]))
+
+    # full size: A = phase 5's DB, B = its first quarter of reads
+    a, b = WORK / "bench_out", WORK / "bench_q1"
+    q1 = WORK / "bench_q1.fastq"
+    n_q1 = _head_fastq(fq5, q1, n_reads // 4)
+    _, rb, _, wall_b = run_count(q1, b, "cuda")
+    q1.unlink()
+    reads = WORK / "bench_reads_1e5.fastq"
+    _head_fastq(fq5, reads, 10 ** 5)
+    keys_a, cnt_a = _db_records(a)
+    keys_b, cnt_b = _db_records(b)
+    log(f"[phase 16] A: phase 5's DB, {len(keys_a)} records; B: {n_q1} "
+        f"reads counted in {wall_b:.3f} s, {len(keys_b)} records")
+    d = WORK / "tools_full"
+    secs = run_tools(a, b, reads, d, _kmer_of(int(keys_a[12345]), 27))
+    # set identities
+    rec = {op: _db_records(d / op) for op in ("union", "intersect",
+                                               "kmers_subtract")}
+    n_u, n_i, n_s = (len(rec[op][0]) for op in ("union", "intersect",
+                                                 "kmers_subtract"))
+    if n_u + n_i != len(keys_a) + len(keys_b):
+        raise SystemExit(f"phase 16: |A u B| + |A n B| = {n_u} + {n_i} != "
+                         f"|A| + |B| = {len(keys_a)} + {len(keys_b)}")
+    if n_s != len(keys_a) - n_i:
+        raise SystemExit(f"phase 16: |A - B| = {n_s} != |A| - |A n B|")
+    ku, cu = rec["union"]
+    ia = np.searchsorted(keys_a, ku).clip(max=len(keys_a) - 1)
+    ib = np.searchsorted(keys_b, ku).clip(max=len(keys_b) - 1)
+    sums = (np.where(keys_a[ia] == ku, cnt_a[ia], 0).astype(np.int64)
+            + np.where(keys_b[ib] == ku, cnt_b[ib], 0))
+    if not np.array_equal(cu.astype(np.int64), np.minimum(sums, 255)):
+        raise SystemExit("phase 16: union counters are not the sums capped "
+                         "at counter_max 255")
+    hist = np.loadtxt(d / "hist.txt", dtype=np.int64, ndmin=2)
+    if int(hist[:, 1].sum()) != len(keys_a):
+        raise SystemExit(f"phase 16: the histogram holds "
+                         f"{int(hist[:, 1].sum())} records, A {len(keys_a)}")
+    # the NumPy route for union and histogram, byte for byte
+    os.environ["KMC_TPU_NATIVE_TOOLS"] = "0"
+    try:
+        t0 = time.perf_counter()
+        rc_u, _ = _tools_main(["simple", a, b, "union", d / "union_np"])
+        t_union_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc_h, _ = _tools_main(["transform", a, "histogram",
+                               d / "hist_np.txt"])
+        t_hist_np = time.perf_counter() - t0
+        if rc_u or rc_h:
+            raise SystemExit("phase 16: a NumPy-route tool failed")
+    finally:
+        os.environ.pop("KMC_TPU_NATIVE_TOOLS", None)
+    for x, y in (("union.kmc_pre", "union_np.kmc_pre"),
+                 ("union.kmc_suf", "union_np.kmc_suf"),
+                 ("hist.txt", "hist_np.txt")):
+        if (d / x).read_bytes() != (d / y).read_bytes():
+            raise SystemExit(f"phase 16: {y} (NumPy route) differs from {x}")
+    log(f"[phase 16] full size, native route, [seconds, peak RSS bytes] "
+        f"of each tool's process: " + _secs_json(secs) + f"; "
+        f"|A u B| {n_u} |A n B| {n_i} "
+        f"|A - B| {n_s}: the set identities hold, union counters = sums "
+        f"capped at 255, histogram total = |A|; NumPy route union "
+        f"{t_union_np:.3f} s and histogram {t_hist_np:.3f} s, byte for byte "
+        "== native")
+    for p in list(d.iterdir()) + [reads]:
+        p.unlink()
+    return secs
+
+
+def _greedy_env(mode: str):
+    os.environ["KMC_TPU_GREEDY_DEFER"] = "1" if mode == "deferred" else "0"
+
+
+def _greedy_launches():
+    w = _wrappers()
+    return dict(fused_ingest=w["fused_ingest"].launches,
+                greedy=w["fused_ingest"].greedy_launches,
+                hist=w["fused_ingest"].hist_launches,
+                splitter_scan=w["splitter_scan"].launches,
+                radix_sort=w["radix_sort"].launches)
+
+
+def _check_greedy_launches(label, mode, launches, collect, s):
+    """Deferred: every batch on the prefix entry, the first
+    ceil(2^27 / s) with the histogram, the collect's one radix sort; no
+    scan entry.  Eager: the scan entry's stage 0, every batch on the
+    greedy entry, no histogram."""
+    n = launches["fused_ingest"]
+    if mode == "deferred":
+        ok = (launches["greedy"] == 0 and launches["splitter_scan"] == 0
+              and launches["hist"] == min(n, -(-(1 << 27) // s))
+              and collect == 1)
+    else:
+        ok = (launches["greedy"] == n and launches["hist"] == 0
+              and launches["splitter_scan"] > 0 and collect == 0)
+    if n == 0 or launches["radix_sort"] == 0 or not ok:
+        raise SystemExit(f"phase 17: {label}: launches {launches}, collect "
+                         f"{collect}")
+
+
+def phase_greedy(fq_mid, full):
+    """Phase 17: the greedy signature map of the device store.  Mid size
+    (phase 4's FASTQ): card == CPU byte for byte, deferred and eager, and
+    deferred == eager; both spill routes (phase 11's stores) == the
+    non-spilling DB; a deferred greedy checkpoint card -> CPU and CPU ->
+    card == the straight count.  Full size (phase 5's FASTQ and knobs),
+    deferred and eager, timed: n_total = n_reads x 124, the (k-mer, count)
+    set == phase 5's, the .kmc_pre footer holds the greedy map, the
+    launches of each mode; then the deferred run under torch.profiler."""
+    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+    from kmc_tpu_torch.formats.kmc_db import read_pre_meta
+
+    base = dict(batch_positions=1 << 20, device_store_rows=3 << 20,
+                signature_map_policy="greedy")
+    try:
+        for mode in ("deferred", "eager"):
+            _greedy_env(mode)
+            reset_counts()
+            _, r2, runner, wall = run_count(fq_mid, WORK / f"mid17_{mode}",
+                                            "cuda", **base)
+            launches = _greedy_launches()
+            _check_greedy_launches(f"mid {mode}", mode, launches,
+                                   runner.spill_stats["collect_launches"],
+                                   base["batch_positions"])
+            _, c2, _, c_wall = run_count(fq_mid, WORK / f"mid17_{mode}_cpu",
+                                         "cpu", **base)
+            if not _same_db(WORK / f"mid17_{mode}",
+                            WORK / f"mid17_{mode}_cpu"):
+                raise SystemExit(f"phase 17: mid {mode}: card DB != CPU DB")
+            if _no_times(r2) != _no_times(c2):
+                raise SystemExit(f"phase 17: mid {mode}: card results {r2} "
+                                 f"differ from the CPU's {c2}")
+            for route, (s, rows) in MID_SPILL.items():
+                _, _, sp, _ = run_count(
+                    fq_mid, WORK / f"mid17_{mode}_{route}", "cuda",
+                    **dict(base, batch_positions=s, device_store_rows=rows))
+                st = sp.spill_stats
+                if (st["finalize_route"] != route or st["n_spills"] < 2
+                        or not _same_db(WORK / f"mid17_{mode}_{route}",
+                                        WORK / f"mid17_{mode}")):
+                    raise SystemExit(f"phase 17: mid {mode} {route} route: "
+                                     f"{st}, or its DB differs")
+            log(f"[phase 17] mid {mode}: card DB == CPU DB byte for byte "
+                f"({runner._n_used_bins} greedy bins); the replay and host "
+                f"spill routes == it; launches {launches}; card {wall:.2f} "
+                f"s, cpu {c_wall:.2f} s")
+        if not _same_db(WORK / "mid17_deferred", WORK / "mid17_eager"):
+            raise SystemExit("phase 17: mid deferred DB != eager DB")
+        _greedy_env("deferred")
+        s, rows = MID_SPILL["host"]
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            ck = str(WORK / f"ck17_{src}")
+            r = Runner(device=src)
+            r.run_stage1(Stage1Params(input_files=[str(fq_mid)], kmer_len=27,
+                                      batch_positions=s,
+                                      device_store_rows=rows,
+                                      signature_map_policy="greedy"))
+            n_runs = len(r._store.spilled)
+            r.save_stage1_checkpoint(ck)
+            r2 = Runner(device=dst)
+            r2.resume_stage1_checkpoint(ck, Stage1Params(
+                input_files=[str(fq_mid)], batch_positions=s,
+                device_store_rows=rows))
+            out = WORK / f"mid17_ck_{src}_{dst}"
+            r2.run_stage2(Stage2Params(output_file_name=str(out),
+                                       cutoff_min=2))
+            if not _same_db(out, WORK / "mid17_deferred"):
+                raise SystemExit(f"phase 17: greedy checkpoint {src} -> "
+                                 f"{dst} differs from the straight count")
+            log(f"[phase 17] deferred greedy checkpoint saved on {src} "
+                f"({n_runs} spilled runs), resumed on {dst}: DB == the "
+                "straight count's byte for byte")
+
+        fq5, n_reads, ref = full
+        keys5, counts5 = _db_records(WORK / "bench_out")
+        prefix_map = read_pre_meta(str(WORK / "bench_out"))[2]
+        s5 = 1 << 22
+        for mode in ("deferred", "eager"):
+            _greedy_env(mode)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out = WORK / f"full17_{mode}"
+            r1, r2, runner, wall = run_count(fq5, out, "cuda", verbose=True,
+                                             signature_map_policy="greedy")
+            launches = _greedy_launches()
+            peak = torch.cuda.max_memory_allocated()
+            _check_greedy_launches(f"full {mode}", mode, launches,
+                                   runner.spill_stats["collect_launches"], s5)
+            if r2.n_total_kmers != n_reads * (150 - 27 + 1):
+                raise SystemExit(f"phase 17: full {mode}: n_total "
+                                 f"{r2.n_total_kmers} != n_reads x 124")
+            keys, counts = _db_records(out)
+            if not (np.array_equal(keys, keys5)
+                    and np.array_equal(counts, counts5)):
+                raise SystemExit(f"phase 17: full {mode}: the (k-mer, count) "
+                                 "set differs from phase 5's")
+            footer = read_pre_meta(str(out))[2]
+            if (not np.array_equal(footer, runner._sig_map)
+                    or np.array_equal(footer, prefix_map)):
+                raise SystemExit(f"phase 17: full {mode}: the .kmc_pre "
+                                 "footer does not hold the greedy map")
+            log(f"[phase 17] full {mode}: n_total {r2.n_total_kmers} (= "
+                f"{n_reads} x 124), n_unique {r2.n_unique_kmers}, (k-mer, "
+                f"count) set == phase 5's, footer == the greedy map of "
+                f"{runner._n_used_bins} bins; wall_s {wall:.3f} stage1_s "
+                f"{r1.time:.3f} stage2_s {r2.time:.3f} finalize_exec_s "
+                f"{r2.time_finalize_exec:.3f} finalize_d2h_s "
+                f"{r2.time_finalize_d2h:.3f}; launches {launches}, collect "
+                f"{runner.spill_stats['collect_launches']}; "
+                f"max_memory_allocated {peak}")
+            if mode == "deferred":
+                result = dict(launches=launches, wall=wall)
+                result["collect"] = runner.spill_stats["collect_launches"]
+            else:
+                result["eager_greedy"] = launches["greedy"]
+            for p in out.parent.glob(out.name + ".*"):
+                p.unlink()
+        _greedy_env("deferred")
+        prof = device_profiler()
+        with labelled_store():
+            _, _, _, wall = run_count(fq5, WORK / "full17_prof", "cuda",
+                                      profiler=prof,
+                                      signature_map_policy="greedy")
+        _device_time(prof, "[phase 17] full deferred", wall,
+                     also=INGEST_KERNELS + SORT_KERNELS)
+        for p in WORK.glob("full17_prof.*"):
+            p.unlink()
+    finally:
+        os.environ.pop("KMC_TPU_GREEDY_DEFER", None)
+    return result
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -2194,12 +2818,14 @@ def timed(n, fn, *args):
 
 
 def phase_scan_and_ingest():
-    """Phase 2: the scan entry, the fused ingest, one batch through the
-    store.  Returns the scan's and the fused ingest's rows."""
+    """Phase 2: the scan entry, the fused ingest, its greedy entry and
+    histogram output, one batch through the store.  Returns the scan's,
+    the fused ingest's and the greedy entry's rows."""
     scan = phase_scan()
     fused = phase_ingest()
+    greedy = phase_ingest_greedy()
     phase_store_ingest()
-    return scan, fused
+    return scan, fused, greedy
 
 
 # The phases in order: (number, function, the phases whose results it
@@ -2219,6 +2845,8 @@ PHASES = (
     (13, phase_sharded_spill_full, (12,)),
     (14, phase_other_routes, (4, 5)),
     (15, phase_inputs_and_readers, (4, 5)),
+    (16, phase_tools, (4, 5)),
+    (17, phase_greedy, (4, 5)),
 )
 
 
@@ -2232,7 +2860,7 @@ def main(argv=()) -> int:
     only = {int(a) for a in argv}
     need = only | {dep for n, _, deps in PHASES if n in only for dep in deps}
     t_all = time.perf_counter()
-    phase_card()
+    card = phase_card()
     got = {}
     for n, fn, deps in PHASES:
         if not only or n in need:
@@ -2240,7 +2868,8 @@ def main(argv=()) -> int:
     if only:  # a quick check: no kernels line, no ok line
         log(f"[done] phases {sorted(need)} passed")
         return 0
-    (scan, fused), sort, exchange = got[2], got[3], got[7]
+    (scan, fused, greedy), sort, exchange = got[2], got[3], got[7]
+    greedy_run = got[17]  # phase 17's deferred full-size run
     sharded, (scan_1d, probes) = got[9], got[10]
     bucket_scans = got[14]  # the host-bucket route's scan-entry launches
 
@@ -2253,10 +2882,30 @@ def main(argv=()) -> int:
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/store.py:296",
          "launches": sharded["fused_ingest"],
-         "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            list(fused.values()) + list(greedy.values())),
          "ms": f27["ms"], "plain_ms": f27["plain_ms"],
          "bound_ms": f27["bound_ms"], "bound_by": f27["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "stream_ms": f27["stream_ms"],
+         # the greedy entry (phase 2 at m = 9 and 11; phase 17's eager run
+         # launches it) and the histogram output (phase 17's deferred run)
+         "greedy_replaces": "kmc_tpu/ops/store.py:307",
+         "greedy_ms_m9": greedy[("greedy", 9)]["ms"],
+         "greedy_plain_ms_m9": greedy[("greedy", 9)]["plain_ms"],
+         "greedy_bound_ms_m9": greedy[("greedy", 9)]["bound_ms"],
+         "greedy_stream_ms_m9": greedy[("greedy", 9)]["stream_ms"],
+         "greedy_ms_m11": greedy[("greedy", 11)]["ms"],
+         "greedy_plain_ms_m11": greedy[("greedy", 11)]["plain_ms"],
+         "greedy_bound_ms_m11": greedy[("greedy", 11)]["bound_ms"],
+         "greedy_stream_ms_m11": greedy[("greedy", 11)]["stream_ms"],
+         "greedy_map_bytes_m11": greedy[("greedy", 11)]["table_bytes"],
+         "hist_ms": greedy[("hist", 9)]["ms"],
+         "hist_plain_ms": greedy[("hist", 9)]["plain_ms"],
+         "hist_bound_ms": greedy[("hist", 9)]["bound_ms"],
+         "hist_stream_ms": greedy[("hist", 9)]["stream_ms"],
+         "greedy_path_launches": greedy_run["launches"]["fused_ingest"],
+         "hist_launches": greedy_run["launches"]["hist"],
+         "greedy_launches": greedy_run["eager_greedy"]},
         {"name": "splitter_scan", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/pallas_extract.py:312",
@@ -2272,7 +2921,10 @@ def main(argv=()) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in sort.values()),
          "ms": s26["ms"], "plain_ms": s26["plain_ms"],
          "bound_ms": s26["bound_ms"], "bound_by": "bytes",
-         "library_ms": s26["library_ms"]},
+         "library_ms": s26["library_ms"],
+         # phase 17's deferred greedy run: all its sorts, the collect's
+         "greedy_path_launches": greedy_run["launches"]["radix_sort"],
+         "collect_launches": greedy_run["collect"]},
         {"name": "ragged_all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:164",
@@ -2312,6 +2964,7 @@ def main(argv=()) -> int:
              "bound_ms": p["bound_ms"], "bound_by": "bytes",
              "library_ms": p["library_ms"]})
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
+    log(f"card: {card}")  # again, near the end of the output
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,10 @@ _SORT_ARGS = [_I32, ctypes.POINTER(_P), _P, _P, _I64, _I32, _I32, _I64,
               ctypes.POINTER(_I32), _I32, _I32, _P, _I64, _P]
 _SCAN_ARGS = [_I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P]
 # counts, occ, skm, prev_in, prev_out, s, k, sig_len, both_strands,
-# prefix_bits, fuse, stream
-_INGEST_TAIL = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
+# prefix_bits, fuse, map (null: the prefix entry), map_len, hist (or null),
+# stream
+_INGEST_TAIL = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P,
+                _I64, _P, _P]
 # source name -> {C entry: argtypes}; every entry returns a cudaError_t
 SIGNATURES = {
     "extract": {
@@ -39,7 +41,7 @@ SIGNATURES = {
         "kmc_splitter_scan_1d": _SCAN_ARGS,
         # device, buf, n_buf, tail_start, scratch, cols, n_cols, n_used,
         # counts, occ, skm, prev_in, prev_out, s, k, sig_len, both_strands,
-        # prefix_bits, fuse, stream
+        # prefix_bits, fuse, map, map_len, hist, stream
         "kmc_ingest_bounds": [_I32, _P, _I64, _I64, _P, ctypes.POINTER(_P),
                               _I32, _I64] + _INGEST_TAIL,
         # the same without tail_start and scratch

@@ -15,10 +15,17 @@
 //   lane t of i = lane t (most significant first, right-aligned) of the
 //                 smaller of the forward and reverse-complement k-mer, or
 //                 0xFFFFFFFF for an invalid window.
-// The ingest writes, at store rows n_used + i, the prefix policy's key
-// columns: bin = sig >> (2m - prefix_bits) in lane 0's spare top bits
-// (fused layout) or in a column of its own, then the lanes; all-ones for a
-// dead row; 1 in the counts column when there is one.  It adds the valid
+// The ingest writes, at store rows n_used + i, the store's key columns:
+// the bin in lane 0's spare top bits (fused layout) or in a column of its
+// own, then the lanes; all-ones for a dead row; 1 in the counts column when
+// there is one.  The bin is sig >> (2m - prefix_bits) under the prefix
+// policy; the greedy entry (a signature -> bin map given) reads it as
+// map[min(sig, map_len - 1)], kmc_tpu/ops/store.py::_sig_to_bin under the
+// "greedy" policy (kmc_tpu's _ingest_greedy_bounds / _fused).  Either entry
+// may also add 1 to hist[sig] for every valid position: the stage-0
+// signature histogram of kmc_tpu's _stage0_accum_bounds / _fused (its
+// _stage0_core), taken from the same decode, so deferred greedy folds its
+// stage 0 into the ingest launches without a second pass over the feed.  It adds the valid
 // windows to occ and the valid windows whose signature differs from their
 // predecessor's to skm (64-bit, on the device), reads the predecessor of
 // position 0 from prev_in and writes sig[s - 1] to prev_out (two buffers:
@@ -61,6 +68,16 @@
 // scan (H100 SXM, chip_smoke.py phase 2).  The delta prefix sum is one
 // block over L/64 slots: 0.021 ms at s = 2^22 on the same card, a quarter
 // of the boundary-delta ingest.
+//
+// The greedy entry adds one 4-byte read of the map a valid position; the
+// map (int32[4^m + 1], 16.8 MB at m = 11) stays in the 50 MB L2, so its
+// bound is the prefix entry's plus the 32-byte map sectors that the
+// batch's signatures touch, read once (signatures are minimizers, so a
+// batch touches part of the map; chip_smoke.py phase 2 prints how much).
+// The histogram adds one 4-byte atomic for each run of equal signatures in
+// a warp (__match_any_sync; consecutive positions of a super-k-mer share
+// theirs), and its bound adds the sectors it touches, read and written
+// once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,6 +131,9 @@ struct Params {
   unsigned long long* skm;
   const uint32_t* prev_in;
   uint32_t* prev_out;
+  const int* map;      // greedy: the signature -> bin map, or null
+  long long map_len;   // its entries
+  int* hist;           // the stage-0 histogram (4^m + 1 entries), or null
 };
 
 __device__ __forceinline__ uint32_t be32(const uint8_t* b, long long off,
@@ -371,11 +391,21 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(Params p) {
   uint32_t* const counts = p.counts ? p.counts + row0 : nullptr;
   const long long last = p.s - 1 - base;  // the tile's index of s - 1
   unsigned occ = 0, skm = 0;
-  for (int pl = tid; pl < tlen; pl += THREADS) {
+  // warps run whole iterations (lanes past the tile idle), so the
+  // histogram's warp-wide match sees all 32 lanes
+  for (int pw = tid & ~31; pw < tlen; pw += THREADS) {
+    const int pl = pw + (tid & 31);
     const int x = pl + 1;
-    const uint32_t key = B[x];
+    const uint32_t key = pl < tlen ? B[x] : 0u;
     const uint32_t dead = key ? 0u : 0xFFFFFFFFu;  // all-ones when invalid
     const uint32_t sig = key & 0x7FFFFFFFu;
+    if (p.hist) {  // one atomic a run of equal signatures in the warp
+      const unsigned grp =
+          __match_any_sync(0xFFFFFFFFu, key ? sig : 0xFFFFFFFFu);
+      if (key && __ffs(grp) - 1 == (tid & 31))
+        atomicAdd(p.hist + sig, (int)__popc(grp));
+    }
+    if (pl >= tlen) continue;
     if (p.occ && key) {
       ++occ;
       const uint32_t prev = base == 0 && pl == 0 ? *p.prev_in
@@ -400,11 +430,18 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(Params p) {
       }
     }
     const uint32_t lane0 = use_rc ? q0 : f0;
+    uint32_t bin = 0u;
+    if (p.map) {
+      if (key)
+        bin = (uint32_t)p.map[min((long long)sig, p.map_len - 1)];
+    } else {
+      bin = sig >> p.shift;
+    }
     uint32_t v0;
     if (p.col0 == COL0_FUSED)
-      v0 = ((sig >> p.shift) << (2 * r0)) | lane0;
+      v0 = (bin << (2 * r0)) | lane0;
     else
-      v0 = p.col0 == COL0_SIG ? sig : sig >> p.shift;
+      v0 = p.col0 == COL0_SIG ? sig : bin;
     col0[pl] = v0 | dead;
     if (col1) col1[pl] = lane0 | dead;
     for (int t = 1; t < W; ++t) {
@@ -544,16 +581,22 @@ int ingest(int device, int feed, const void* buf, long long n_buf,
            long long tail_start, void* scratch, void* const* cols, int n_cols,
            long long n_used, void* counts, void* occ, void* skm,
            const void* prev_in, void* prev_out, long long s, int k,
-           int sig_len, int both, int prefix_bits, int fuse, void* stream) {
+           int sig_len, int both, int prefix_bits, int fuse, const void* map,
+           long long map_len, void* hist, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(s, k, sig_len)) return (int)cudaErrorInvalidValue;
   Params p = scan_params(k, sig_len, both, s);
   const long long L = s + ((k + 16 + 7) / 8) * 8;  // batch_len(s, k)
-  if (n_cols != p.W + (fuse ? 0 : 1) || n_cols > MAX_COLS ||
-      prefix_bits < 0 || prefix_bits > 2 * sig_len ||
-      (fuse && 2 * p.r0 + prefix_bits + 1 > 32))
+  if (n_cols != p.W + (fuse ? 0 : 1) || n_cols > MAX_COLS)
     return (int)cudaErrorInvalidValue;
+  if (map ? map_len < 1
+          : (prefix_bits < 0 || prefix_bits > 2 * sig_len ||
+             (fuse && 2 * p.r0 + prefix_bits + 1 > 32)))
+    return (int)cudaErrorInvalidValue;
+  p.map = (const int*)map;
+  p.map_len = map_len;
+  p.hist = (int*)hist;
   p.feed = (const uint8_t*)buf;
   p.n_feed = L;
   p.col0 = fuse ? COL0_FUSED : COL0_BIN;
@@ -635,6 +678,10 @@ int kmc_splitter_scan_1d(int device, const void* codes, long long n_codes,
 // (ceil(s / 1024) + 2)].  cols: n_cols u32 columns
 // written at rows [n_used, n_used + s); counts: u32 column
 // or null; occ, skm: u64 accumulators; prev_in, prev_out: u32[1], distinct.
+// map: null (the prefix entry: bin = sig >> (2 sig_len - prefix_bits)) or
+// the greedy entry's int32[map_len] signature -> bin map on the device
+// (prefix_bits is then not read); hist: null or int32[4^sig_len + 1], which
+// gains 1 at the signature of every valid position.
 // Sets `device`, launches the delta scan and the ingest on `stream`;
 // returns cudaGetLastError() or cudaErrorInvalidValue.
 int kmc_ingest_bounds(int device, const void* buf, long long n_buf,
@@ -642,10 +689,11 @@ int kmc_ingest_bounds(int device, const void* buf, long long n_buf,
                       int n_cols, long long n_used, void* counts, void* occ,
                       void* skm, const void* prev_in, void* prev_out,
                       long long s, int k, int sig_len, int both_strands,
-                      int prefix_bits, int fuse, void* stream) {
+                      int prefix_bits, int fuse, const void* map,
+                      long long map_len, void* hist, void* stream) {
   return ingest(device, BOUNDS, buf, n_buf, tail_start, scratch, cols, n_cols,
                 n_used, counts, occ, skm, prev_in, prev_out, s, k, sig_len,
-                both_strands, prefix_bits, fuse, stream);
+                both_strands, prefix_bits, fuse, map, map_len, hist, stream);
 }
 
 // The same for one packed+mask batch (io/native.py::pack_codes_fused):
@@ -655,10 +703,11 @@ int kmc_ingest_mask(int device, const void* buf, long long n_buf,
                     void* counts, void* occ, void* skm, const void* prev_in,
                     void* prev_out, long long s, int k, int sig_len,
                     int both_strands, int prefix_bits, int fuse,
+                    const void* map, long long map_len, void* hist,
                     void* stream) {
   return ingest(device, MASK, buf, n_buf, 0, nullptr, cols, n_cols, n_used,
                 counts, occ, skm, prev_in, prev_out, s, k, sig_len,
-                both_strands, prefix_bits, fuse, stream);
+                both_strands, prefix_bits, fuse, map, map_len, hist, stream);
 }
 
 }  // extern "C"

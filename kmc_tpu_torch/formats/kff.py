@@ -88,6 +88,70 @@ class KffWriter:
             data = rec.tobytes()
             self._write(data)
 
+    def store_block_section(self, blocks):
+        """A max>1 'r' section of k-mer BLOCKS (KFF v1 §raw blocks) —
+        the compact super-k-mer representation the reference can neither
+        write nor read (its own TODO, kmc_tools/kff_db_reader.h:16).
+
+        `blocks`: iterable of (codes, counts) with codes a (s,) uint8
+        array of 2-bit symbols in the FILE's encoding (s = k + n - 1)
+        and counts (n,) the per-k-mer counters in sequence order.  Block
+        layout: n on the minimal number of bytes that can represent the
+        scope's `max` (big-endian), then ceil(s/4) sequence bytes
+        (right-aligned, the same packing rule as a single k-mer record),
+        then n*data_size counter bytes."""
+        blocks = list(blocks)
+        mx = max((len(c) for _, c in blocks), default=1)
+        self._scope_max(max(int(mx), 2))  # a max=1 scope has no n field
+        n_bytes = _block_n_bytes(self._cur_max)
+        self._index.append((b"r", self._pos))
+        self._write(b"r")
+        self._write(_be(len(blocks)))
+        out = bytearray()
+        for codes, counts in blocks:
+            codes = np.asarray(codes, np.uint8)
+            counts = np.asarray(counts, np.uint64)
+            n = len(counts)
+            s = len(codes)
+            if s != self.k + n - 1 or n < 1:
+                raise ValueError("block sequence length must be k + n - 1")
+            out += int(n).to_bytes(n_bytes, "big")
+            sb = (s + 3) // 4
+            padded = np.zeros(sb * 4, np.uint8)
+            padded[sb * 4 - s:] = codes
+            out += ((padded[0::4] << 6) | (padded[1::4] << 4)
+                    | (padded[2::4] << 2) | padded[3::4]).astype(
+                        np.uint8).tobytes()
+            if self.counter_size:
+                data = np.empty((n, self.counter_size), np.uint8)
+                for j in range(self.counter_size):
+                    shift = np.uint64(8 * (self.counter_size - 1 - j))
+                    data[:, j] = ((counts >> shift)
+                                  & np.uint64(0xFF)).astype(np.uint8)
+                out += data.tobytes()
+        self._write(bytes(out))
+
+    def begin_streamed_section(self) -> int:
+        """Start an 'r' section whose record payload an EXTERNAL writer
+        (the native tools core) will append directly to the file; returns
+        the byte offset where records begin.  The caller must invoke
+        end_streamed_section(n_recs, rec_bytes) once the external append
+        is complete (and its file handle closed) before close()."""
+        self._scope_max(1)
+        self._index.append((b"r", self._pos))
+        self._write(b"r")
+        self._nb_off = self._pos
+        self._write(_be(0))  # nb_recs placeholder, patched later
+        self._f.flush()
+        return self._pos
+
+    def end_streamed_section(self, n_recs: int, rec_bytes: int):
+        self._f.seek(self._nb_off)
+        self._f.write(_be(n_recs))
+        self._pos += n_recs * rec_bytes
+        self._f.seek(self._pos)
+
+
     def close(self):
         nb_sections = len(self._index) + 1  # +1 footer
         index_size = 1 + 8 + nb_sections * 9 + 8

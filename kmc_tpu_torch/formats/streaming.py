@@ -5,9 +5,11 @@ merges the 512 per-bin sections of a KMC2 DB back into one sorted stream in
 constant memory (kmc_tools/kmc2_db_reader.h:400-560), CKMC1DbReader streams
 the already-sorted records (kmc1_db_reader.h), and CBundle batches them
 through operation trees (bundle.h:18-245).  This module is the port's
-equivalent, the reader half of kmc_tpu/formats/streaming.py: per-bin
-cursors over the .kmc_suf file + a windowed vectorized k-way merge.  Only the prefix LUTs live in RAM (same policy as the
-reference's readers); record traffic is block-sized.
+copy of kmc_tpu/formats/streaming.py: per-bin cursors over the .kmc_suf
+file + a windowed vectorized k-way merge (the reader half), and the KMC1
+writer, key-stream merges and stream_* operations of kmc_tools (the writer
+half).  Only the prefix LUTs live in RAM (same policy as the reference's
+readers); record traffic is block-sized.
 
 Key representation: a block of (N, KB) right-aligned big-endian k-mer bytes
 is viewed as a NumPy 'S{KB}' array — lexicographic byte order equals
@@ -18,6 +20,7 @@ Pure NumPy — no torch import — so host-only tool runs stay light.
 """
 from __future__ import annotations
 
+import struct
 from typing import Iterator
 
 import numpy as np
@@ -25,6 +28,7 @@ import numpy as np
 from .kmc_db import (
     KMC1_VER,
     KMC2_VER,
+    PRE_MARKER,
     SUF_MARKER,
     DbInfo,
     read_pre_meta,
@@ -443,3 +447,355 @@ class _KffSectionCursor:
             self.pos += n
 
     take_upto = _SectionCursor.take_upto
+
+
+class StreamingKmc1Writer:
+    """Incremental KMC1 (version 0) database writer: records stream to
+    .kmc_suf while the prefix histogram accumulates; close() writes the
+    LUT + header.  The kmc_tools output side (CKMC1DbWriter,
+    kmc_tools/kmc1_db_writer.h:55) in bounded memory."""
+
+    def __init__(self, path_prefix: str, info: DbInfo):
+        self.path = path_prefix
+        self.info = info
+        self.lut_size = 1 << (2 * info.lut_prefix_len)
+        self.hist = np.zeros(self.lut_size, np.uint64)
+        self.n = 0
+        self._suf = open(path_prefix + ".kmc_suf", "wb")
+        self._suf.write(SUF_MARKER)
+
+    def put_block(self, kmers: np.ndarray, counts: np.ndarray):
+        info = self.info
+        n = len(kmers)
+        if n == 0:
+            return
+        sb = info.suffix_bytes
+        rec = np.empty((n, sb + info.counter_size), np.uint8)
+        if sb:
+            rec[:, :sb] = kmers[:, kmers.shape[1] - sb :]
+        c = np.asarray(counts, np.uint64)
+        for j in range(info.counter_size):
+            rec[:, sb + j] = ((c >> np.uint64(8 * j)) & np.uint64(0xFF)
+                              ).astype(np.uint8)
+        rec.tofile(self._suf)
+        from .kmc_db import kmer_bytes_to_prefix_ids
+
+        pids = kmer_bytes_to_prefix_ids(kmers, info.kmer_len,
+                                        info.lut_prefix_len)
+        self.hist += np.bincount(pids.astype(np.int64),
+                                 minlength=self.lut_size).astype(np.uint64)
+        self.n += n
+
+    def close(self):
+        self._suf.write(SUF_MARKER)
+        self._suf.close()
+        write_kmc1_pre(self.path, self.info, self.hist, self.n)
+
+
+def write_kmc1_pre(path_prefix: str, info: DbInfo, hist: np.ndarray,
+                   n: int) -> None:
+    """Write a KMC1 .kmc_pre (LUT cumsum + header) from a prefix histogram
+    — shared by StreamingKmc1Writer and the native tools core (which emits
+    the .kmc_suf records + histogram in C, tools/native_tools.py)."""
+    lut_size = 1 << (2 * info.lut_prefix_len)
+    with open(str(path_prefix) + ".kmc_pre", "wb") as pre:
+        pre.write(PRE_MARKER)
+        lut = np.zeros(lut_size, np.uint64)
+        np.cumsum(hist[:lut_size][:-1], out=lut[1:])
+        lut.astype("<u8").tofile(pre)
+        header = struct.pack(
+            "<IIIIIIQB",
+            info.kmer_len, info.mode, info.counter_size,
+            info.lut_prefix_len, info.cutoff_min,
+            info.cutoff_max & 0xFFFFFFFF, n,
+            0 if info.both_strands else 1,
+        )
+        header += b"\x00" * 3
+        header += struct.pack("<I", (info.cutoff_max >> 32) & 0xFFFFFFFF)
+        header += b"\x00" * 20
+        header += struct.pack("<I", KMC1_VER)
+        pre.write(header)
+        pre.write(struct.pack("<I", len(header)))
+        pre.write(PRE_MARKER)
+
+
+# -- windowed two-stream merge ops (the streaming CUnion/CIntersection/...,
+#    operations.h:85-258) --
+
+
+class _Peekable:
+    def __init__(self, it):
+        self.it = iter(it)
+        self.keys = np.zeros(0, "S1")
+        self.counts = np.zeros(0, np.uint32)
+        self.done = False
+
+    def ensure(self):
+        while not self.done and len(self.keys) == 0:
+            try:
+                self.keys, self.counts = next(self.it)
+            except StopIteration:
+                self.done = True
+
+    def take_upto(self, bound: bytes):
+        i = int(np.searchsorted(self.keys, bound, side="right"))
+        out = (self.keys[:i], self.counts[:i])
+        self.keys, self.counts = self.keys[i:], self.counts[i:]
+        return out
+
+
+def merge_key_streams(s1, s2, op: str, mode: str) -> Iterator[
+        tuple[np.ndarray, np.ndarray]]:
+    """Merge two sorted-unique (keys 'S', counts) block streams under a set
+    operation.  op: union|intersect|kmers_subtract|counters_subtract (use
+    swapped streams for the reverse_* variants); mode: the counter
+    combination (db_ops._combine / reference CounterOpType semantics).
+    Yields windows whose results are identical to the in-memory
+    db_ops.SIMPLE_OPS applied to the concatenation."""
+    a, b = _Peekable(s1), _Peekable(s2)
+    while True:
+        a.ensure()
+        b.ensure()
+        if a.done and len(a.keys) == 0 and b.done and len(b.keys) == 0:
+            return
+        # safe merge bound: every key <= bound has been fully seen on both
+        # sides (a side with buffered data bounds at its tail; an exhausted
+        # side imposes no bound)
+        bounds = [side.keys[-1] for side in (a, b)
+                  if len(side.keys) and not side.done]
+        if not bounds:
+            bounds = [side.keys[-1] for side in (a, b) if len(side.keys)]
+        bound = min(bounds)
+        k1, c1 = a.take_upto(bound)
+        k2, c2 = b.take_upto(bound)
+        keys, counts = _merge_window(k1, c1, k2, c2, op, mode)
+        if len(keys):
+            yield keys, counts
+
+
+def _merge_window(k1, c1, k2, c2, op, mode):
+    """One aligned window (both sides complete for every key <= bound);
+    exactly db_ops' op_* semantics on 'S'-key arrays, counters in uint64."""
+    from ..tools.db_ops import _combine
+
+    a1 = c1.astype(np.uint64)
+    a2 = c2.astype(np.uint64)
+    in2 = np.isin(k1, k2, assume_unique=True)
+    in1 = np.isin(k2, k1, assume_unique=True)
+    # counts of k2 aligned to k1's matched keys (both sorted unique)
+    m2on1 = a2[in1] if in2.any() else a2[:0]
+
+    if op == "intersect":
+        keys = k1[in2]
+        counts = _combine(a1[in2], m2on1, mode)
+        keep = counts > 0
+        return keys[keep], counts[keep]
+    if op == "kmers_subtract":
+        return k1[~in2], a1[~in2]
+    if op == "counters_subtract":
+        counts = a1.copy()
+        counts[in2] = _combine(a1[in2], m2on1, mode)
+        keep = counts > 0
+        return k1[keep], counts[keep]
+    if op == "union":
+        keys = np.concatenate([k1, k2[~in1]])
+        counts = np.concatenate([a1, a2[~in1]])
+        if in2.any():
+            counts[: len(k1)][in2] = _combine(a1[in2], m2on1, mode)
+        order = np.argsort(keys, kind="stable")
+        keys, counts = keys[order], counts[order]
+        keep = counts > 0
+        return keys[keep], counts[keep]
+    raise ValueError(op)
+
+
+_STREAM_OPS = {
+    "union", "intersect", "kmers_subtract", "counters_subtract",
+    "reverse_kmers_subtract", "reverse_counters_subtract",
+}
+
+
+def stream_simple_op(op: str, db1: str, db2: str, out: str,
+                     mode: str | None = None, out_params=None,
+                     block_records: int = DEFAULT_BLOCK,
+                     in1_cut=(None, None), in2_cut=(None, None)) -> int:
+    """Bounded-memory two-database set operation -> KMC1-format DB (what
+    kmc_tools writes for simple ops).  in1_cut/in2_cut: per-input (ci, cx)
+    applied at the cursor (the reference filters inside the db readers).
+    Returns output record count."""
+    from ..tools.db_ops import DEFAULT_COUNTER_MODE, OutputParams
+
+    if op not in _STREAM_OPS:
+        raise ValueError(op)
+    if op.startswith("reverse_"):
+        return stream_simple_op(op[len("reverse_"):], db2, db1, out,
+                                mode=mode, out_params=out_params,
+                                block_records=block_records,
+                                in1_cut=in2_cut, in2_cut=in1_cut)
+    r1 = DbStreamReader(db1, block_records,
+                        cutoff_min=in1_cut[0], cutoff_max=in1_cut[1])
+    try:
+        r2 = DbStreamReader(db2, block_records,
+                            cutoff_min=in2_cut[0], cutoff_max=in2_cut[1])
+    except BaseException:
+        r1.close()
+        raise
+    if r1.info.kmer_len != r2.info.kmer_len:
+        r1.close()
+        r2.close()
+        raise ValueError("k-mer length mismatch")
+    mode = mode or DEFAULT_COUNTER_MODE.get(op, "sum")
+    if out_params is None:
+        from ..tools.db_ops import default_output_params, effective_input_cut
+
+        op_params = default_output_params(
+            [db1, db2], [effective_input_cut(db1, in1_cut),
+                         effective_input_cut(db2, in2_cut)])
+    else:
+        op_params = out_params
+    kb = r1.info.kmer_bytes
+
+    from ..tools.db_ops import tools_counter_size, tools_lut_prefix_len
+
+    # the reference sizes the output LUT from the INPUT headers (it
+    # streams, so the output count is unknown upfront) — same here
+    k = r1.info.kmer_len
+    info = DbInfo(
+        kmer_len=k,
+        counter_size=tools_counter_size(op_params.cutoff_max,
+                                        op_params.counter_max),
+        lut_prefix_len=tools_lut_prefix_len(
+            k, [r1.info.n_unique_stored, r2.info.n_unique_stored]),
+        cutoff_min=op_params.cutoff_min,
+        cutoff_max=op_params.cutoff_max,
+        both_strands=r1.info.both_strands,
+        version=KMC1_VER,
+    )
+    w = StreamingKmc1Writer(out, info)
+    with r1, r2:
+        for keys, counts in merge_key_streams(
+                r1.key_blocks(), r2.key_blocks(), op, mode):
+            keep = ((counts >= op_params.cutoff_min)
+                    & (counts <= op_params.cutoff_max))
+            w.put_block(
+                _kmers_of(keys[keep], kb),
+                np.minimum(counts[keep], op_params.counter_max))
+    w.close()
+    return w.n
+
+
+def stream_dump(db: str, out_path: str,
+                block_records: int = DEFAULT_BLOCK,
+                in_cut=(None, None)) -> int:
+    """Bounded-memory sorted text dump (kmc_tools transform db dump -s)."""
+    from .dump import dump_records_bytes
+
+    r = DbStreamReader(db, block_records,
+                       cutoff_min=in_cut[0], cutoff_max=in_cut[1])
+    n = 0
+    with r, open(out_path, "wb") as f:
+        for kmers, counts in r.blocks():
+            if len(counts):
+                for part in dump_records_bytes(kmers, counts,
+                                               r.info.kmer_len):
+                    f.write(part)
+            n += len(counts)
+    return n
+
+
+def stream_transform(db: str, out: str, out_params, *, set_value=None,
+                     compact=False, block_records: int = DEFAULT_BLOCK,
+                     in_cut=(None, None)) -> int:
+    """Bounded-memory single-input transform (sort/reduce/compact/
+    set_counts) -> KMC1 DB; mirrors db_ops.transform_* semantics."""
+    r = DbStreamReader(db, block_records,
+                       cutoff_min=in_cut[0], cutoff_max=in_cut[1])
+    from ..tools.db_ops import tools_counter_size, tools_lut_prefix_len
+
+    k = r.info.kmer_len
+    kb = r.info.kmer_bytes
+    info = DbInfo(
+        kmer_len=k,
+        counter_size=tools_counter_size(out_params.cutoff_max,
+                                        out_params.counter_max,
+                                        counter_value=set_value),
+        lut_prefix_len=tools_lut_prefix_len(k, [r.info.n_unique_stored]),
+        cutoff_min=out_params.cutoff_min,
+        cutoff_max=out_params.cutoff_max,
+        both_strands=r.info.both_strands,
+        version=KMC1_VER,
+    )
+    w = StreamingKmc1Writer(out, info)
+    with r:
+        for keys, counts in r.key_blocks():
+            if compact:
+                # filter runs on the ORIGINAL counters; stored counter
+                # clamps to counter_max=1 (kmc1_db_writer.h add_kmer)
+                keep = ((counts >= out_params.cutoff_min)
+                        & (counts <= out_params.cutoff_max))
+                keys = keys[keep]
+                counts = np.ones(len(keys), np.uint32)
+            elif set_value is not None:
+                # overwritten counters are written verbatim, like the
+                # in-memory transform_set_counts (no cutoff re-filter)
+                counts = np.full(len(keys), set_value, np.uint32)
+            else:
+                keep = ((counts >= out_params.cutoff_min)
+                        & (counts <= out_params.cutoff_max))
+                keys, counts = keys[keep], counts[keep]
+            w.put_block(_kmers_of(keys, kb),
+                        np.minimum(counts, out_params.counter_max))
+    w.close()
+    return w.n
+
+
+def stream_histogram(db: str, out_path: str, cutoff_min: int = 1,
+                     cutoff_max: int | None = None,
+                     block_records: int = DEFAULT_BLOCK,
+                     in_cut=(None, None)) -> None:
+    """Bounded-memory counter histogram (histogram_writer.h:20-84)."""
+    r = DbStreamReader(db, block_records,
+                       cutoff_min=in_cut[0], cutoff_max=in_cut[1])
+    info = r.info
+    if cutoff_max is None:
+        cutoff_max = min(info.cutoff_max, 10000)
+        if info.counter_size:
+            cutoff_max = min(cutoff_max, (1 << (8 * info.counter_size)) - 1)
+    hist = np.zeros(cutoff_max + 2, np.int64)
+    with r:
+        for _, counts in r.key_blocks():
+            c = np.minimum(counts.astype(np.int64), cutoff_max + 1)
+            hist += np.bincount(c, minlength=cutoff_max + 2)
+    with open(out_path, "w") as f:
+        for v in range(cutoff_min, cutoff_max + 1):
+            f.write(f"{v}\t{hist[v]}\n")
+
+
+def stream_compare(db1: str, db2: str,
+                   block_records: int = DEFAULT_BLOCK) -> bool:
+    """Bounded-memory record-level equality (operations.h:258)."""
+    r1 = DbStreamReader(db1, block_records)
+    try:
+        r2 = DbStreamReader(db2, block_records)
+    except BaseException:
+        r1.close()
+        raise
+    if r1.info.kmer_len != r2.info.kmer_len:
+        r1.close()
+        r2.close()
+        return False
+    with r1, r2:
+        a, b = _Peekable(r1.key_blocks()), _Peekable(r2.key_blocks())
+        while True:
+            a.ensure()
+            b.ensure()
+            a_done = a.done and len(a.keys) == 0
+            b_done = b.done and len(b.keys) == 0
+            if a_done or b_done:
+                return a_done and b_done
+            n = min(len(a.keys), len(b.keys))
+            if not (np.array_equal(a.keys[:n], b.keys[:n])
+                    and np.array_equal(a.counts[:n], b.counts[:n])):
+                return False
+            a.keys, a.counts = a.keys[n:], a.counts[n:]
+            b.keys, b.counts = b.keys[n:], b.counts[n:]

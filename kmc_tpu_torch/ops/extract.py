@@ -19,6 +19,7 @@ card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INVALID_SIG = 0xFFFFFFFF
@@ -142,3 +143,42 @@ def _unpack_device(packed: torch.Tensor, mask: torch.Tensor):
     bits = torch.stack([(m >> (7 - j)) & 1 for j in range(8)],
                        dim=1).reshape(-1)
     return c4, 1 - bits
+
+
+_NORM_TABLES: dict = {}
+
+
+def _norm_table_on(sig_len: int, device) -> torch.Tensor:
+    """signatures.norm_table(sig_len) as an int64 tensor on device (the
+    canonical allowed norm of each of the 4^m m-mers, 4^m where neither
+    strand is allowed), kept per (sig_len, device)."""
+    key = (sig_len, str(device))
+    if key not in _NORM_TABLES:
+        from ..signatures import norm_table
+
+        _NORM_TABLES[key] = torch.from_numpy(
+            norm_table(sig_len).astype(np.int64)).to(device)
+    return _NORM_TABLES[key]
+
+
+def sig_of_word_cols(wr, *, k: int, sig_len: int) -> torch.Tensor:
+    """Signature of each canonical k-mer row, recomputed from its W lane
+    columns (int64 tensors of u32 values, most significant first,
+    right-aligned), as kmc_tpu's extract.sig_of_word_cols: the minimum over
+    the k-mer's m-mers of the canonical norm (4^m where none is allowed),
+    each m-mer's norm one lookup in signatures.norm_table.  It equals the
+    splitter's per-position signature, since a k-mer and its reverse
+    complement hold the same set of canonical m-mer norms."""
+    W = len(wr)
+    mask_m = (1 << (2 * sig_len)) - 1
+    table = _norm_table_on(sig_len, wr[0].device)
+    best = torch.full_like(wr[0], 1 << (2 * sig_len))
+    for j in range(k - sig_len + 1):
+        shift = 2 * (k - sig_len - j)  # m-mer j = (kmer >> shift) & mask
+        lane = W - 1 - shift // 32
+        off = shift % 32
+        v = wr[lane] >> off
+        if off + 2 * sig_len > 32 and lane > 0:
+            v = v | (wr[lane - 1] << (32 - off))
+        best = torch.minimum(best, table[v & mask_m])
+    return best

@@ -4,8 +4,11 @@ Kernel: csrc/extract.cu (C entries kmc_ingest_bounds and kmc_ingest_mask),
 the Hopper counterpart of the executable that kmc_tpu builds per batch from
 kmc_tpu/ops/store.py::_ingest_prefix_bounds / ::_ingest_prefix_fused (feed
 decode, the splitter scan of pallas_extract2d, signature -> bin, key
-columns, append) under the "prefix" policy; see the source for the design
-and bound.  One launch per batch (the boundary-delta feed adds one short
+columns, append) under the "prefix" policy, and, given a signature -> bin
+map, of ::_ingest_greedy_bounds / ::_ingest_greedy_fused under the "greedy"
+policy (the greedy entry); either may add the batch's signatures to a
+stage-0 histogram (kmc_tpu's _stage0_accum_bounds / _fused) from the same
+decode.  See the source for the design and bound.  One launch per batch (the boundary-delta feed adds one short
 single-block launch for the delta prefix sum) writes rows [n_used, n_used +
 s) of the store's columns in place and adds to the occurrence and
 super-k-mer accumulators on the device, so the host never waits.
@@ -84,18 +87,30 @@ def _key_cols_from(bins, lanes, valid, *, fuse: bool, r0: int):
 
 def bin_and_append(sig, lanes, key_cols, counts, n_used: int, occ_acc,
                    skm_acc, prev_sig, *, sig_len: int, prefix_bits: int,
-                   fuse: bool, r0: int) -> torch.Tensor:
+                   fuse: bool, r0: int, sig_map=None,
+                   hist=None) -> torch.Tensor:
     """Signature -> bin, key columns written at rows [n_used, n_used + s),
     counts set to 1 there (when the column exists), occ_acc / skm_acc
     added to in place; returns the new prev_sig (int32[1]).  Mirrors
-    kmc_tpu/ops/store.py::_ingest_binning under the "prefix" policy."""
+    kmc_tpu/ops/store.py::_ingest_binning: the "prefix" policy, or with
+    sig_map (int32[4^m + 1]) the "greedy" one (_sig_to_bin).  hist (int32
+    [4^m + 1]) gains 1 at the signature of each valid position (kmc_tpu's
+    _stage0_core)."""
     valid = sig != _DEAD
     # a super-k-mer starts at each valid position whose signature
     # differs from its predecessor's (KMC splitter.cpp:557-677)
     prev = torch.cat([prev_sig, sig[:-1]])
     skm_acc += (valid & (sig != prev)).sum()
     occ_acc += valid.sum()
-    bins = i32_to_u32(sig) >> (2 * sig_len - prefix_bits)
+    sig64 = i32_to_u32(sig)
+    if hist is not None:
+        live = sig64[valid]
+        hist.index_add_(0, live, torch.ones_like(live, dtype=hist.dtype))
+    if sig_map is None:
+        bins = sig64 >> (2 * sig_len - prefix_bits)
+    else:
+        slot = torch.clamp(sig64, max=sig_map.shape[0] - 1)
+        bins = sig_map[torch.where(valid, slot, 0)].to(torch.int64)
     cols = _key_cols_from(bins, lanes, valid, fuse=fuse, r0=r0)
     lo, hi = n_used, n_used + sig.shape[0]
     for dst, src in zip(key_cols, cols):
@@ -107,7 +122,8 @@ def bin_and_append(sig, lanes, key_cols, counts, n_used: int, occ_acc,
 
 def ingest_plain(buf, tail_start, key_cols, counts, n_used: int, occ_acc,
                  skm_acc, prev_sig, *, s: int, k: int, sig_len: int,
-                 both_strands: bool, prefix_bits: int, fuse: bool):
+                 both_strands: bool, prefix_bits: int, fuse: bool,
+                 sig_map=None, hist=None):
     """The fused ingest's plain version: decode (tail_start None: the
     packed+mask feed), splitter scan, bin and append; same contract as
     ingest()."""
@@ -121,13 +137,13 @@ def ingest_plain(buf, tail_start, key_cols, counts, n_used: int, occ_acc,
     return bin_and_append(sig, lanes, key_cols, counts, n_used, occ_acc,
                           skm_acc, prev_sig, sig_len=sig_len,
                           prefix_bits=prefix_bits, fuse=fuse,
-                          r0=k - 16 * (W - 1))
+                          r0=k - 16 * (W - 1), sig_map=sig_map, hist=hist)
 
 
 # -- the kernel's wrapper --
 
 def _check(buf, tail_start, key_cols, counts, n_used, occ_acc, skm_acc,
-           prev_sig, s, k, sig_len, prefix_bits, fuse):
+           prev_sig, s, k, sig_len, prefix_bits, fuse, sig_map, hist):
     dev = buf.device
     if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
         raise ValueError("buf must be a contiguous 1-D uint8 tensor")
@@ -137,10 +153,17 @@ def _check(buf, tail_start, key_cols, counts, n_used, occ_acc, skm_acc,
         raise ValueError(f"k={k} / sig_len={sig_len} out of range")
     W = (k + 15) // 16
     r0 = k - 16 * (W - 1)
-    if not 0 <= prefix_bits <= 2 * sig_len or (
-            fuse and 2 * r0 + prefix_bits + 1 > 32):
+    if sig_map is None and (not 0 <= prefix_bits <= 2 * sig_len or (
+            fuse and 2 * r0 + prefix_bits + 1 > 32)):
         raise ValueError(f"prefix_bits={prefix_bits} / fuse={fuse} do not "
                          f"fit k={k}")
+    for name, t in (("sig_map", sig_map), ("hist", hist)):
+        if t is not None and (
+                t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous() or t.device != dev
+                or t.numel() != (1 << (2 * sig_len)) + 1):
+            raise ValueError(f"{name} must be a contiguous int32[4^sig_len + "
+                             "1] tensor on the feed's device")
     L = batch_len(s, k)
     if tail_start is None:
         if buf.numel() != L // 4 + L // 8:
@@ -173,7 +196,9 @@ def _check(buf, tail_start, key_cols, counts, n_used, occ_acc, skm_acc,
 def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
            occ_acc: torch.Tensor, skm_acc: torch.Tensor,
            prev_sig: torch.Tensor, *, s: int, k: int, sig_len: int,
-           both_strands: bool, prefix_bits: int, fuse: bool) -> torch.Tensor:
+           both_strands: bool, prefix_bits: int, fuse: bool,
+           sig_map: torch.Tensor | None = None,
+           hist: torch.Tensor | None = None) -> torch.Tensor:
     """Ingest one batch into a store's columns, in place.
 
     buf: the batch's feed as a contiguous uint8 tensor, the boundary-delta
@@ -184,19 +209,25 @@ def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
     n_used + s) are written; occ_acc and skm_acc (int64 scalars) are added
     to; prev_sig (int32[1], the signature before position 0) is read, and
     the new one (the signature of position s - 1) is returned in a tensor
-    of its own.
+    of its own.  The bin is the signature's top prefix_bits bits (the
+    prefix entry), or with sig_map (int32[4^sig_len + 1], -1 slots already
+    replaced by the dead bin) sig_map[min(sig, 4^sig_len)] (the greedy
+    entry; prefix_bits is not read).  hist (int32[4^sig_len + 1]), when
+    given, gains 1 at the signature of each valid position.
 
     A CPU feed takes the plain version; a CUDA feed launches the kernel on
-    the current stream and counts the launch in ingest.launches, and a
-    launch of the packed+mask entry (kmc_ingest_mask) in
-    ingest.mask_launches too; anything else raises."""
+    the current stream and counts the launch in ingest.launches, a launch
+    of the packed+mask entry (kmc_ingest_mask) in ingest.mask_launches, of
+    the greedy entry in ingest.greedy_launches and with a histogram in
+    ingest.hist_launches too; anything else raises."""
     _check(buf, tail_start, key_cols, counts, n_used, occ_acc, skm_acc,
-           prev_sig, s, k, sig_len, prefix_bits, fuse)
+           prev_sig, s, k, sig_len, prefix_bits, fuse, sig_map, hist)
     if buf.device.type == "cpu":
         return ingest_plain(buf, tail_start, key_cols, counts, n_used,
                             occ_acc, skm_acc, prev_sig, s=s, k=k,
                             sig_len=sig_len, both_strands=both_strands,
-                            prefix_bits=prefix_bits, fuse=fuse)
+                            prefix_bits=prefix_bits, fuse=fuse,
+                            sig_map=sig_map, hist=hist)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
     from .. import _build
@@ -206,13 +237,17 @@ def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
     prev_out = torch.empty(1, dtype=torch.int32, device=dev)
     cols = (ctypes.c_void_p * len(key_cols))(*[c.data_ptr() for c in key_cols])
     counts_ptr = counts.data_ptr() if counts is not None else None
+    map_ptr = sig_map.data_ptr() if sig_map is not None else None
+    map_len = sig_map.numel() if sig_map is not None else 0
+    hist_ptr = hist.data_ptr() if hist is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     if tail_start is None:
         err = lib.kmc_ingest_mask(
             dev.index, buf.data_ptr(), buf.numel(), cols, len(key_cols),
             n_used, counts_ptr, occ_acc.data_ptr(), skm_acc.data_ptr(),
             prev_sig.data_ptr(), prev_out.data_ptr(), s, k, sig_len,
-            int(both_strands), prefix_bits, int(fuse), stream)
+            int(both_strands), prefix_bits, int(fuse), map_ptr, map_len,
+            hist_ptr, stream)
     else:
         scratch = torch.empty(2 * ((s + TILE - 1) // TILE + 2),
                               dtype=torch.int32, device=dev)
@@ -221,13 +256,19 @@ def ingest(buf: torch.Tensor, tail_start, key_cols, counts, n_used: int,
             scratch.data_ptr(), cols, len(key_cols), n_used, counts_ptr,
             occ_acc.data_ptr(), skm_acc.data_ptr(), prev_sig.data_ptr(),
             prev_out.data_ptr(), s, k, sig_len, int(both_strands),
-            prefix_bits, int(fuse), stream)
+            prefix_bits, int(fuse), map_ptr, map_len, hist_ptr, stream)
     _build.check(lib, err, "fused ingest launch")
     ingest.launches += 1
     if tail_start is None:
         ingest.mask_launches += 1
+    if sig_map is not None:
+        ingest.greedy_launches += 1
+    if hist is not None:
+        ingest.hist_launches += 1
     return prev_out
 
 
 ingest.launches = 0
 ingest.mask_launches = 0
+ingest.greedy_launches = 0
+ingest.hist_launches = 0

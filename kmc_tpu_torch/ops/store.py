@@ -1,9 +1,23 @@
 """Device-resident k-mer store: kmc_tpu/ops/store.py's DeviceKmerStore on torch.
 
 The store holds one row per ingested start position, in key columns only:
-under the "prefix" signature->bin policy the bin id is the top bits of the
-signature, and it rides the spare top bits of k-mer lane 0 whenever
-2*(k mod 16) + bin_bits <= 32 (fused layout), else it is a column of its own.
+the bin id rides the spare top bits of k-mer lane 0 whenever they hold it
+(fused layout), else it is a column of its own.  Two signature->bin
+policies, as in kmc_tpu:
+
+  prefix    the bin is the top bits of the signature (plus a special bin);
+  greedy    KMC's sampled-histogram greedy map (signatures.py::
+            build_signature_map, s_mapper.h:141-235).  Eager greedy takes
+            the map up front and bins every batch through it (the fused
+            ingest's greedy entry).  Deferred greedy (the default,
+            KMC_TPU_GREEDY_DEFER) ingests under the prefix layout of 512
+            bins, folds the stage-0 histogram into the first ingest
+            launches, and remaps at finalize: the signature is recomputed
+            from each unique k-mer's lanes (ops/extract.py::
+            sig_of_word_cols), mapped to its greedy bin and the rows
+            re-sorted by the greedy key with the grouping-sort kernel (the
+            collect).  Both write eager greedy's bytes.
+
 Dead rows (windows holding a sentinel) are all-ones in every column and sort
 after every live row.  Counts are implicitly 1 until the first compaction
 (or external append) materializes a counts column.
@@ -58,7 +72,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .extract import i32_to_u32, u32_to_i32
+from .extract import i32_to_u32, sig_of_word_cols, u32_to_i32
 from .ingest_kernel import ingest
 from .sort_kernel import radix_sort_columns
 
@@ -82,6 +96,30 @@ def prefix_sig_map(sig_len: int, prefix_bits: int) -> np.ndarray:
     msize = (1 << (2 * sig_len)) + 1
     shift = 2 * sig_len - prefix_bits
     return (np.arange(msize, dtype=np.int64) >> shift).astype(np.int32)
+
+
+def greedy_fuse(k: int, n_used_bins: int) -> bool:
+    """Whether the greedy layout fuses the bin into lane 0 (mirrors
+    store.greedy_fuse)."""
+    W = (k + 15) // 16
+    r0 = k - 16 * (W - 1)
+    return 2 * r0 + int(n_used_bins + 1).bit_length() <= 32
+
+
+def greedy_defer_default() -> bool:
+    """KMC_TPU_GREEDY_DEFER (default on, kmc_tpu's knob): greedy stores
+    ingest under the prefix layout and remap at finalize."""
+    return os.environ.get("KMC_TPU_GREEDY_DEFER", "1") not in (
+        "0", "false", "no")
+
+
+def _fused_cols(bins, lanes, *, fuse: bool, r0: int):
+    """Key columns (int32 bit views) of live rows from bins and lanes
+    (int64 u32 values)."""
+    if fuse:
+        return [u32_to_i32((bins << (2 * r0)) | lanes[0])] + [
+            u32_to_i32(w) for w in lanes[1:]]
+    return [u32_to_i32(bins)] + [u32_to_i32(w) for w in lanes]
 
 
 def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True,
@@ -402,16 +440,21 @@ class DeviceKmerStore:
 
     def __init__(self, capacity_rows: int, *, k: int, sig_len: int,
                  both_strands: bool, n_bins: int, map_mode: str = "prefix",
+                 sig_map: np.ndarray | None = None,
+                 greedy_defer: bool | None = None,
                  initial_rows: int | None = None,
                  spill_budget_bytes: int | None = None, device="cuda"):
         """capacity_rows caps the store; it starts at initial_rows (default
         capacity_rows) and grows 4x on demand up to the cap.  Spilled runs
         whose bytes cross spill_budget_bytes (the -m plan's) are re-merged;
-        None sets no budget."""
-        if map_mode != "prefix":
-            raise NotImplementedError(
-                f"signature_map_policy={map_mode!r}: only 'prefix' is ported "
-                "(greedy policy: ROADMAP A7)")
+        None sets no budget.
+
+        map_mode "prefix": n_bins is rounded down to a power of two.
+        map_mode "greedy": sig_map (int32[4^sig_len + 1], from
+        signatures.build_signature_map, -1 for unreachable slots) routes each
+        signature; n_bins is not read.  Deferred greedy (greedy_defer,
+        default KMC_TPU_GREEDY_DEFER) may take the map later (set_sig_map,
+        before finalize or a checkpoint); eager greedy needs it here."""
         self.device = resolve_device(device)
         self.max_capacity = int(capacity_rows)
         self.k = int(k)
@@ -419,11 +462,37 @@ class DeviceKmerStore:
         self.both_strands = bool(both_strands)
         self.W = (self.k + 15) // 16
         self.r0 = self.k - 16 * (self.W - 1)
-        self.prefix_bits, self.fuse = prefix_bin_bits(self.k, self.sig_len,
-                                                      n_bins)
-        self.n_used_bins = (1 << self.prefix_bits) + 1  # + special bin
-        self.n_dead_bin = self.n_used_bins
-        self.n_cols = self.W if self.fuse else self.W + 1
+        self.map_mode = map_mode
+        self._sig_map = None  # greedy: the map on the device, -1 -> dead bin
+        if map_mode == "prefix":
+            self.prefix_bits, self.fuse = prefix_bin_bits(
+                self.k, self.sig_len, n_bins)
+            self.n_used_bins = (1 << self.prefix_bits) + 1  # + special bin
+            self._g_defer = False
+        elif map_mode == "greedy":
+            self._g_defer = (greedy_defer_default() if greedy_defer is None
+                             else bool(greedy_defer))
+            self.prefix_bits = 0
+            self.n_used_bins = self.fuse = None  # set with the map
+            if sig_map is not None:
+                self.set_sig_map(sig_map)
+            elif not self._g_defer:
+                raise ValueError("eager greedy map_mode requires sig_map "
+                                 "upfront")
+        else:
+            raise ValueError(f"unknown map_mode {map_mode!r}")
+        # the rows' layout: the output's, except under deferred greedy,
+        # whose rows keep the prefix layout of 512 bins until finalize
+        if self._g_defer:
+            self._ing_prefix_bits, self._ing_fuse = prefix_bin_bits(
+                self.k, self.sig_len, 512)
+            self._ing_n_bins = (1 << self._ing_prefix_bits) + 1
+        else:
+            self._ing_prefix_bits = self.prefix_bits
+            self._ing_fuse = self.fuse
+            self._ing_n_bins = self.n_used_bins
+        self.n_dead_bin = self._ing_n_bins
+        self.n_cols = self.W if self._ing_fuse else self.W + 1
         self.capacity = min(self.max_capacity,
                             int(initial_rows or self.max_capacity))
         self.key_cols = self._alloc_cols(self.capacity)
@@ -446,6 +515,7 @@ class DeviceKmerStore:
         self.t_remerge = 0.0
         self.t_host_merge = 0.0
         self.merge_launches = 0  # grouping-sort launches of the merges
+        self.collect_launches = 0  # grouping-sort launches of the collect
         self.finalize_route = None  # "device", "replay" or "host"
 
     def _alloc_cols(self, rows: int):
@@ -502,28 +572,35 @@ class DeviceKmerStore:
                        requirements=("C", "W"))  # copies only when needed
         return torch.from_numpy(a.view(np.int32)).to(self.device)
 
-    def ingest_boundaries(self, buf, tail_start: int, *, s: int):
+    def ingest_boundaries(self, buf, tail_start: int, *, s: int,
+                          hist: torch.Tensor | None = None):
         """Ingest one batch in the boundary-delta feed format
-        (io/native.py::pack_codes_boundaries)."""
-        self._ingest(buf, int(tail_start), s)
+        (io/native.py::pack_codes_boundaries).  hist (int32[4^sig_len + 1]
+        on the store's device), when given, gains the batch's stage-0
+        signature histogram from the same launch (the deferred greedy
+        fold; kmc_tpu's stage0_accum on the same feed)."""
+        self._ingest(buf, int(tail_start), s, hist)
 
-    def ingest_fused(self, buf, *, s: int):
+    def ingest_fused(self, buf, *, s: int, hist: torch.Tensor | None = None):
         """Ingest one batch in the packed+mask feed format
-        (io/native.py::pack_codes_fused)."""
-        self._ingest(buf, None, s)
+        (io/native.py::pack_codes_fused); hist as in ingest_boundaries."""
+        self._ingest(buf, None, s, hist)
 
-    def _ingest(self, buf, tail_start, s: int):
+    def _ingest(self, buf, tail_start, s: int, hist=None):
         """The fused ingest (ops/ingest_kernel.py: decode, splitter scan,
-        bin, append; mirrors kmc_tpu's _ingest_prefix_bounds /
-        _ingest_prefix_fused) of one batch, in place at rows [n_used,
-        n_used + s).  The feed reaches the device after _make_room, so no
-        batch is held there while the store compacts."""
+        bin, append; mirrors kmc_tpu's _ingest_prefix_* and, for an eager
+        greedy store, _ingest_greedy_* through the kernel's greedy entry)
+        of one batch, in place at rows [n_used, n_used + s).  The feed
+        reaches the device after _make_room, so no batch is held there
+        while the store compacts."""
         self._make_room(s)
+        eager = self.map_mode == "greedy" and not self._g_defer
         self.prev_sig = ingest(
             self._to_device(buf), tail_start, self.key_cols, self.counts,
             self.n_used, self.occ_acc, self.skm_acc, self.prev_sig, s=s,
             k=self.k, sig_len=self.sig_len, both_strands=self.both_strands,
-            prefix_bits=self.prefix_bits, fuse=self.fuse)
+            prefix_bits=self._ing_prefix_bits, fuse=self._ing_fuse,
+            sig_map=self._sig_map if eager else None, hist=hist)
         self.n_used += s
         self.total_appended_rows += s
         self._since_compact += s
@@ -677,9 +754,12 @@ class DeviceKmerStore:
     def _host_merge(self):
         """Merge the spilled runs and the compacted store by (bin, k-mer)
         on the store's device and copy the groups to host RAM (kmc_tpu's
-        _host_merge, prefix policy).  Returns (bins u32, lanes (n, W) u32,
-        totals u64) of the valid groups in key order.  The store is
-        consumed."""
+        _host_merge).  Returns (bins u32, lanes (n, W) u32, totals u64) of
+        the valid groups in the output's key order: under deferred greedy
+        each unique k-mer is remapped to its greedy bin on the host and
+        the groups re-sorted there (kmc_tpu's host mirror of its collect;
+        this route exists because they do not fit the device).  The store
+        is consumed."""
         self.compact()
         n = self.n_used
         runs = self.spilled + [([c[:n] for c in self.key_cols],
@@ -690,14 +770,24 @@ class DeviceKmerStore:
         cols, totals, _ = merge_runs_to_host(runs, self.n_cols, self.device)
         self.merge_launches += radix_sort_columns.launches - launches
         del runs
-        if self.fuse:
+        if self._ing_fuse:
             bins = cols[0] >> np.uint32(2 * self.r0)
             lanes = [cols[0] & np.uint32((1 << (2 * self.r0)) - 1)] + cols[1:]
         else:
             bins, lanes = cols[0], cols[1:]
-        valid = (bins < self.n_used_bins) & (totals > 0)
+        valid = (bins < self._ing_n_bins) & (totals > 0)
         lanes = np.stack([x[valid] for x in lanes], axis=1)
-        return bins[valid].astype(np.uint32), lanes, totals[valid]
+        bins, totals = bins[valid].astype(np.uint32), totals[valid]
+        if self._g_defer:
+            from ..signatures import sig_of_lanes_numpy
+
+            sm = self._sig_map.cpu().numpy()
+            sig = sig_of_lanes_numpy(lanes, self.k, self.sig_len)
+            bins = sm[np.minimum(sig, np.uint32(len(sm) - 1))].astype(
+                np.uint32)
+            order = np.lexsort(tuple(lanes[:, ::-1].T) + (bins,))
+            bins, lanes, totals = bins[order], lanes[order], totals[order]
+        return bins, lanes, totals
 
     def _finalize_records_host(self, *, cutoff_min, cutoff_max, counter_max,
                                lut_prefix_len, counter_size):
@@ -752,8 +842,60 @@ class DeviceKmerStore:
 
     def host_sig_map(self) -> np.ndarray:
         """The signature->bin map as int32[4^sig_len + 1] (for the .kmc_pre
-        footer)."""
+        footer; a greedy map with its -1 slots routed to the dead bin, as
+        kmc_tpu's host_sig_map returns it)."""
+        if self.map_mode == "greedy":
+            self._require_sig_map()
+            return self._sig_map.cpu().numpy()
         return prefix_sig_map(self.sig_len, self.prefix_bits)
+
+    def set_sig_map(self, sig_map: np.ndarray):
+        """Install (or, under deferred greedy, replace) the greedy map
+        (mirrors kmc_tpu's set_sig_map): -1 slots go to the dead bin
+        n_used_bins, and the output layout follows greedy_fuse."""
+        if self.map_mode != "greedy":
+            raise ValueError("set_sig_map applies to greedy map_mode only")
+        if self._sig_map is not None and not self._g_defer:
+            raise ValueError("eager greedy stores cannot change their map")
+        sig_map = np.asarray(sig_map)
+        self.n_used_bins = int(sig_map.max()) + 1
+        self.fuse = greedy_fuse(self.k, self.n_used_bins)
+        sm = np.where(sig_map < 0, self.n_used_bins, sig_map)
+        self._sig_map = torch.from_numpy(
+            np.ascontiguousarray(sm, dtype=np.int32)).to(self.device)
+
+    def _require_sig_map(self):
+        if self.map_mode == "greedy" and self._sig_map is None:
+            raise RuntimeError(
+                "deferred greedy store: call set_sig_map() before finalize/"
+                "checkpoint (the stage-0 histogram feeds it)")
+
+    def _reduce_live(self):
+        """The live rows grouped, in the output's key order: (key columns,
+        int64 totals mod 2^32, zero groups dropped).  Under deferred greedy
+        the groups (rows of the prefix layout) are remapped and re-sorted by
+        the greedy key (the collect; kmc_tpu's _greedy_collect /
+        _greedy_remap_store): the signature is recomputed from each
+        k-mer's lanes, mapped through the greedy map, and the greedy key
+        columns sorted with the totals riding along by the grouping-sort
+        kernel."""
+        cols, counts = self._live_rows()
+        reps, totals = _group_reduce(cols, counts, self.n_cols)
+        del cols, counts
+        if not self._g_defer:
+            return reps, totals
+        _, wr = _split_bins(reps, fuse=self._ing_fuse, r0=self.r0)
+        del reps
+        sig = sig_of_word_cols(wr, k=self.k, sig_len=self.sig_len)
+        slot = torch.clamp(sig, max=self._sig_map.shape[0] - 1)
+        gbins = self._sig_map[slot].to(torch.int64)
+        del sig, slot
+        g_cols = _fused_cols(gbins, wr, fuse=self.fuse, r0=self.r0)
+        del gbins, wr
+        launches = radix_sort_columns.launches
+        out = radix_sort_columns(g_cols + [u32_to_i32(totals)], len(g_cols))
+        self.collect_launches += radix_sort_columns.launches - launches
+        return out[:-1], i32_to_u32(out[-1])
 
     def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
                          counter_max: int, lut_prefix_len: int,
@@ -763,6 +905,7 @@ class DeviceKmerStore:
         n_below, n_above)).  Spilled runs are replayed into the store
         first; when they do not fit, the host merge and the host completer
         take over (kmc_tpu's route).  The store is consumed."""
+        self._require_sig_map()
         replayed = bool(self.spilled)
         try:
             self._replay_spills()
@@ -774,9 +917,7 @@ class DeviceKmerStore:
                 counter_size=counter_size)
         self.finalize_route = "replay" if replayed else "device"
         t0 = time.perf_counter()
-        cols, counts = self._live_rows()
-        reps, totals = _group_reduce(cols, counts, self.n_cols)
-        del cols, counts
+        reps, totals = self._reduce_live()
         bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
         rec, lut, stats = _completer(
             bins, wr, totals, cutoff_min=cutoff_min, cutoff_max=cutoff_max,
@@ -802,6 +943,7 @@ class DeviceKmerStore:
         count arithmetics as finalize_records: the device and replay
         routes take u32 group totals (a group that wraps to 0 is dropped),
         the host route u64 totals.  The store is consumed."""
+        self._require_sig_map()
         replayed = bool(self.spilled)
         try:
             self._replay_spills()
@@ -819,9 +961,7 @@ class DeviceKmerStore:
                     (len(bins), int(below.sum()), int(above.sum())))
         self.finalize_route = "replay" if replayed else "device"
         t0 = time.perf_counter()
-        cols, counts = self._live_rows()
-        reps, totals = _group_reduce(cols, counts, self.n_cols)
-        del cols, counts
+        reps, totals = self._reduce_live()
         bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
         keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
                                cutoff_max=cutoff_max, n_bins=self.n_used_bins)
@@ -844,6 +984,11 @@ class DeviceKmerStore:
         """Compact, then write the store to `path`.npz and each spilled run
         to `path`.spill{i}.npz, with kmc_tpu's keys and types, so either
         package resumes it."""
+        self._require_sig_map()
+        sig_map = np.zeros(0, np.int32)
+        if self.map_mode == "greedy":  # in its -1 form, as kmc_tpu saves it
+            sm = self.host_sig_map()
+            sig_map = np.where(sm == self.n_used_bins, -1, sm).astype(np.int32)
         self.compact()
         n = self.n_used
         cols = np.stack([_host_u32(c[:n]) for c in self.key_cols])
@@ -865,9 +1010,11 @@ class DeviceKmerStore:
             both_strands=np.asarray(self.both_strands),
             n_used_bins=np.asarray(self.n_used_bins),
             prefix_bits=np.asarray(self.prefix_bits),
-            map_mode=np.asarray("prefix"),
-            greedy_defer=np.asarray(False),
-            sig_map=np.zeros(0, np.int32),
+            map_mode=np.asarray(self.map_mode),
+            # deferred greedy rows keep the prefix layout; the loader
+            # rebuilds it whatever KMC_TPU_GREEDY_DEFER says then
+            greedy_defer=np.asarray(self._g_defer),
+            sig_map=sig_map,
             spilled=np.asarray(len(self.spilled)),
         )
         for i, (run_cols, run_counts) in enumerate(self.spilled):
@@ -883,10 +1030,13 @@ class DeviceKmerStore:
         device = resolve_device(device)
         data = np.load(path if str(path).endswith(".npz") else f"{path}.npz")
         map_mode = str(data["map_mode"])
-        if map_mode != "prefix":
-            raise NotImplementedError(
-                f"a {map_mode!r}-policy checkpoint: only 'prefix' is ported "
-                "(greedy policy: ROADMAP A7)")
+        if map_mode == "prefix":
+            kw = dict(n_bins=1 << int(data["prefix_bits"]))
+        else:
+            # checkpoints from before the deferred mode hold eager rows
+            kw = dict(n_bins=int(data["n_used_bins"]), sig_map=data["sig_map"],
+                      greedy_defer=bool(data["greedy_defer"])
+                      if "greedy_defer" in data else False)
         n = len(data["counts"])
 
         def r32(x):  # kmc_tpu rounds store sizes up to 32 rows
@@ -895,7 +1045,7 @@ class DeviceKmerStore:
         store = cls(r32(max(capacity_rows, 2 * max(n, 1))),
                     k=int(data["k"]), sig_len=int(data["sig_len"]),
                     both_strands=bool(data["both_strands"]),
-                    n_bins=1 << int(data["prefix_bits"]),
+                    map_mode=map_mode, **kw,
                     initial_rows=r32(max(2 * n, 1 << 10)), device=device)
         store.append(tuple(data["cols"]), data["counts"],
                      count_occurrences=False)

@@ -5,11 +5,14 @@ results and fluent setters (KMC's kmc_runner.h:100-255), over kmc_tpu's
 single-device routes:
 
   device store (the default, k >= 14)
+    stage 0  (eager greedy signature map only) as on the host-bucket route;
     stage 1  parse -> BatchStream -> pack_codes_boundaries -> device store
              ingest (fused ingest kernel), compacting (grouping-sort
              kernel) whenever the store fills and spilling the compacted
              store to host RAM (under the -m budget) when compaction frees
-             too little;
+             too little; deferred greedy (the greedy policy's default)
+             folds stage 0 into the first ingest launches and builds the
+             map after the last;
     stage 2  finalize_records (spill replay, or the runs merged on the
              device and the host completer) -> Kmc2DbWriter, or for KFF
              output and -w the words-path finalize -> KffWriter;
@@ -35,9 +38,6 @@ k-mer), on every route.
 Stage-1 device-store state checkpoints to .npz files in kmc_tpu's format
 (save_stage1_checkpoint / resume_stage1_checkpoint), so a checkpoint
 written by either package resumes in the other.
-
-The greedy signature map of the device store (ROADMAP A7) raises
-NotImplementedError; nothing falls back silently.
 """
 from __future__ import annotations
 
@@ -148,15 +148,6 @@ class Stage1Params:
         if not self.input_files:
             raise ValueError("no input files")
 
-    def check_ported(self):
-        """Raise NotImplementedError for options this package does not
-        count yet."""
-        if (self.signature_map_policy != "prefix" and self.device_store
-                and self.kmer_len >= MIN_DEVICE_K):
-            raise NotImplementedError(
-                f"signature_map_policy={self.signature_map_policy!r}: the "
-                "device store's greedy policy is ROADMAP A7")
-
 
 @_fluent
 @dataclass
@@ -239,7 +230,6 @@ class Runner:
     # ---------------- stage 1 ----------------
     def run_stage1(self, params: Stage1Params) -> Stage1Results:
         params.validate()
-        params.check_ported()
         self._s1 = params
         t0 = time.perf_counter()
         results = Stage1Results()
@@ -345,15 +335,20 @@ class Runner:
         _run_stage0) -> the greedy signature -> bin map."""
         from .ops.sortcount import stage0_accum
 
+        t0 = time.perf_counter()
         m = params.signature_len
         hist = torch.zeros(map_size(m), dtype=torch.int64, device=self.device)
         for batch in self._batches(params, max_bytes=defs.STATS_SAMPLE_BYTES):
             stage0_accum(self._codes_on_device(batch), hist,
                          s=params.batch_positions, k=params.kmer_len,
                          sig_len=m)
+        t1 = time.perf_counter()
         self._sig_map = build_signature_map(
             hist.cpu().numpy().astype(np.uint64), m, params.n_bins)
         self._n_used_bins = n_used_bins(self._sig_map)
+        if params.verbose:
+            print(f"[stage0] signature map: {time.perf_counter() - t0:.2f}s "
+                  f"(histogram {t1 - t0:.2f}s)")
 
     def _run_stage1_host_buckets(self, params: Stage1Params):
         """Unique rows of each batch (splitter scan + grouping sort on the
@@ -410,8 +405,13 @@ class Runner:
     def _run_stage1_device_store(self, params: Stage1Params,
                                  results: Stage1Results):
         """Parse on the host, count on the device (mirrors kmc_tpu's
-        _run_stage1_device_store for the prefix policy)."""
-        from .ops.store import DeviceKmerStore
+        _run_stage1_device_store).  Greedy policy: eager greedy runs stage
+        0 first and bins every batch through the map; deferred greedy
+        (KMC_TPU_GREEDY_DEFER, the default) adds the signatures of the
+        first KMC_TPU_STAGE0_SAMPLE_POSITIONS positions (2^27 by default,
+        whole batches) to the stage-0 histogram in the ingest launches
+        themselves and builds the map after the last batch."""
+        from .ops.store import DeviceKmerStore, greedy_defer_default
 
         k, m = params.kmer_len, params.signature_len
         s = params.batch_positions
@@ -421,10 +421,25 @@ class Runner:
         # the card holds the whole store from the start; on the CPU (tests)
         # it starts small and grows
         init_rows = capacity if self.device.type == "cuda" else 2 * s
+        greedy = params.signature_map_policy == "greedy"
+        fold = greedy and greedy_defer_default()
+        store_kw = dict(map_mode=params.signature_map_policy,
+                        n_bins=params.n_bins)
+        if greedy:
+            store_kw["greedy_defer"] = fold
+            if not fold:  # eager: the map before the first batch
+                self._run_stage0(params)
+                store_kw["sig_map"] = self._sig_map
         store = DeviceKmerStore(
             capacity, k=k, sig_len=m, both_strands=params.canonical_kmers,
-            n_bins=params.n_bins, initial_rows=init_rows,
-            spill_budget_bytes=plan.spill_budget_bytes, device=self.device)
+            initial_rows=init_rows, spill_budget_bytes=plan.spill_budget_bytes,
+            device=self.device, **store_kw)
+        # the deferred fold's histogram, on the device, and its sample cap
+        hist = (torch.zeros(map_size(m), dtype=torch.int32, device=self.device)
+                if fold else None)
+        sample_cap = int(os.environ.get("KMC_TPU_STAGE0_SAMPLE_POSITIONS",
+                                        str(1 << 27)))
+        sampled = 0
         total_bytes = sum(
             Path(p).stat().st_size for p in params.input_files if Path(p).exists()
         )
@@ -450,15 +465,19 @@ class Runner:
         errors: list = []
 
         def worker():
+            nonlocal sampled
             try:
                 while True:
                     item = q.get()
                     if item is None:
                         return
+                    h = hist if fold and sampled < sample_cap else None
                     if item[0] == "b":
-                        store.ingest_boundaries(item[1], item[2], s=s)
+                        store.ingest_boundaries(item[1], item[2], s=s, hist=h)
                     else:
-                        store.ingest_fused(item[1], s=s)
+                        store.ingest_fused(item[1], s=s, hist=h)
+                    if h is not None:
+                        sampled += s
             except BaseException as e:  # noqa: BLE001 - re-raised after join
                 errors.append(e)
                 while q.get() is not None:  # unblock the producer
@@ -493,6 +512,13 @@ class Runner:
             raise errors[0]
         if ppo is not None:
             ppo.set_progress(100)
+        if fold:
+            t0 = time.perf_counter()
+            counts = hist.cpu().numpy().view(np.uint32).astype(np.uint64)
+            store.set_sig_map(build_signature_map(counts, m, params.n_bins))
+            if params.verbose:
+                print(f"[stage0] folded signature map ({sampled} sampled "
+                      f"positions): {time.perf_counter() - t0:.2f}s")
         if params.verbose:
             print(f"[stage1] on {device_name(self.device)}: "
                   f"host(parse+pack): {t_host:.2f}s "
@@ -516,6 +542,7 @@ class Runner:
                     n_remerges=store.n_remerges, t_remerge=store.t_remerge,
                     t_host_merge=store.t_host_merge,
                     merge_launches=store.merge_launches,
+                    collect_launches=store.collect_launches,
                     finalize_route=store.finalize_route)
 
     # ---------------- checkpoint / resume ----------------
@@ -546,7 +573,6 @@ class Runner:
         params.signature_len = int(meta["signature_len"])
         params.canonical_kmers = bool(meta["canonical"])
         params.validate()
-        params.check_ported()
         self._s1 = params
         self._small_k = params.kmer_len < MIN_DEVICE_K
         self._n_reads = int(meta["n_reads"])

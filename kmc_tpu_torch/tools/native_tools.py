@@ -1,24 +1,27 @@
-"""ctypes bindings for the native streaming core (native/kmc_stream.cpp),
-the part the database API and kmc_dump call: the sorted-stream KMC1/KMC2
-dump (kst_dump) and the read-counter lookups of KMCFile's random-access
-mode (kst_counters_for_seq, _wide, _binned).  The port's copy of that part
-of kmc_tpu/tools/native_tools.py; the set operations, expressions,
-histogram and compare of kmc_tools come with the tools CLI.
+"""ctypes bindings for the native streaming tools core
+(native/kmc_stream.cpp): sorted-stream KMC1/KMC2/KFF readers, k-way bin
+merge, set-operation merges, expressions, histograms, compare, KMC1 record
+and LUT emission, the text dump and the read-counter lookups of KMCFile's
+random-access mode, all in C++.  The port's copy of
+kmc_tpu/tools/native_tools.py.
 
-The library is built on first use from the same source with the same g++
-command into the port's own build directory (kmc_tpu_torch/_build/native/),
-keyed on a hash of the source, as io/native.py builds kmc_host.cpp.  A
-failed build raises: the port has no silent fallback for its native
-runtime.  Inputs outside the native scope (KFF files, k-mers out of
-range) return None, and KMC_TPU_NATIVE_TOOLS=0 selects the NumPy paths of
-the callers (kmc_tpu's switch, which the tests use to hold both paths
-against each other).
+KMC's analogues: CKMC2DbReader (kmc_tools/kmc2_db_reader.h:400-560), the
+operations.h sorted merges, and CKMC1DbWriter.  The library is built on
+first use from the same source with the same g++ command into the port's
+own build directory (kmc_tpu_torch/_build/native/), keyed on a hash of the
+source, as io/native.py builds kmc_host.cpp.  A failed build raises: the
+port has no silent fallback for its native runtime.  Inputs outside the
+native scope (KFF shapes it does not stream, non-default encodings) return
+None so the callers take their NumPy paths, and KMC_TPU_NATIVE_TOOLS=0
+selects those paths everywhere (kmc_tpu's switch, which the tests use to
+hold both paths against each other).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -29,9 +32,40 @@ from ..formats.kmc_db import KMC1_VER, PRE_MARKER, read_pre_meta
 
 _lock = threading.Lock()
 _lib = None
+_threads_pending = None  # set_threads() called before the lib was built
+
+
+def set_threads(n: int | None):
+    """Worker-thread count for the chunk-parallel native drivers
+    (kst_op/kst_dump/kst_expr): None/0 = auto (hardware concurrency),
+    1 = serial, N = N threads — the kmc_tools global -t flag
+    (kmc_tools/kmc2_db_reader.h:400-560 runs its merge across -t too)."""
+    global _threads_pending
+    _threads_pending = 0 if n is None else int(n)
+    if _lib is not None:
+        _lib.kst_set_threads(_threads_pending)
+
+
+def get_threads() -> int:
+    """The last set_threads value (0 = auto/unset) — consumers like the
+    filter pipeline read it to decide whether to run staged threads."""
+    return 0 if _threads_pending is None else int(_threads_pending)
 
 _SRC = Path(__file__).resolve().parent.parent.parent / "native" / "kmc_stream.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build" / "native"
+
+OP_CODES = {
+    "copy": 0,
+    "union": 1,
+    "intersect": 2,
+    "kmers_subtract": 3,
+    "counters_subtract": 4,
+}
+MODE_CODES = {
+    "min": 0, "max": 1, "sum": 2, "diff": 3,
+    "left": 4, "from_db1": 4, "right": 5, "from_db2": 5,
+}
+
 
 class _InputSpec(ctypes.Structure):
     _fields_ = [
@@ -56,6 +90,13 @@ def _enabled() -> bool:
     return os.environ.get("KMC_TPU_NATIVE_TOOLS", "1") != "0"
 
 
+def available() -> bool:
+    """True when the native core is enabled (its library is then built,
+    or the build raises) — the gate callers use before shaping work for
+    the native fast paths."""
+    return _enabled() and get_lib() is not None
+
+
 def _load() -> ctypes.CDLL:
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
     so = _BUILD_DIR / f"libkmc_stream-{digest}.so"
@@ -74,8 +115,28 @@ def _load() -> ctypes.CDLL:
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     isp = ctypes.POINTER(_InputSpec)
+    lib.kst_op.restype = ctypes.c_int64
+    lib.kst_op.argtypes = [isp, isp, ctypes.c_int32, ctypes.c_int32,
+                           ctypes.c_char_p, ctypes.c_uint32,
+                           ctypes.c_uint64, ctypes.c_uint32,
+                           ctypes.c_uint32, ctypes.c_uint64,
+                           ctypes.c_uint64, ctypes.c_uint64,
+                           ctypes.c_int64, u64p]
     lib.kst_dump.restype = ctypes.c_int64
     lib.kst_dump.argtypes = [isp, ctypes.c_char_p, ctypes.c_int32]
+    lib.kst_expr.restype = ctypes.c_int64
+    lib.kst_expr.argtypes = [isp, ctypes.POINTER(ctypes.c_int32),
+                             ctypes.c_int32, ctypes.c_char_p,
+                             ctypes.c_uint32, ctypes.c_uint64,
+                             ctypes.c_uint32, ctypes.c_uint32,
+                             ctypes.c_uint64, ctypes.c_uint64,
+                             ctypes.c_uint64, u64p]
+    lib.kst_histogram.restype = ctypes.c_int64
+    lib.kst_histogram.argtypes = [isp, u64p, ctypes.c_uint64]
+    lib.kst_compare.restype = ctypes.c_int32
+    lib.kst_compare.argtypes = [isp, isp]
+    lib.kst_set_threads.restype = None
+    lib.kst_set_threads.argtypes = [ctypes.c_int32]
     lib.kst_counters_for_seq.restype = ctypes.c_int64
     lib.kst_counters_for_seq.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_int32,
@@ -99,16 +160,48 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _load()
+            lib = _load()
+            if _threads_pending is not None:
+                lib.kst_set_threads(_threads_pending)
+            _lib = lib
         return _lib
 
 
 class _NativeInput:
-    """An InputSpec of a KMC database plus the arrays keeping its pointers
-    alive (the KFF form of the spec serves kmc_tools' operations)."""
+    """An InputSpec plus the Python objects keeping its pointers alive."""
 
     def __init__(self, path: str, cut=(None, None)):
         ci, cx = cut
+        if str(path).endswith(".kff"):
+            # KFF raw sections: ordered (internally sorted) 'r' sections
+            # streamed as cursors, like formats/streaming._KffSectionCursor
+            # (reference: kff_db_reader.h:1226-1455)
+            from ..formats.kff import read_kff_meta
+
+            m = read_kff_meta(str(path))
+            if (m.m_sections or m.max_in_block != 1 or not m.ordered):
+                raise ValueError("KFF shape outside native scope")
+            self.kff_meta = m
+            self.sec_offsets = np.array([o for o, _ in m.sections],
+                                        np.uint64)
+            self.sec_counts = np.array([n for _, n in m.sections],
+                                       np.uint64)
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            self.spec = _InputSpec(
+                suf_path=str(path).encode(),
+                luts=None,
+                n_sections=len(m.sections),
+                lut_size=0,
+                kmer_len=m.k,
+                lut_prefix_len=0,
+                counter_size=m.counter_size,
+                ci=int(ci) if ci else 1,
+                cx=int(cx) if cx is not None and cx else (1 << 64) - 1,
+                format=1,
+                sec_offsets=self.sec_offsets.ctypes.data_as(u64p),
+                sec_counts=self.sec_counts.ctypes.data_as(u64p),
+            )
+            return
         self.info, luts, _ = read_pre_meta(str(path), mmap_luts=True)
         if self.info.version == KMC1_VER:
             # mmap'd KMC1 LUTs carry no trailing n_recs sentinel: load the
@@ -137,25 +230,173 @@ class _NativeInput:
             sec_counts=None,
         )
 
+    @property
+    def kmer_len(self) -> int:
+        return int(self.spec.kmer_len)
+
 
 def _eligible(path) -> bool:
-    """KMC .kmc_pre/.kmc_suf databases; anything else (KFF files among
-    them) stays on the caller's Python path."""
+    """KMC .kmc_pre/.kmc_suf databases, or ordered max=1 KFF files without
+    minimizer sections (the same subset the streaming Python path covers);
+    anything else stays on the Python fallbacks."""
+    p = str(path)
+    if p.endswith(".kff"):
+        try:
+            from ..formats.kff import read_kff_meta
+
+            m = read_kff_meta(p)
+            return (not m.m_sections and m.max_in_block == 1 and m.ordered)
+        except (OSError, ValueError, NotImplementedError):
+            return False
     try:
-        with open(str(path) + ".kmc_pre", "rb") as f:
+        with open(p + ".kmc_pre", "rb") as f:
             return f.read(4) == PRE_MARKER
     except OSError:
         return False
 
 
 def _open_inputs(paths_cuts):
-    if not _enabled():
+    if get_lib() is None or not _enabled():
         return None
-    get_lib()
     try:
         return [_NativeInput(p, cut) for p, cut in paths_cuts]
     except (OSError, ValueError, NotImplementedError):
         return None
+
+
+def run_op(op: str, db1, out: str, info_out, out_params, db2=None,
+           mode: str | None = None, in1_cut=(None, None),
+           in2_cut=(None, None), set_value: int | None = None,
+           kff_out: dict | None = None):
+    """One streamed operation -> KMC1 database at `out`, or a KFF file
+    when kff_out is given (dict with canonical/encoding/counter_size; the
+    Python KffWriter wraps the header/index/footer around the natively
+    appended raw record section — reference: kff_db_writer.h).
+
+    info_out: the output DbInfo (kmer_len/counter_size/lut_prefix_len/
+    cutoffs/both_strands already resolved by the caller — identical fields
+    to the Python writers').  Returns the record count, or None when the
+    native path is unavailable/ineligible (caller falls back)."""
+    if not _eligible(db1) or (db2 is not None and not _eligible(db2)):
+        return None
+    specs = _open_inputs([(db1, in1_cut)] +
+                         ([(db2, in2_cut)] if db2 is not None else []))
+    if specs is None:
+        return None
+    lib = get_lib()
+    op_code = OP_CODES["copy" if db2 is None else op]
+    mode_code = MODE_CODES.get((mode or "sum").lower(), 2)
+    sv = -1 if set_value is None else int(set_value)
+    if kff_out is not None:
+        from ..formats.kff import DEFAULT_ENCODING, KffWriter
+
+        k = specs[0].kmer_len
+        cs = int(kff_out["counter_size"])
+        w = KffWriter(
+            str(out),
+            canonical=bool(kff_out["canonical"]),
+            k=k,
+            counter_size=cs,
+            min_count=int(out_params.cutoff_min),
+            max_count=int(out_params.cutoff_max),
+            encoding=int(kff_out.get("encoding", DEFAULT_ENCODING)),
+        )
+        data_off = w.begin_streamed_section()
+        hist = np.zeros(1, np.uint64)  # unused in KFF mode
+        n = lib.kst_op(
+            ctypes.byref(specs[0].spec),
+            ctypes.byref(specs[1].spec) if db2 is not None else None,
+            op_code, mode_code, str(out).encode(), 1, data_off,
+            0, cs,
+            int(out_params.cutoff_min), int(out_params.cutoff_max),
+            int(out_params.counter_max), sv,
+            hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        if n < 0:
+            raise OSError(f"native tools op failed on {db1}")
+        w.end_streamed_section(int(n), (k + 3) // 4 + cs)
+        w.close()
+        return int(n)
+    lut_size = 1 << (2 * info_out.lut_prefix_len)
+    hist = np.zeros(lut_size, np.uint64)
+    n = lib.kst_op(
+        ctypes.byref(specs[0].spec),
+        ctypes.byref(specs[1].spec) if db2 is not None else None,
+        op_code, mode_code,
+        (str(out) + ".kmc_suf").encode(), 0, 0,
+        info_out.lut_prefix_len,
+        info_out.counter_size,
+        int(out_params.cutoff_min),
+        int(out_params.cutoff_max),
+        int(out_params.counter_max),
+        sv,
+        hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+    )
+    if n < 0:
+        raise OSError(f"native tools op failed on {db1}")
+    from ..formats.streaming import write_kmc1_pre
+
+    write_kmc1_pre(str(out), info_out, hist, int(n))
+    return int(n)
+
+
+def run_expr(leaf_paths_cuts, prog, out: str, info_out, out_params,
+             kff_out: dict | None = None):
+    """Single-pass complex-expression evaluation (kst_expr): the whole
+    parenthesized set algebra as one pull-based merger network over the
+    leaf streams — no intermediate databases (the reference's
+    CInput-over-CInput trees, expression_node.h:26-196).
+
+    leaf_paths_cuts: [(db_path, (ci, cx))] one per LEAF OCCURRENCE.
+    prog: flat int32 node program, 4 per node [kind, a, b, mode]; kind 0 =
+    leaf (a = leaf index), 1..4 = union/intersect/kmers_subtract/
+    counters_subtract over child node ids; root last.  Returns record
+    count or None (fallback)."""
+    for p, _ in leaf_paths_cuts:
+        if not _eligible(p):
+            return None
+    specs = _open_inputs(leaf_paths_cuts)
+    if specs is None:
+        return None
+    lib = get_lib()
+    spec_arr = (_InputSpec * len(specs))(*[s.spec for s in specs])
+    prog_arr = (ctypes.c_int32 * len(prog))(*prog)
+    if kff_out is not None:
+        from ..formats.kff import DEFAULT_ENCODING, KffWriter
+
+        k = specs[0].kmer_len
+        cs = int(kff_out["counter_size"])
+        w = KffWriter(
+            str(out), canonical=bool(kff_out["canonical"]), k=k,
+            counter_size=cs, min_count=int(out_params.cutoff_min),
+            max_count=int(out_params.cutoff_max),
+            encoding=int(kff_out.get("encoding", DEFAULT_ENCODING)))
+        data_off = w.begin_streamed_section()
+        hist = np.zeros(1, np.uint64)
+        n = lib.kst_expr(
+            spec_arr, prog_arr, len(prog) // 4, str(out).encode(), 1,
+            data_off, 0, cs, int(out_params.cutoff_min),
+            int(out_params.cutoff_max), int(out_params.counter_max),
+            hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        if n < 0:
+            raise OSError("native expression evaluation failed")
+        w.end_streamed_section(int(n), (k + 3) // 4 + cs)
+        w.close()
+        return int(n)
+    lut_size = 1 << (2 * info_out.lut_prefix_len)
+    hist = np.zeros(lut_size, np.uint64)
+    n = lib.kst_expr(
+        spec_arr, prog_arr, len(prog) // 4,
+        (str(out) + ".kmc_suf").encode(), 0, 0,
+        info_out.lut_prefix_len, info_out.counter_size,
+        int(out_params.cutoff_min), int(out_params.cutoff_max),
+        int(out_params.counter_max),
+        hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+    if n < 0:
+        raise OSError("native expression evaluation failed")
+    from ..formats.streaming import write_kmc1_pre
+
+    write_kmc1_pre(str(out), info_out, hist, int(n))
+    return int(n)
 
 
 def run_dump(db, out_path: str, in_cut=(None, None),
@@ -173,6 +414,24 @@ def run_dump(db, out_path: str, in_cut=(None, None),
     if n < 0:
         raise OSError(f"native dump failed on {db}")
     return int(n)
+
+
+def run_histogram(db, cutoff_max: int, in_cut=(None, None)):
+    """Counter histogram as uint64[cutoff_max + 2] (last slot = clamped
+    overflow), or None (fallback)."""
+    if not _eligible(db):
+        return None
+    specs = _open_inputs([(db, in_cut)])
+    if specs is None:
+        return None
+    hist = np.zeros(int(cutoff_max) + 2, np.uint64)
+    n = get_lib().kst_histogram(
+        ctypes.byref(specs[0].spec),
+        hist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        len(hist))
+    if n < 0:
+        raise OSError(f"native histogram failed on {db}")
+    return hist
 
 
 def build_key_index16(keys: np.ndarray) -> np.ndarray:
@@ -195,6 +454,8 @@ def counters_for_seq(seq_bytes: bytes, k: int, both_strands: bool,
     if k > 32 or not _enabled():
         return None
     lib = get_lib()
+    if lib is None:
+        return None
     n = len(seq_bytes) - k + 1
     if n <= 0:
         return np.zeros(0, np.uint32)
@@ -249,6 +510,8 @@ def counters_for_seq_wide(seq_bytes: bytes, k: int, both_strands: bool,
     if not (32 < k <= 256) or not _enabled():
         return None
     lib = get_lib()
+    if lib is None:
+        return None
     n = len(seq_bytes) - k + 1
     if n <= 0:
         return np.zeros(0, np.uint32)
@@ -323,6 +586,8 @@ def counters_for_seq_binned(seq_bytes: bytes, k: int, both_strands: bool,
     if not _enabled() or (sig_len and k < sig_len) or k < 2 or k > 256:
         return None
     lib = get_lib()
+    if lib is None:
+        return None
     n = len(seq_bytes) - k + 1
     if n <= 0:
         return np.zeros(0, np.uint32)
@@ -356,3 +621,19 @@ def counters_for_seq_binned(seq_bytes: bytes, k: int, both_strands: bool,
     if got != n:
         return None
     return out
+
+
+def run_compare(db1, db2):
+    """Record-level equality; True/False, or None (fallback)."""
+    if not _eligible(db1) or not _eligible(db2):
+        return None
+    specs = _open_inputs([(db1, (None, None)), (db2, (None, None))])
+    if specs is None:
+        return None
+    if specs[0].kmer_len != specs[1].kmer_len:
+        return False
+    r = get_lib().kst_compare(ctypes.byref(specs[0].spec),
+                              ctypes.byref(specs[1].spec))
+    if r < 0:
+        raise OSError("native compare failed")
+    return bool(r)

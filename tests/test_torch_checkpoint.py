@@ -112,8 +112,13 @@ def test_checkpoint_file_matches_kmc_tpu(reads, tmp_path):
 
 
 def test_greedy_checkpoint_raises(tmp_path):
+    """Greedy checkpoints load (tests/test_torch_greedy.py); a deferred
+    greedy store that has no map yet refuses to save one, as kmc_tpu's
+    does."""
     path = str(tmp_path / "ck")
-    np.savez_compressed(path, cols=np.zeros((2, 0), np.uint32),
-                        counts=np.zeros(0, np.uint32), map_mode="greedy")
-    with pytest.raises(NotImplementedError, match="A7"):
-        DeviceKmerStore.load_checkpoint(path, 1 << 12, device="cpu")
+    st = DeviceKmerStore(1 << 12, k=K, sig_len=9, both_strands=True,
+                         n_bins=512, map_mode="greedy", greedy_defer=True,
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="set_sig_map"):
+        st.save_checkpoint(path)
+    assert not Path(path + ".npz").exists()

@@ -49,7 +49,11 @@ for name in ("kmc_tpu_torch.api",
              "kmc_tpu_torch.microbench_sort",
              "kmc_tpu_torch.ops.extract_kernel",
              "kmc_tpu_torch.ops.ingest_kernel",
-             "kmc_tpu_torch.ops.store"):
+             "kmc_tpu_torch.ops.store",
+             "kmc_tpu_torch.tools_cli",
+             "kmc_tpu_torch.tools.db_ops",
+             "kmc_tpu_torch.tools.complex_ops",
+             "kmc_tpu_torch.tools.fastq_filter"):
     assert name in names, name
 """
 
@@ -63,9 +67,20 @@ for name in ("kmc_tpu_torch.api", "kmc_tpu_torch.dump_cli",
              "kmc_tpu_torch.formats.streaming", "kmc_tpu_torch.io.bam",
              "kmc_tpu_torch.io.native", "kmc_tpu_torch.io.readers",
              "kmc_tpu_torch.develop", "kmc_tpu_torch.py_kmc_api",
-             "kmc_tpu_torch.signatures", "kmc_tpu_torch.tools.native_tools"):
+             "kmc_tpu_torch.signatures", "kmc_tpu_torch.tools.native_tools",
+             "kmc_tpu_torch.tools_cli", "kmc_tpu_torch.tools.db_ops",
+             "kmc_tpu_torch.tools.complex_ops",
+             "kmc_tpu_torch.tools.fastq_filter"):
     importlib.import_module(name)
 from kmc_tpu_torch.api import KMCFile, KmerAPI, KMCFileInfo
+from kmc_tpu_torch.formats.streaming import (StreamingKmc1Writer,
+    merge_key_streams, stream_compare, stream_dump, stream_histogram,
+    stream_simple_op, stream_transform, write_kmc1_pre)
+from kmc_tpu_torch.formats.kff import KffWriter
+assert hasattr(KffWriter, "store_block_section")
+from kmc_tpu_torch.tools.native_tools import (run_compare, run_expr,
+    run_histogram, run_op, set_threads)
+from kmc_tpu_torch.tools_cli import main as tools_main
 from kmc_tpu_torch.formats import dump_db_file, read_db
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("torch", "jax", "jaxlib", "kmc_tpu"))
@@ -88,8 +103,10 @@ print("ok")
 
 def test_reader_modules_load_no_torch():
     """The host modules (the readers, the API, kmc_dump, BAM parsing,
-    develop mode, the py_kmc_api shim) load neither torch, jax nor
-    kmc_tpu; the package's counting names load torch on first use."""
+    develop mode, the py_kmc_api shim, kmc_tools with its database algebra,
+    filter and the writer half of the streaming module) load neither
+    torch, jax nor kmc_tpu; the package's counting names load torch on
+    first use."""
     r = subprocess.run([sys.executable, "-c", _READERS_PROBE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -101,7 +118,7 @@ def test_no_jax_or_kmc_tpu_import():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 20  # every module of the package was imported
+    assert n_modules >= 41  # every module of the package was imported
 
 
 def _no_card(monkeypatch):

@@ -95,11 +95,31 @@ def _feed_batch(k, s, seed, dense):
     return torch.from_numpy(buf), ts
 
 
-def _check_ingest(k, both, s, n_used, feeds, with_counts, device="cuda"):
+def _greedy_map(seed):
+    """A greedy signature -> bin map of 512 bins (-1 slots routed to the
+    dead bin, as a store holds it) from a random sparse histogram."""
+    from kmc_tpu_torch.signatures import build_signature_map, map_size
+
+    rng = np.random.default_rng(seed)
+    hist = np.zeros(map_size(M), np.uint64)
+    hist[rng.integers(0, map_size(M), 3000)] = rng.integers(1, 1000, 3000)
+    sig_map = build_signature_map(hist, M, 512)
+    nb = int(sig_map.max()) + 1
+    return torch.from_numpy(np.where(sig_map < 0, nb, sig_map).astype(
+        np.int32)), nb
+
+
+def _check_ingest(k, both, s, n_used, feeds, with_counts, device="cuda",
+                  greedy=False, with_hist=False):
     from kmc_tpu_torch.ops.ingest_kernel import ingest, ingest_plain
-    from kmc_tpu_torch.ops.store import prefix_bin_bits
+    from kmc_tpu_torch.ops.store import greedy_fuse, prefix_bin_bits
+    from kmc_tpu_torch.signatures import map_size
 
     prefix_bits, fuse = prefix_bin_bits(k, M, 512)
+    sig_map = None
+    if greedy:
+        sig_map, nb = _greedy_map(k)
+        prefix_bits, fuse = 0, greedy_fuse(k, nb)
     n_cols = (k + 15) // 16 + (0 if fuse else 1)
     cap = n_used + len(feeds) * s + 5
     rng = np.random.default_rng(k + s)
@@ -113,19 +133,28 @@ def _check_ingest(k, both, s, n_used, feeds, with_counts, device="cuda"):
         occ = torch.tensor(2**32 - 7, dtype=torch.int64, device=dev)
         skm = torch.tensor(5, dtype=torch.int64, device=dev)
         prev = torch.tensor([-1], dtype=torch.int32, device=dev)
+        hist = (torch.full((map_size(M),), 3, dtype=torch.int32, device=dev)
+                if with_hist else None)
+        dev_map = sig_map.to(dev) if greedy else None
         rows = n_used
         for buf, ts in feeds:
             fn = ingest_plain if dev == "cpu" else ingest
-            before = ingest.launches
+            before = (ingest.launches, ingest.greedy_launches,
+                      ingest.hist_launches)
             prev = fn(buf.to(dev), ts, cols, counts, rows, occ, skm, prev,
                       s=s, k=k, sig_len=M, both_strands=both,
-                      prefix_bits=prefix_bits, fuse=fuse)
+                      prefix_bits=prefix_bits, fuse=fuse, sig_map=dev_map,
+                      hist=hist)
             if dev != "cpu":
-                assert ingest.launches == before + 1
+                assert (ingest.launches, ingest.greedy_launches,
+                        ingest.hist_launches) == (
+                    before[0] + 1, before[1] + int(greedy),
+                    before[2] + int(with_hist))
             rows += s
         torch.cuda.synchronize(device)
         state[dev] = [t.cpu() for t in cols + ([counts] if with_counts
-                                               else []) + [occ, skm, prev]]
+                                               else []) + [occ, skm, prev]
+                      + ([hist] if with_hist else [])]
     for got, want in zip(state[device], state["cpu"]):
         assert torch.equal(got, want)
 
@@ -141,6 +170,80 @@ def test_fused_ingest_matches_plain(k, both):
     feeds = [_feed_batch(k, s, seed=k, dense=False),
              _feed_batch(k, s, seed=k + 1, dense=True)]
     _check_ingest(k, both, s, n_used=1001, feeds=feeds, with_counts=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [14, 27, 33, 55])
+@pytest.mark.parametrize("with_hist", [False, True])
+def test_fused_ingest_greedy_entry_matches_plain(k, with_hist):
+    """The greedy entry (bin = map[min(sig, 4^m)]) over both feeds, with
+    and without the stage-0 histogram output, against ingest_plain."""
+    _need_card()
+    s = 3 * 2048 + 8
+    feeds = [_feed_batch(k, s, seed=k, dense=False),
+             _feed_batch(k, s, seed=k + 1, dense=True)]
+    _check_ingest(k, True, s, n_used=1001, feeds=feeds, with_counts=True,
+                  greedy=True, with_hist=with_hist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [27, 33])
+@pytest.mark.parametrize("both", [True, False])
+def test_fused_ingest_histogram_matches_plain(k, both):
+    """The prefix entry's stage-0 histogram output (the deferred greedy
+    fold) over both feeds and a tile edge, against ingest_plain's."""
+    _need_card()
+    for s in (3 * 2048 + 8, 1024):
+        feeds = [_feed_batch(k, s, seed=k + s, dense=False),
+                 _feed_batch(k, s, seed=k + s + 1, dense=True)]
+        _check_ingest(k, both, s, n_used=7, feeds=feeds, with_counts=False,
+                      with_hist=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("defer", ["1", "0"], ids=["deferred", "eager"])
+@pytest.mark.parametrize("genome_len,route", [(8000, "device"),
+                                              (20000, "replay"),
+                                              (60000, "host")])
+def test_greedy_count_on_card_matches_cpu(tmp_path, monkeypatch, defer,
+                                          genome_len, route):
+    """Greedy counts on the card write the CPU's bytes on every finalize
+    route; eager batches go through the greedy entry, deferred ones fold
+    the histogram into the prefix entry and collect with the radix sort."""
+    _need_card()
+    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+    from kmc_tpu_torch.ops.ingest_kernel import ingest
+
+    monkeypatch.setenv("KMC_TPU_GREEDY_DEFER", defer)
+    rng = np.random.default_rng(3)
+    genome = rng.integers(0, 4, genome_len)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "in.fastq", "wb") as f:
+        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        before = (ingest.greedy_launches, ingest.hist_launches)
+        r = Runner(device=dev)
+        r.run_stage1(Stage1Params(input_files=[str(tmp_path / "in.fastq")],
+                                  kmer_len=27, batch_positions=1 << 14,
+                                  device_store_rows=1 << 15,
+                                  signature_map_policy="greedy"))
+        store = r._store
+        r.run_stage2(Stage2Params(output_file_name=str(tmp_path / dev),
+                                  cutoff_min=1))
+        stats[dev] = (r.spill_stats["finalize_route"],
+                      ingest.greedy_launches - before[0],
+                      ingest.hist_launches - before[1])
+        if dev == "cuda" and defer == "1" and route != "host":
+            assert store.collect_launches == 1  # the collect's radix sort
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"cuda{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert stats["cuda"][0] == stats["cpu"][0] == route
+    n_batches = stats["cuda"][1] if defer == "0" else stats["cuda"][2]
+    assert n_batches >= 1 and stats["cpu"][1:] == (0, 0)
 
 
 @pytest.mark.gpu

@@ -99,15 +99,20 @@ def test_cli_json_and_db_identical(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(signature_map_policy="greedy"), "A7"),
+    (dict(signature_map_policy="greedy"), "A11b"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
+    """The greedy map counts on one device (tests/test_torch_greedy.py);
+    over shards it is still to come."""
     inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
     kw = dict(kw)
     k = kw.pop("k", 27)
     with pytest.raises(NotImplementedError, match=item):
-        count([inp], str(tmp_path / "db"), k=k, device="cpu", **kw)
+        distributed_count([inp], str(tmp_path / "db"), k=k,
+                          devices=["cpu"] * 2, **kw)
     assert not (tmp_path / "db.kmc_pre").exists()
+    count([inp], str(tmp_path / "one"), k=k, device="cpu", **kw)
+    assert (tmp_path / "one.kmc_pre").exists()
 
 
 @pytest.mark.parametrize("kw", [dict(output_type="kff"), dict(k=13),
@@ -155,8 +160,9 @@ def test_cli_routes_identical(tmp_path, args, sufs):
 
 
 def test_checkpoints_raise(tmp_path):
-    """Checkpoints work (tests/test_torch_checkpoint.py); what raises is a
-    save before stage 1 and a greedy-policy checkpoint (ROADMAP A7)."""
+    """Checkpoints work (tests/test_torch_checkpoint.py,
+    tests/test_torch_greedy.py); what raises is a save before stage 1 and a
+    checkpoint of a signature map policy neither package has."""
     import numpy as np
 
     runner = Runner(device="cpu")
@@ -164,9 +170,11 @@ def test_checkpoints_raise(tmp_path):
         runner.save_stage1_checkpoint(str(tmp_path / "ck"))
     ck = str(tmp_path / "ck")
     np.savez_compressed(ck, cols=np.zeros((2, 0), np.uint32),
-                        counts=np.zeros(0, np.uint32), map_mode="greedy")
+                        counts=np.zeros(0, np.uint32), map_mode="balanced",
+                        k=27, sig_len=9, both_strands=True, n_used_bins=512,
+                        sig_map=np.zeros(0, np.int32))
     np.savez(ck + ".meta", kmer_len=27, signature_len=9, canonical=True,
              n_reads=0)
     inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="map_mode"):
         runner.resume_stage1_checkpoint(ck, Stage1Params(input_files=[inp]))
