@@ -7,6 +7,7 @@
     python3 chip_smoke.py 14         # the other routes (with phases 4, 5)
     python3 chip_smoke.py 15         # -fbam, -fkmc, the readers (4, 5)
     python3 chip_smoke.py 16 17      # kmc_tools and the greedy map (4, 5)
+    python3 chip_smoke.py 18         # the sharded modes, the SPMD step (4, 5)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -108,10 +109,10 @@ Phases (any failure exits non-zero):
      each with its host parse alone, its launches (every -fkmc launch
      takes the fused ingest's packed+mask entry, no -fbam launch does)
      and its peak device memory.  Then the readers on phase 5's DB:
-     read_db, kmc_dump (native) == dump_db_file, OpenForListing over 10^6
-     k-mers == sorted_records, and OpenForRA in memory and on disk:
-     CheckKmer on 10^4 records and GetCountersForRead on 10^5 reads ==
-     the records;
+     read_db, kmc_dump (native) == dump_db_file, OpenForListing over
+     2 x 10^5 k-mers == sorted_records, and OpenForRA in memory and on
+     disk: CheckKmer on 10^4 records and GetCountersForRead on 2 x 10^4
+     reads == the records;
  16. kmc_tools (`python -m kmc_tpu_torch.tools_cli`, each operation in a
      process of its own): info, check, transform (histogram, dump -s,
      reduce -ci3, compact, set_counts), simple with all six operations in
@@ -136,15 +137,33 @@ Phases (any failure exits non-zero):
      on the prefix entry, the first 2^27 / 2^22 = 32 with the histogram,
      and the collect's one radix sort, eager the scan entry's stage 0 and
      every batch on the greedy entry; then the deferred run under
-     torch.profiler (device busy and idle share).
+     torch.profiler (device busy and idle share);
+ 18. the sharded count's other modes and the SPMD count step, 4 shards.
+     At mid size (phase 4's FASTQ, phase 8's knobs): small k (k = 13,
+     KMC1 and KFF), the greedy map (k = 27 and 32), KFF, -e and
+     --opt-out-size, and greedy and KFF on shards that spill: the card's
+     files and stats == the CPU shards', byte for byte; greedy and KFF
+     at k = 27 hold phase 4's (k-mer, count) set.  At full size (phase
+     5's FASTQ and knobs), timed with each card's peak memory and each
+     mode's launches (the greedy map on the greedy entry for every batch,
+     its stage 0 on the scan entry): greedy, KFF and --opt-out-size hold
+     phase 5's (k-mer, count) set and n_total, k = 13's DB == the
+     single-device small-k DB, -e estimates.  Then
+     make_distributed_count_step over phase 5's batches in rounds of 4:
+     every round bit-exact against the same step on the plain versions
+     of its kernels, the summed counts == phase 5's n_total, device time
+     a round from torch.profiler, the launches of the dense all-to-all,
+     the radix sort and the scan entry.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
-dense all-to-all, which no path calls, from phase 7; the 2-D scan entry
-from phase 14's full-size host-bucket run, the 1-D entry and the probes
-from their own entries in phase 10) and its times from phases 2, 3, 7 and
-10.  The fused ingest's row also holds the greedy entry's and the
-histogram's times from phase 2 and their launches in phase 17, the radix
-sort's row the collect's launches in phase 17.  Every device-store path
+dense all-to-all from phase 18's SPMD step; the 2-D scan entry from
+phase 14's full-size host-bucket run, the 1-D entry and the probes from
+their own entries in phase 10) and its times from phases 2, 3, 7 and 10.
+The fused ingest's row also holds the greedy entry's and the histogram's
+times from phase 2 and their launches in phase 17, and phase 18's
+sharded greedy and KFF launches; the radix sort's row the collect's
+launches in phase 17 and phase 18's; the scan entry's, the exchanges'
+rows phase 18's too.  Every device-store path
 must ingest through the fused kernel and never through the scan entry.  Shards sit on distinct cards when the machine has two or more,
 else all on card 0.  The last line is {"ok": true, "device": {...}}.
 Imports neither jax nor kmc_tpu.  Times come from CUDA events around
@@ -1272,6 +1291,19 @@ def _sync_all():
         torch.cuda.synchronize(i)
 
 
+def host_ms(fn, reps):
+    """Mean milliseconds of fn() over reps calls on the host clock, every
+    card synchronized, after one warm-up (CUDA events do not span
+    cards)."""
+    fn()
+    _sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync_all()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def phase_exchange():
     """The exchange kernel against its plain version on card 0, 4 shards of
     [4, 2^24, C]: bit-exact delivered prefixes, then times."""
@@ -1368,15 +1400,6 @@ def phase_exchange_cross_cards():
                                  f"sender {j} differs from plain")
     del outs, ref
 
-    def host_ms(fn, reps):
-        fn()
-        _sync_all()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        _sync_all()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     row_b = 4 * C
     peer = n_rows * (1 - np.eye(D, dtype=np.int64))  # rows crossing cards
     link_b = max(peer.sum(0).max(), peer.sum(1).max()) * row_b
@@ -1401,11 +1424,13 @@ def _same_db(a: Path, b: Path) -> bool:
 
 
 def run_sharded(fq, out, devices, **kw):
+    """distributed_count at k = 27 and -ci2 unless kw sets them: (stats,
+    wall seconds)."""
     from kmc_tpu_torch import distributed_count
 
     t0 = time.perf_counter()
-    stats = distributed_count([str(fq)], str(out), k=27, cutoff_min=2,
-                              devices=devices, **kw)
+    stats = distributed_count([str(fq)], str(out), devices=devices,
+                              **dict(dict(k=27, cutoff_min=2), **kw))
     if devices[0].startswith("cuda"):
         _sync_all()
     return stats, time.perf_counter() - t0
@@ -2325,7 +2350,9 @@ def phase_readers(full, records):
     out.unlink()
     del text
 
-    n_list = 10 ** 6
+    # the listing's and the read lookups' depths keep the script near half
+    # its time limit: both are timed per call of the API's Python
+    n_list = 2 * 10 ** 5
     f = KMCFile()
     t0 = time.perf_counter()
     if not f.OpenForListing(db5):
@@ -2344,17 +2371,18 @@ def phase_readers(full, records):
         got = (got << np.uint64(2)) | col
     if not (np.array_equal(got, keys5[:n_list])
             and np.array_equal(got_c, counts5[:n_list])):
-        raise SystemExit("phase 15: the listing's first 10^6 k-mers differ "
-                         "from sorted_records'")
+        raise SystemExit(f"phase 15: the listing's first {n_list} k-mers "
+                         "differ from sorted_records'")
     log(f"[phase 15] OpenForListing + {n_list} ReadNextKmer in "
         f"{t_list:.3f} s, in order, == sorted_records")
 
-    # 10^5 sampled reads: every window's count through the API, and from
+    # n_ra sampled reads: every window's count through the API, and from
     # the records by a search of the canonical 27-mer's key; 10^4 sampled
     # records through CheckKmer
+    n_ra = 2 * 10 ** 4
     genome, starts = bench_reads(1 << 23, 30, seed=0)
     rng = np.random.default_rng(15)
-    pick = starts[rng.choice(len(starts), 10 ** 5, replace=False)]
+    pick = starts[rng.choice(len(starts), n_ra, replace=False)]
     codes = genome[pick[:, None] + np.arange(150)[None, :]].astype(np.uint64)
     fwd = np.zeros((len(pick), 124), np.uint64)
     rev = np.zeros_like(fwd)
@@ -2396,7 +2424,7 @@ def phase_readers(full, records):
             raise SystemExit(f"phase 15: GetCountersForRead ({mode}) "
                              "disagrees with the records")
         log(f"[phase 15] OpenForRA {mode}: open {t_open:.3f} s, 10^4 "
-            f"CheckKmer {t_check:.3f} s, 10^5 reads' counters "
+            f"CheckKmer {t_check:.3f} s, {n_ra} reads' counters "
             f"{t_reads:.3f} s, == the records")
     os.environ.pop("KMC_TPU_RA_THRESHOLD", None)
 
@@ -2809,6 +2837,386 @@ def phase_greedy(fq_mid, full):
     return result
 
 
+# phase 18: the sharded count's other modes over 4 shards, and the SPMD
+# count step.  (name, distributed_count knobs); k = 27 and -ci2 unless set
+SHARDED_MODES_MID = (
+    ("smallk13", dict(k=13)),
+    ("smallk13_kff", dict(k=13, output_type="kff")),
+    ("greedy27", dict(signature_map_policy="greedy")),
+    ("greedy32", dict(k=32, signature_map_policy="greedy")),
+    ("kff", dict(output_type="kff")),
+    ("estimate", dict(estimate_only=True)),
+    ("opt_out_size", dict(opt_out_size=True)),
+    # phase 8's spilling shards of 2^19 rows
+    ("greedy27_spill", dict(signature_map_policy="greedy",
+                            capacity_rows_per_device=1 << 19)),
+    ("kff_spill", dict(output_type="kff", capacity_rows_per_device=1 << 19)),
+)
+SHARDED_MODES_FULL = (
+    ("greedy27", dict(signature_map_policy="greedy")),
+    ("kff", dict(output_type="kff")),
+    ("opt_out_size", dict(opt_out_size=True)),
+    ("smallk13", dict(k=13)),
+    ("estimate", dict(estimate_only=True)),
+)
+# the kernels whose launches phase 18 reads
+MODE_KERNELS = ("fused_ingest", "greedy", "splitter_scan", "radix_sort",
+                "ragged_all_to_all")
+
+
+def _mode_launches():
+    w = _wrappers()
+    out = {name: w[name].launches for name in MODE_KERNELS
+           if name != "greedy"}
+    out["greedy"] = w["fused_ingest"].greedy_launches
+    return out
+
+
+def _mode_uses(knobs):
+    """The kernels a sharded mode must launch, and no other of
+    MODE_KERNELS: small k and -e none; the store's routes the fused ingest,
+    the sort and the ragged exchange; greedy also the scan entry (stage 0)
+    and the greedy entry for every batch."""
+    if knobs.get("estimate_only") or knobs.get("k", 27) < 14:
+        return ()
+    uses = ("fused_ingest", "radix_sort", "ragged_all_to_all")
+    if knobs.get("signature_map_policy") == "greedy":
+        uses += ("greedy", "splitter_scan")
+    return uses
+
+
+def _check_mode_launches(label, knobs, launches):
+    uses = _mode_uses(knobs)
+    if any((launches[k] > 0) != (k in uses) for k in MODE_KERNELS) or (
+            "greedy" in uses
+            and launches["greedy"] != launches["fused_ingest"]):
+        raise SystemExit(f"phase 18: {label} launched {launches}, it must "
+                         f"launch {uses} (greedy on every ingest) and no "
+                         "other kernel")
+
+
+def _no_timing_stats(st):
+    # merge_launches counts kernel launches: none on the CPU
+    return {k: v for k, v in st.items()
+            if k not in ("timings", "merge_launches")}
+
+
+def _mode_records(prefix: Path, knobs):
+    """(k-mer keys, counts) of a mode's output, in k-mer order."""
+    if knobs.get("output_type") == "kff":
+        return _kff_sorted(prefix.parent / (prefix.name + ".kff"))
+    return _db_records(prefix)
+
+
+def _same_records(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def phase_sharded_modes_mid(fq_mid, devices):
+    """Phase 18 at mid size: each mode over 4 card shards against 4 CPU
+    shards, every file byte for byte and the stats; greedy and KFF at
+    k = 27 also against phase 4's single-device card count's records."""
+    base = dict(batch_positions=1 << 18, capacity_rows_per_device=3 << 19)
+    ref4 = _db_records(WORK / "mid_cuda")
+    launches_all = {}
+    for name, knobs in SHARDED_MODES_MID:
+        outs = {dev: WORK / f"mid18_{name}_{dev}" for dev in ("cuda", "cpu")}
+        reset_counts()
+        kw = dict(base, **knobs)
+        st, wall = run_sharded(fq_mid, outs["cuda"], devices, **kw)
+        launches = _mode_launches()
+        c_st, c_wall = run_sharded(fq_mid, outs["cpu"], ["cpu"] * 4, **kw)
+        if _no_timing_stats(st) != _no_timing_stats(c_st):
+            raise SystemExit(f"phase 18: mid {name}: card stats "
+                             f"{_no_timing_stats(st)} != CPU stats "
+                             f"{_no_timing_stats(c_st)}")
+        files = _route_files(outs["cpu"])
+        if files != _route_files(outs["cuda"]) or bool(files) == (
+                name == "estimate"):
+            raise SystemExit(f"phase 18: mid {name} wrote {files} on the "
+                             f"CPU, {_route_files(outs['cuda'])} on the card")
+        for suf in files:
+            if ((outs["cuda"].parent / (outs["cuda"].name + suf)).read_bytes()
+                    != (outs["cpu"].parent
+                        / (outs["cpu"].name + suf)).read_bytes()):
+                raise SystemExit(f"phase 18: mid {name}: card and CPU {suf} "
+                                 "differ")
+        _check_mode_launches(f"mid {name}", knobs, launches)
+        if name.endswith("spill") and st["n_spills"] < 1:
+            raise SystemExit(f"phase 18: mid {name} never spilled: {st}")
+        same4 = ""
+        if name.startswith(("greedy27", "kff")):
+            if not _same_records(_mode_records(outs["cuda"], knobs), ref4):
+                raise SystemExit(f"phase 18: mid {name}: the (k-mer, count) "
+                                 "set differs from phase 4's")
+            same4 = ", (k-mer, count) set == phase 4's"
+        launches_all[name] = launches
+        written = ", ".join(files) or "no files"
+        log(f"[phase 18] mid {name}: card == CPU ({written}; stats "
+            f"equal){same4}; n_total {st.get('n_total')} "
+            f"n_unique {st.get('n_unique')} n_spills {st.get('n_spills')}; "
+            f"launches {launches}; card {wall:.2f} s, cpu {c_wall:.2f} s")
+        for prefix in outs.values():
+            for p in prefix.parent.glob(prefix.name + ".*"):
+                p.unlink()
+    return launches_all
+
+
+def phase_sharded_modes_full(full, devices):
+    """Phase 18 at full size: phase 5's FASTQ and knobs over 4 shards, each
+    mode timed, with its launches and each card's peak memory."""
+    from kmc_tpu_torch import count
+
+    fq, n_reads, ref = full
+    base = dict(batch_positions=1 << 22, capacity_rows_per_device=None)
+    ref5 = _db_records(WORK / "bench_out")
+    # the single-device small-k DB that the sharded one must equal
+    t0 = time.perf_counter()
+    count([str(fq)], str(WORK / "full18_smallk13_one"), k=13,
+          device="cuda")
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    rows = {}
+    for name, knobs in SHARDED_MODES_FULL:
+        out = WORK / f"full18_{name}"
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(i)
+        reset_counts()
+        st, wall = run_sharded(fq, out, devices, **dict(base, **knobs))
+        launches = _mode_launches()
+        peaks = {i: torch.cuda.max_memory_allocated(i)
+                 for i in range(torch.cuda.device_count())}
+        _check_mode_launches(f"full {name}", knobs, launches)
+        k = knobs.get("k", 27)
+        if name == "estimate":
+            if st["n_reads"] != n_reads or sum(
+                    st["estimated_histogram"]) <= 0:
+                raise SystemExit(f"phase 18: full -e: n_reads "
+                                 f"{st['n_reads']}, histogram sum "
+                                 f"{sum(st['estimated_histogram'])}")
+            check = (f"n_reads {st['n_reads']}, estimated_histogram[1:4] "
+                     f"{st['estimated_histogram'][1:4]}")
+        elif st["n_total"] != n_reads * (150 - k + 1):
+            raise SystemExit(f"phase 18: full {name}: n_total "
+                             f"{st['n_total']} != {n_reads} x {151 - k}")
+        elif name == "smallk13":
+            one = WORK / "full18_smallk13_one"
+            if not _same_db(out, one):
+                raise SystemExit("phase 18: the sharded small-k DB differs "
+                                 "from the single-device one")
+            check = (f"n_total {st['n_total']} (= {n_reads} x 138), DB == "
+                     f"the single-device small-k DB ({one_wall:.3f} s)")
+        else:
+            if not _same_records(_mode_records(out, knobs), ref5):
+                raise SystemExit(f"phase 18: full {name}: the (k-mer, count) "
+                                 "set differs from phase 5's")
+            check = (f"n_total {st['n_total']} (= {n_reads} x 124), "
+                     f"n_unique {st['n_unique']}, (k-mer, count) set == "
+                     "phase 5's")
+        t = st.get("timings", {})
+        split = ", ".join(f"{key} {t[key]:.3f}" for key in (
+            "stage0_s", "map_build_s", "ingest_wall_s", "owner_hist_s",
+            "exchange_groupsort_s", "finalize_exec_s", "finalize_d2h_s",
+            "finalize_wall_s") if key in t)
+        rows[name] = dict(wall=wall, launches=launches, peaks=peaks,
+                          timings=t)
+        log(f"[phase 18] full {name} on {devices}: {check}; wall_s "
+            f"{wall:.3f}" + (f", {split}" if split else "")
+            + f"; launches {launches}; max_memory_allocated {peaks}")
+        for p in out.parent.glob(out.name + ".*"):
+            p.unlink()
+    for p in WORK.glob("full18_smallk13_one.*"):
+        p.unlink()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_step_kernels():
+    """The SPMD step's kernels replaced by their plain versions: the
+    scan entry, the grouping sort and the dense exchange (the names the
+    step's modules call them by)."""
+    import kmc_tpu_torch.ops.sortcount as sortcount
+    import kmc_tpu_torch.ops.store as store
+    import kmc_tpu_torch.parallel.distributed as dist
+    from kmc_tpu_torch.ops.extract_kernel import splitter_scan_plain
+    from kmc_tpu_torch.ops.sort_kernel import radix_sort_plain
+    from kmc_tpu_torch.parallel.exchange_kernel import all_to_all_plain
+
+    patches = ((sortcount, "extract_splitter_scan", splitter_scan_plain),
+               (store, "radix_sort_columns", radix_sort_plain),
+               (dist, "radix_sort_columns", radix_sort_plain),
+               (dist, "all_to_all", all_to_all_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_distributed_step(full, devices, s=1 << 22, k=27):
+    """Phase 18's SPMD count step: phase 5's batches of 2^22 positions in
+    rounds of 4 (the last padded with empty batches) through
+    make_distributed_count_step over 4 shards with the prefix map.  Each
+    round's outputs == the same step with the plain versions of its
+    kernels; the summed counts == phase 5's n_total; device time per
+    round from torch.profiler; the launches of the dense exchange, the
+    sort and the scan entry in the kernel run."""
+    import itertools
+
+    from kmc_tpu_torch.io.readers import (BatchStream, ParseState,
+                                          batch_len, file_code_stream)
+    from kmc_tpu_torch.ops.store import prefix_bin_bits, prefix_sig_map
+    from kmc_tpu_torch.parallel.distributed import (
+        make_distributed_count_step)
+
+    fq, n_reads, _ = full
+    D = len(devices)
+    t0 = time.perf_counter()
+    batches = list(BatchStream(s, k).batches(
+        file_code_stream([str(fq)], "fastq", ParseState())))
+    while len(batches) % D:
+        batches.append(np.full(batch_len(s, k), 4, np.uint8))
+    rounds = [[torch.from_numpy(b).to(dev) for b, dev in
+               zip(batches[i:i + D], devices)]
+              for i in range(0, len(batches), D)]
+    del batches
+    sig_map = prefix_sig_map(M, prefix_bin_bits(k, M, 512)[0])
+    parse_s = time.perf_counter() - t0
+    step, cap = make_distributed_count_step(devices, s=s, k=k, sig_len=M)
+    W = (k + 15) // 16
+    _sync_all()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for codes in rounds:
+        words, counts, n_out, n_dropped = step(codes, sig_map)
+        outs.append((words, counts, n_out, n_dropped))
+    _sync_all()
+    wall = time.perf_counter() - t0
+    w = _wrappers()
+    launches = {name: w[name].launches for name in
+                ("all_to_all", "radix_sort", "splitter_scan")}
+    if min(launches.values()) == 0 or launches["all_to_all"] != \
+            D * len(rounds):
+        raise SystemExit(f"phase 18: the SPMD step launched {launches} in "
+                         f"{len(rounds)} rounds of {D} shards")
+    total, err, n_dropped_all = 0, 0, 0
+    for codes, (words, counts, n_out, n_dropped) in zip(rounds, outs):
+        with plain_step_kernels():
+            want = step(codes, sig_map)
+        for got_t, want_t in zip((words, counts, n_out, n_dropped), want):
+            for a, b in zip(got_t, want_t):
+                if a.dim():
+                    err = max(err, max_abs_err(a, b))
+                if not torch.equal(a, b):
+                    raise SystemExit("phase 18: the SPMD step's kernel "
+                                     "outputs differ from its plain "
+                                     f"version's (max_abs_err {err})")
+        for c, n in zip(counts, n_out):
+            total += int((c[:int(n)].to(torch.int64) & 0xFFFFFFFF).sum())
+        n_dropped_all += sum(int(x) for x in n_dropped)
+    del outs
+    want_total = n_reads * (150 - k + 1)
+    if n_dropped_all or total != want_total:
+        raise SystemExit(f"phase 18: the SPMD step counted {total} k-mers "
+                         f"({n_dropped_all} rows dropped), phase 5 "
+                         f"{want_total}")
+    it = itertools.cycle(rounds)
+    dev_ms, items, by_name = _profiled_device(
+        lambda: step(next(it), sig_map), len(rounds))
+    with plain_step_kernels():
+        t1 = time.perf_counter()
+        for codes in rounds:
+            step(codes, sig_map)
+        _sync_all()
+        plain_wall = time.perf_counter() - t1
+    xrow = _step_exchange_times(rounds[0], sig_map, devices, s, k, cap)
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:6]
+    log(f"[phase 18] SPMD step s=2^{s.bit_length() - 1} k={k} on "
+        f"{devices}, capacity {cap}: "
+        f"{len(rounds)} rounds of {D} batches (parse {parse_s:.1f} s); "
+        f"every round == the plain kernels' step bit for bit (max_abs_err "
+        f"{err}); summed counts {total} == phase 5's n_total, 0 rows "
+        f"dropped; wall {wall:.3f} s ({wall / len(rounds) * 1e3:.2f} ms a "
+        f"round), plain {plain_wall:.3f} s; device_ms a round {dev_ms} over "
+        f"{items} device items (torch.profiler; top: " + ", ".join(
+            f"{n} {t:.3f}" for n, t in top) + f"); launches {launches}; "
+        f"W {W}")
+    del rounds
+    for d in set(devices):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    return dict(launches=launches, device_ms=dev_ms, wall=wall,
+                plain_wall=plain_wall, max_abs_err=err, exchange=xrow)
+
+
+def _step_exchange_times(codes, sig_map, devices, s, k, cap):
+    """The dense exchange at the SPMD step's shapes: one round's send
+    buffers (D x [D, cap, W + 1] int32), the kernel against its plain
+    version bit for bit, then each timed, with the library call (a stack
+    and a transpose) and the bound: the bytes it must move (each segment
+    read once and written once) over the device memory rate, or on
+    distinct cards the busiest owner's peer bytes over NVLink.  CUDA
+    events on one card; the host clock around whole exchanges across
+    cards (events do not span cards)."""
+    from kmc_tpu_torch.parallel.distributed import _local_count_step
+    from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
+                                                        all_to_all_plain)
+
+    D = len(devices)
+    sm = torch.from_numpy(sig_map.astype(np.int64))
+    sends = [_local_count_step(c, sm.to(c.device), s=s, k=k, sig_len=M,
+                               both_strands=True, capacity=cap, D=D)[0]
+             for c in codes]
+    got, want = all_to_all(sends), all_to_all_plain(sends)
+    _sync_all()
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"phase 18: the dense exchange at the step's "
+                         f"shapes differs from plain (max_abs_err {err})")
+    del got, want
+    C = sends[0].shape[2]
+    one_card = len(set(devices)) == 1
+    if one_card:
+        ms = cuda_ms(lambda: all_to_all(sends), 10)
+        plain_ms = cuda_ms(lambda: all_to_all_plain(sends), 3)
+        library_ms = cuda_ms(
+            lambda: torch.stack(sends).transpose(0, 1).contiguous(), 3)
+        nbytes = 2 * 4 * C * D * D * cap
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    else:
+        ms = host_ms(lambda: all_to_all(sends), 10)
+        plain_ms = host_ms(lambda: all_to_all_plain(sends), 3)
+        library_ms = host_ms(lambda: [
+            torch.stack([x[r].to(devices[r]) for x in sends])
+            for r in range(D)], 3)
+        nbytes = (D - 1) * cap * C * 4  # the busiest owner's peer reads
+        bound_ms = nbytes / NVLINK_BYTES_PER_S * 1e3
+    log(f"[phase 18] dense exchange at the step's shapes, {D} x [{D}, "
+        f"{cap}, {C}] int32 on {devices}: bit-exact; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms (stack + transpose) "
+        f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({nbytes} bytes "
+        + ("over the device memory)" if one_card else "over NVLink)")
+        + ("" if one_card else "; host clock"))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, max_abs_err=err)
+
+
+def phase_sharded_modes(fq_mid, full):
+    """Phase 18: the sharded count's other modes (small k, the greedy map,
+    KFF, -e, --opt-out-size) at mid and full size, then the SPMD count
+    step."""
+    devices = shard_devices()
+    mid = phase_sharded_modes_mid(fq_mid, devices)
+    full_rows = phase_sharded_modes_full(full, devices)
+    step = phase_distributed_step(full, devices)
+    return dict(mid=mid, full=full_rows, step=step)
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -2847,6 +3255,7 @@ PHASES = (
     (15, phase_inputs_and_readers, (4, 5)),
     (16, phase_tools, (4, 5)),
     (17, phase_greedy, (4, 5)),
+    (18, phase_sharded_modes, (4, 5)),
 )
 
 
@@ -2870,6 +3279,9 @@ def main(argv=()) -> int:
         return 0
     (scan, fused, greedy), sort, exchange = got[2], got[3], got[7]
     greedy_run = got[17]  # phase 17's deferred full-size run
+    modes = got[18]  # phase 18: the sharded modes and the SPMD step
+    step18 = modes["step"]["launches"]
+    xs18 = modes["step"]["exchange"]
     sharded, (scan_1d, probes) = got[9], got[10]
     bucket_scans = got[14]  # the host-bucket route's scan-entry launches
 
@@ -2905,7 +3317,13 @@ def main(argv=()) -> int:
          "hist_stream_ms": greedy[("hist", 9)]["stream_ms"],
          "greedy_path_launches": greedy_run["launches"]["fused_ingest"],
          "hist_launches": greedy_run["launches"]["hist"],
-         "greedy_launches": greedy_run["eager_greedy"]},
+         "greedy_launches": greedy_run["eager_greedy"],
+         # phase 18's full-size sharded greedy run (every ingest on the
+         # greedy entry) and the sharded KFF run
+         "sharded_greedy_launches":
+             modes["full"]["greedy27"]["launches"]["greedy"],
+         "sharded_kff_launches":
+             modes["full"]["kff"]["launches"]["fused_ingest"]},
         {"name": "splitter_scan", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/extract.cu",
          "replaces": "kmc_tpu/ops/pallas_extract.py:312",
@@ -2913,7 +3331,11 @@ def main(argv=()) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in scan.values()),
          "ms": s27["ms"], "plain_ms": s27["plain_ms"],
          "bound_ms": s27["bound_ms"], "bound_by": s27["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         # phase 18: the sharded greedy map's stage 0, the SPMD step
+         "sharded_stage0_launches":
+             modes["full"]["greedy27"]["launches"]["splitter_scan"],
+         "step_launches": step18["splitter_scan"]},
         {"name": "radix_sort", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/radix_sort.cu",
          "replaces": "kmc_tpu/ops/pallas_sort.py:170",
@@ -2924,7 +3346,11 @@ def main(argv=()) -> int:
          "library_ms": s26["library_ms"],
          # phase 17's deferred greedy run: all its sorts, the collect's
          "greedy_path_launches": greedy_run["launches"]["radix_sort"],
-         "collect_launches": greedy_run["collect"]},
+         "collect_launches": greedy_run["collect"],
+         "sharded_modes_launches": {
+             name: row["launches"]["radix_sort"]
+             for name, row in modes["full"].items()},
+         "step_launches": step18["radix_sort"]},
         {"name": "ragged_all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:164",
@@ -2932,15 +3358,25 @@ def main(argv=()) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in exchange.values()),
          "ms": x2["ms"], "plain_ms": x2["plain_ms"],
          "bound_ms": x2["bound_ms"], "bound_by": "bytes",
-         "library_ms": x2["library_ms"]},
+         "library_ms": x2["library_ms"],
+         "sharded_modes_launches": {
+             name: row["launches"]["ragged_all_to_all"]
+             for name, row in modes["full"].items()}},
         {"name": "all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",
-         "launches": x2["dense_launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in exchange.values()),
-         "ms": x2["dense_ms"], "plain_ms": x2["dense_plain_ms"],
-         "bound_ms": x2["dense_bound_ms"], "bound_by": "bytes",
-         "library_ms": x2["library_ms"]},
+         # the SPMD count step's exchange and its times at the step's
+         # shapes (phase 18); phase 7's at [4, 2^24, 2] beside them
+         "launches": step18["all_to_all"],
+         "max_abs_err": max([xs18["max_abs_err"]] + [
+             r["max_abs_err"] for r in exchange.values()]),
+         "ms": xs18["ms"], "plain_ms": xs18["plain_ms"],
+         "bound_ms": xs18["bound_ms"], "bound_by": "bytes",
+         "library_ms": xs18["library_ms"],
+         "phase7_ms": x2["dense_ms"], "phase7_plain_ms": x2["dense_plain_ms"],
+         "phase7_bound_ms": x2["dense_bound_ms"],
+         "phase7_library_ms": x2["library_ms"],
+         "step_device_ms_a_round": modes["step"]["device_ms"]},
     ]
     s1d = scan_1d[(27, True)]
     kernels.append(

@@ -648,14 +648,8 @@ class Runner:
             results.n_total_kmers = n_total
             if params.without_output:
                 return
-            # one section per bin that keeps a k-mer after the cutoffs
-            bounds = np.searchsorted(bins, np.arange(self._n_used_bins + 1))
-            w = self._kff_writer(params)
-            kmer_bytes = words_to_kmer_bytes(words, self._s1.kmer_len)
-            for lo, hi in zip(bounds[:-1], bounds[1:]):
-                if lo < hi:
-                    w.store_section(kmer_bytes[lo:hi], counts[lo:hi])
-            w.close()
+            write_kff_sections(self._kff_writer(params), bins, words, counts,
+                               k=self._s1.kmer_len, n_bins=self._n_used_bins)
             return
         info = self._make_db_info(params)
         rec, lut, (n_unique, n_below, n_above) = store.finalize_records(
@@ -848,6 +842,19 @@ def smallk_finalize_and_write(hist: torch.Tensor, k: int, *, cutoff_min,
             both_strands=canonical, version=0)
         write_kmc1_db(output_file_name, info, kmer_bytes, counts)
     return stats
+
+
+def write_kff_sections(writer, bins, words, counts, *, k: int, n_bins: int):
+    """Write the words-path finalize's rows (bins, words, counts in (bin,
+    k-mer) order) as one raw section per bin that keeps a k-mer (KMC's
+    completer KFF path, kb_completer.cpp:172-177), then close the
+    writer."""
+    bounds = np.searchsorted(bins, np.arange(n_bins + 1))
+    kmer_bytes = words_to_kmer_bytes(words, k)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if lo < hi:
+            writer.store_section(kmer_bytes[lo:hi], counts[lo:hi])
+    writer.close()
 
 
 def words_to_kmer_bytes(words: np.ndarray, k: int) -> np.ndarray:

@@ -23,6 +23,18 @@ from kmc_tpu_torch.parallel.exchange_kernel import (all_to_all,
 M = 9
 
 
+def _card_fastq(path, genome_len, n_reads, seed):
+    """n_reads reads of 150 bases from a random genome, as a FASTQ."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for i, st in enumerate(rng.integers(0, len(genome) - 150, n_reads)):
+            seq = acgt[genome[st:st + 150]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    return str(path)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -215,13 +227,7 @@ def test_greedy_count_on_card_matches_cpu(tmp_path, monkeypatch, defer,
     from kmc_tpu_torch.ops.ingest_kernel import ingest
 
     monkeypatch.setenv("KMC_TPU_GREEDY_DEFER", defer)
-    rng = np.random.default_rng(3)
-    genome = rng.integers(0, 4, genome_len)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(tmp_path / "in.fastq", "wb") as f:
-        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
-            seq = acgt[genome[st:st + 150]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    _card_fastq(tmp_path / "in.fastq", genome_len, 4000, seed=3)
     stats = {}
     for dev in ("cuda", "cpu"):
         before = (ingest.greedy_launches, ingest.hist_launches)
@@ -411,13 +417,7 @@ def test_count_on_card_matches_cpu(tmp_path):
     _need_card()
     from kmc_tpu_torch import count
 
-    rng = np.random.default_rng(0)
-    genome = rng.integers(0, 4, 20000)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(tmp_path / "in.fastq", "wb") as f:
-        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
-            seq = acgt[genome[st:st + 150]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    _card_fastq(tmp_path / "in.fastq", 20000, 4000, seed=0)
     kw = dict(k=27, cutoff_min=2, batch_positions=1 << 14,
               device_store_rows=3 << 14)
     r_gpu = count([str(tmp_path / "in.fastq")], str(tmp_path / "gpu"),
@@ -489,13 +489,7 @@ def test_distributed_count_on_card_matches_cpu(tmp_path):
     _need_card()
     from kmc_tpu_torch import distributed_count
 
-    rng = np.random.default_rng(1)
-    genome = rng.integers(0, 4, 20000)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(tmp_path / "in.fastq", "wb") as f:
-        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
-            seq = acgt[genome[st:st + 150]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    _card_fastq(tmp_path / "in.fastq", 20000, 4000, seed=1)
     kw = dict(k=27, cutoff_min=2, batch_positions=1 << 14,
               capacity_rows_per_device=5 << 13)
     s_gpu = distributed_count([str(tmp_path / "in.fastq")],
@@ -517,13 +511,7 @@ def test_spilling_count_on_card_matches_cpu(tmp_path, genome_len, route):
     _need_card()
     from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
 
-    rng = np.random.default_rng(2)
-    genome = rng.integers(0, 4, genome_len)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(tmp_path / "in.fastq", "wb") as f:
-        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
-            seq = acgt[genome[st:st + 150]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    _card_fastq(tmp_path / "in.fastq", genome_len, 4000, seed=2)
     stats = {}
     for dev in ("cuda", "cpu"):
         r = Runner(device=dev)
@@ -599,13 +587,7 @@ def test_sharded_spilling_count_on_card_matches_cpu(tmp_path):
     _need_card()
     from kmc_tpu_torch import distributed_count
 
-    rng = np.random.default_rng(3)
-    genome = rng.integers(0, 4, 60000)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(tmp_path / "in.fastq", "wb") as f:
-        for i, st in enumerate(rng.integers(0, len(genome) - 150, 4000)):
-            seq = acgt[genome[st:st + 150]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    _card_fastq(tmp_path / "in.fastq", 60000, 4000, seed=3)
     n = torch.cuda.device_count()
     kw = dict(k=27, cutoff_min=1, batch_positions=1 << 13,
               capacity_rows_per_device=1 << 15)
@@ -622,6 +604,92 @@ def test_sharded_spilling_count_on_card_matches_cpu(tmp_path):
                 "n_remerges"):
         assert s_gpu[key] == s_cpu[key], key
     assert s_gpu["n_spills"] >= 1 and s_gpu["merge_launches"] >= 1
+
+
+_SHARDED_SPILL = dict(batch_positions=1 << 13, capacity_rows_per_device=1 << 15)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", [
+    ("smallk13", dict(k=13)),
+    ("smallk13_kff", dict(k=13, output_type="kff")),
+    ("greedy27", dict(k=27, signature_map_policy="greedy")),
+    ("greedy32_spill", dict(k=32, signature_map_policy="greedy",
+                            **_SHARDED_SPILL)),
+    ("kff27", dict(k=27, output_type="kff")),
+    ("kff27_spill", dict(k=27, output_type="kff", **_SHARDED_SPILL)),
+    ("estimate", dict(k=27, estimate_only=True)),
+    ("opt_out_size", dict(k=27, opt_out_size=True)),
+])
+def test_sharded_modes_on_card_match_cpu(tmp_path, name, kw):
+    """The sharded count's other modes over 4 shards (on distinct cards
+    where there are several): the card's files and stats equal the CPU's;
+    the greedy and KFF routes ran the ragged exchange and the grouping
+    sort, the greedy route the fused ingest's greedy entry."""
+    _need_card()
+    from kmc_tpu_torch import distributed_count
+    from kmc_tpu_torch.ops.ingest_kernel import ingest
+
+    src = _card_fastq(tmp_path / "in.fastq", 60000, 4000, seed=4)
+    n = torch.cuda.device_count()
+    kw = dict(dict(cutoff_min=1, batch_positions=1 << 14,
+                   capacity_rows_per_device=1 << 17), **kw)
+    before = (ragged_all_to_all.launches, radix_sort_columns.launches,
+              ingest.greedy_launches)
+    s_gpu = distributed_count([src], str(tmp_path / "gpu"),
+                              devices=[f"cuda:{i % n}" for i in range(4)],
+                              **kw)
+    launches = (ragged_all_to_all.launches - before[0],
+                radix_sort_columns.launches - before[1],
+                ingest.greedy_launches - before[2])
+    s_cpu = distributed_count([src], str(tmp_path / "cpu"),
+                              devices=["cpu"] * 4, **kw)
+    files = sorted(p.name[3:] for p in tmp_path.glob("gpu.*"))
+    assert files == sorted(p.name[3:] for p in tmp_path.glob("cpu.*"))
+    for suf in files:
+        assert (tmp_path / f"gpu{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes(), suf
+    for key in ("timings", "merge_launches"):  # no launches on the CPU
+        s_gpu.pop(key, None)
+        s_cpu.pop(key, None)
+    assert s_gpu == s_cpu
+    if name.startswith(("greedy", "kff")):
+        assert launches[0] >= 1 and launches[1] >= 1
+        assert (launches[2] >= 1) == name.startswith("greedy")
+    if name.endswith("spill"):
+        assert s_gpu["n_spills"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [21, 27, 33])
+def test_distributed_step_on_card_matches_cpu(k):
+    """make_distributed_count_step over 4 card shards (distinct cards where
+    there are several) equals the same step on 4 CPU shards, and exchanges
+    through the dense all-to-all kernel."""
+    _need_card()
+    from kmc_tpu_torch.parallel.distributed import (
+        make_distributed_count_step)
+    from kmc_tpu_torch.signatures import build_signature_map, map_size
+
+    s, D = 1 << 14, 4
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (D, batch_len(s, k))).astype(np.uint8)
+    codes[:, 150::151] = 4
+    codes[:, -40:] = 4
+    hist = rng.integers(0, 1000, map_size(M)).astype(np.uint64)
+    sig_map = build_signature_map(hist, M, 64)
+    n = torch.cuda.device_count()
+    step, cap = make_distributed_count_step(
+        [f"cuda:{i % n}" for i in range(D)], s=s, k=k, sig_len=M)
+    ref, _ = make_distributed_count_step(["cpu"] * D, s=s, k=k, sig_len=M)
+    before = all_to_all.launches
+    got = step(codes, sig_map)
+    assert all_to_all.launches == before + D
+    want = ref(codes, sig_map)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+    assert sum(int(x) for x in got[2]) > 0
 
 
 # -- the other routes of one device: small k, the estimator, host buckets,

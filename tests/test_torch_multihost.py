@@ -104,22 +104,6 @@ def test_sharded_db_equals_single_device_count(results, reads_file,
     assert st["n_total"] == r2.n_total_kmers
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(k=13), "A11b"),
-    (dict(output_type="kff"), "A11b"),
-    (dict(signature_map_policy="greedy"), "A11b"),
-    (dict(estimate_only=True), "A11b"),
-    (dict(opt_out_size=True), "A11b"),
-])
-def test_unported_knobs_raise(reads_file, tmp_path, kw, item):
-    kw = dict(kw)
-    k = kw.pop("k", 25)
-    with pytest.raises(NotImplementedError, match=item):
-        distributed_count([reads_file], str(tmp_path / "db"), k=k,
-                          devices=["cpu"] * 2, **kw)
-    assert not (tmp_path / "db.kmc_pre").exists()
-
-
 def test_overflow_after_compaction_raises(reads_file, tmp_path):
     """The unique set outgrows the shards, which raised before the port had
     the sharded spill: now every shard spills to host RAM, as kmc_tpu's do,

@@ -16,7 +16,7 @@ import kmc_tpu_torch.cli as torch_cli  # noqa: E402
 from kmc_tpu.runner import InputFileType as JaxInputFileType  # noqa: E402
 from kmc_tpu.runner import count as jax_count  # noqa: E402
 from kmc_tpu_torch import (InputFileType, Runner, Stage1Params,  # noqa: E402
-                           count, distributed_count)
+                           count)
 
 _TIMES = {"time", "time_strict_mem", "time_finalize_exec", "time_finalize_d2h"}
 
@@ -96,37 +96,6 @@ def test_cli_json_and_db_identical(tmp_path):
     for suf in (".kmc_pre", ".kmc_suf"):
         assert (tmp_path / f"tdb{suf}").read_bytes() == \
             (tmp_path / f"jdb{suf}").read_bytes()
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(signature_map_policy="greedy"), "A11b"),
-])
-def test_unported_options_raise(tmp_path, kw, item):
-    """The greedy map counts on one device (tests/test_torch_greedy.py);
-    over shards it is still to come."""
-    inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
-    kw = dict(kw)
-    k = kw.pop("k", 27)
-    with pytest.raises(NotImplementedError, match=item):
-        distributed_count([inp], str(tmp_path / "db"), k=k,
-                          devices=["cpu"] * 2, **kw)
-    assert not (tmp_path / "db.kmc_pre").exists()
-    count([inp], str(tmp_path / "one"), k=k, device="cpu", **kw)
-    assert (tmp_path / "one.kmc_pre").exists()
-
-
-@pytest.mark.parametrize("kw", [dict(output_type="kff"), dict(k=13),
-                                dict(estimate_only=True)])
-def test_sharded_unported_options_raise(tmp_path, kw):
-    """KFF output, small k and -e run on one device (Runner) but not yet
-    over shards (ROADMAP A11b)."""
-    inp = write_fastq(tmp_path / "in.fastq", random_reads(10, 50, seed=1))
-    kw = dict(kw)
-    k = kw.pop("k", 27)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        distributed_count([inp], str(tmp_path / "db"), k=k,
-                          devices=["cpu"] * 2, **kw)
-    assert not list(tmp_path.glob("db*"))
 
 
 @pytest.mark.parametrize("args,sufs", [
