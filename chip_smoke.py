@@ -8,6 +8,7 @@
     python3 chip_smoke.py 15         # -fbam, -fkmc, the readers (4, 5)
     python3 chip_smoke.py 16 17      # kmc_tools and the greedy map (4, 5)
     python3 chip_smoke.py 18         # the sharded modes, the SPMD step (4, 5)
+    python3 chip_smoke.py 19         # multi-process counting (4, 5, 7)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -61,7 +62,8 @@ Phases (any failure exits non-zero):
      through that section's entry, then each bit-exact against its plain
      version (which is also the library call they are timed against);
      then `python -m kmc_tpu_torch.microbench_sort sort`'s measurements
-     at MB_LOGN = 26;
+     at MB_LOGN = 26, and its roofline, bitonic, scatter and onehot
+     sections (torch ops) at 2^26;
  11. the spilling count at mid size (phase 4's FASTQ): a store that spills
      and finalizes by replaying its runs, and a smaller one that finalizes
      by the host merge; each card DB must equal the CPU's and phase 4's;
@@ -117,15 +119,13 @@ Phases (any failure exits non-zero):
      process of its own): info, check, transform (histogram, dump -s,
      reduce -ci3, compact, set_counts), simple with all six operations in
      one pass (KMC1, then -okff), a complex file, compare A A and A B, and
-     filter.  At mid size (phase 4's DB and a count of its first quarter
-     of reads) the native route's files equal the NumPy route's
-     (KMC_TPU_NATIVE_TOOLS=0) and the streaming route's
-     (KMC_TPU_STREAM_THRESHOLD=0), byte for byte.  At full size (A =
-     phase 5's DB, B = a count of the first quarter of phase 5's reads at
-     its knobs, filter over 10^5 of its reads) each is timed with its
-     process's peak RSS; |A u B| + |A n B| = |A| + |B|, |A - B| = |A| -
-     |A n B|, union counters = sums capped at 255, histogram total = |A|,
-     and the NumPy route's union and histogram equal the native ones;
+     filter, on A = phase 5's DB and B = a count of the first quarter of
+     phase 5's reads at its knobs (filter over 10^5 of its reads), each
+     timed with its process's peak RSS; |A u B| + |A n B| = |A| + |B|,
+     |A - B| = |A| - |A n B|, union counters = sums capped at 255,
+     histogram total = |A|, and the NumPy route's union and histogram
+     equal the native ones (the tools load no torch: their three routes
+     are held against kmc_tpu byte for byte by the CPU tests);
  17. the greedy signature map of the device store.  At mid size (phase
      4's FASTQ), deferred and eager: card DB == CPU DB byte for byte,
      deferred == eager, the replay and host spill routes == the
@@ -153,7 +153,23 @@ Phases (any failure exits non-zero):
      every round bit-exact against the same step on the plain versions
      of its kernels, the summed counts == phase 5's n_total, device time
      a round from torch.profiler, the launches of the dense all-to-all,
-     the radix sort and the scan entry.
+     the radix sort and the scan entry;
+ 19. multi-process counting (tests/torch_multiproc_worker.py: processes
+     of one torch.distributed gloo group, two on card 0 with two shards
+     each, or four with one card each on a machine of four cards; four
+     shards in all).  At mid size (phase 4's FASTQ, phase 8's knobs, every
+     process reading the whole stream): the default count, k = 13, KFF,
+     -e, the greedy map and a spilling count that re-merges under a spill
+     budget, each == the single-process count over 4 card shards, every
+     file byte for byte and every global stat, each store route launching
+     the fused ingest, the sort and the exchange kernel across processes
+     (one launch per owner, peer processes' rows read through CUDA IPC).
+     At full size (phase 5's FASTQ and knobs, the processes parsing
+     disjoint byte ranges, shards of 2^26 rows): DB == phase 5's,
+     n_total and n_super_kmers == phase 5's, each rank's wall, stage
+     seconds, peak device memory and the exchange kernel's time against
+     its bytes' bound.  Then the cross-process exchange alone at phase 7's
+     shapes, bit-exact and timed beside phase 7's in-process figure.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all from phase 18's SPMD step; the 2-D scan entry from
@@ -163,9 +179,14 @@ The fused ingest's row also holds the greedy entry's and the histogram's
 times from phase 2 and their launches in phase 17, and phase 18's
 sharded greedy and KFF launches; the radix sort's row the collect's
 launches in phase 17 and phase 18's; the scan entry's, the exchanges'
-rows phase 18's too.  Every device-store path
-must ingest through the fused kernel and never through the scan entry.  Shards sit on distinct cards when the machine has two or more,
-else all on card 0.  The last line is {"ok": true, "device": {...}}.
+rows phase 18's too; the ragged exchange's row phase 19's launches
+across processes (each rank's, in the full-size count) and the times
+of the exchange across processes there and at phase 7's shapes (host
+clock from the first process's first launch to the last one's
+synchronize) against their bytes' bounds.  Every device-store path
+must ingest through the fused kernel and never through the scan entry.
+Shards sit on distinct cards when the machine has two or more, else all
+on card 0.  The last line is {"ok": true, "device": {...}}.
 Imports neither jax nor kmc_tpu.  Times come from CUDA events around
 repeated launches after a warm-up; bounds are the bytes each function
 must move over the H100 SXM's 3.35 TB/s (the scan kernel's instruction
@@ -1118,6 +1139,7 @@ def phase_full():
         f"{r2.time_finalize_d2h:.3f} compactions {n_comp} "
         f"max_memory_allocated {peak} launches {launches} "
         f"kmers_per_s {r2.n_total_kmers / wall:.0f}")
+    r2.n_super_kmers = r1.n_total_super_kmers  # phase 19 holds it
     return fq, n_reads, r2
 
 
@@ -1647,6 +1669,16 @@ def phase_last_kernels():
             f"({t['gbs']:.1f} GB/s of the byte bound) library_ms "
             f"{t['library_ms']:.4f} bound_ms {t['bound_ms']:.4f}")
     torch.cuda.empty_cache()
+    # the tool's other sections (torch ops, no kernel of the port's) at 2^26
+    t0 = time.perf_counter()
+    for name in ("roofline", "bitonic", "scatter", "onehot"):
+        for label, t in mb.SECTIONS[name](1 << 26, device="cuda").items():
+            rate = (f", {t['gbs']:.1f} GB/s" if "gbs" in t else "")
+            log(f"[phase 10] {name} section {label}: {t['ms']:.4f} ms"
+                + rate)
+        torch.cuda.empty_cache()
+    log(f"[phase 10] roofline, bitonic, scatter and onehot sections in "
+        f"{time.perf_counter() - t0:.1f} s")
     return scan_rows, probe_rows
 
 
@@ -2531,56 +2563,19 @@ def _secs_json(secs) -> str:
                        secs.items()})
 
 
-def _dir_files(d: Path) -> dict:
-    return {p.name: p.read_bytes().replace(str(d).encode(), b"<D>")
-            for p in sorted(d.iterdir()) if p.is_file()
-            and p.name != "ops.def"}
-
-
-def _tool_routes(a, b, reads, d, kmer):
-    """run_tools on the native route, the NumPy route
-    (KMC_TPU_NATIVE_TOOLS=0) and the streaming route (and
-    KMC_TPU_STREAM_THRESHOLD=0); every file of the three must be equal."""
-    routes = {"native": {}, "numpy": {"KMC_TPU_NATIVE_TOOLS": "0"},
-              "streaming": {"KMC_TPU_NATIVE_TOOLS": "0",
-                            "KMC_TPU_STREAM_THRESHOLD": "0"}}
-    files, secs = {}, {}
-    for route, env in routes.items():
-        old = {key: os.environ.get(key) for key in env}
-        os.environ.update(env)
-        try:
-            secs[route] = run_tools(a, b, reads, d / route, kmer)
-        finally:
-            for key, val in old.items():
-                if val is None:
-                    os.environ.pop(key, None)
-                else:
-                    os.environ[key] = val
-        files[route] = _dir_files(d / route)
-    for route in ("numpy", "streaming"):
-        if files[route].keys() != files["native"].keys():
-            raise SystemExit(f"phase 16: the {route} route wrote "
-                             f"{sorted(files[route])}, the native "
-                             f"{sorted(files['native'])}")
-        for name, data in files["native"].items():
-            if files[route][name] != data:
-                raise SystemExit(f"phase 16: {name} of the {route} route "
-                                 "differs from the native route's")
-    return secs, files["native"]
-
-
 def _kmer_of(key: int, k: int) -> str:
     return "".join("ACGT"[(key >> (2 * (k - 1 - i))) & 3] for i in range(k))
 
 
-def phase_tools(fq_mid, full):
-    """Phase 16: kmc_tools.  At mid size (phase 4's DB and a count of the
-    first quarter of its reads) every operation of run_tools on the native
-    route equals the NumPy and the streaming routes byte for byte.  At
-    full size (phase 5's DB, A, and a count of the first quarter of phase
-    5's reads at its knobs, B) the native route is timed, with the host's
-    peak RSS, and held to the set identities of sorted_records and, for
-    union and histogram, to the NumPy route's bytes."""
+def phase_tools(full):
+    """Phase 16: kmc_tools at full size (phase 5's DB, A, and a count of
+    the first quarter of phase 5's reads at its knobs, B): the native
+    route timed, with the host's peak RSS, and held to the set identities
+    of sorted_records and, for union and histogram, to the NumPy route's
+    bytes.  The tools load no torch; their three routes are held byte for
+    byte against kmc_tpu's on the CPU by tests/test_torch_tools.py and
+    tests/test_torch_tools_native.py, so the card run repeats none of
+    that."""
     from kmc_tpu_torch.tools import native_tools
 
     fq5, n_reads, ref = full
@@ -2588,23 +2583,6 @@ def phase_tools(fq_mid, full):
     native_tools.get_lib()
     log(f"[phase 16] native streaming core built / loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-
-    # mid size: three routes, byte for byte
-    mid_q = WORK / "mid_q1.fastq"
-    n_mid = sum(1 for _ in open(fq_mid, "rb")) // 4
-    _head_fastq(fq_mid, mid_q, n_mid // 4)
-    run_count(mid_q, WORK / "mid_q1", "cuda", batch_positions=1 << 20,
-              device_store_rows=3 << 20)
-    mid_reads = WORK / "mid_reads_1e4.fastq"
-    _head_fastq(fq_mid, mid_reads, 10 ** 4)
-    keys_a, _ = _db_records(WORK / "mid_cuda")
-    secs, files = _tool_routes(WORK / "mid_cuda", WORK / "mid_q1", mid_reads,
-                               WORK / "tools_mid", _kmer_of(int(keys_a[7]),
-                                                            27))
-    log(f"[phase 16] mid size (phase 4 DB, {len(keys_a)} records, and its "
-        f"first quarter): {len(files)} files of the native route == NumPy "
-        f"route == streaming route byte for byte; native [seconds, peak "
-        f"RSS] " + _secs_json(secs["native"]))
 
     # full size: A = phase 5's DB, B = its first quarter of reads
     a, b = WORK / "bench_out", WORK / "bench_q1"
@@ -3217,6 +3195,362 @@ def phase_sharded_modes(fq_mid, full):
     return dict(mid=mid, full=full_rows, step=step)
 
 
+# -- phase 19: multi-process counting (torch.distributed) --
+
+MP_WORKER = ROOT / "tests" / "torch_multiproc_worker.py"
+# phase 19's mid-size modes: (worker mode, the single-process count's knobs)
+MP_MID_BUDGET = 60_000_000  # spill bytes: re-merges shards of 2^19 rows
+MP_MODES_MID = (("default", {}), ("k13", dict(k=13)),
+                ("kff", dict(output_type="kff")),
+                ("e", dict(estimate_only=True)),
+                ("greedy", dict(signature_map_policy="greedy")),
+                (f"spill@{MP_MID_BUDGET}",
+                 dict(capacity_rows_per_device=1 << 19)))
+# the process group's per-rank results that are not global
+MP_LOCAL = ("n_reads_local", "consumed_bytes_local", "timings",
+            "n_processes")
+
+
+def mp_layout():
+    """(processes, each process's MP_DEVICES): four processes, one card
+    each, on a machine of four or more cards; else two processes of two
+    shards each on card 0.  Four shards either way."""
+    if torch.cuda.device_count() >= 4:
+        return 4, "cuda:{pid}"
+    return 2, "cuda:0,cuda:0"
+
+
+def run_workers(reads, out: Path, env: dict, n_procs: int, timeout=900):
+    """tests/torch_multiproc_worker.py as n_procs processes (gloo, through
+    a file:// store), each its own fresh interpreter; fails the phase when
+    one exits non-zero.  Returns the seconds to the last one's exit."""
+    init = WORK / f"{out.name}_pg"
+    init.unlink(missing_ok=True)
+    env = dict(os.environ, **{k: str(v) for k, v in env.items()})
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(MP_WORKER), f"file://{init}", str(n_procs),
+         str(pid), str(reads), str(out)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in range(n_procs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise SystemExit(f"phase 19: worker {pid} exited "
+                             f"{p.returncode}:\n{text[-3000:]}")
+    init.unlink(missing_ok=True)
+    return wall
+
+
+def worker_results(out: Path, mode: str, n_procs: int) -> list:
+    name = mode.replace("@", "_")
+    return [json.loads(Path(f"{out}.{name}.stats.{pid}").read_text())
+            for pid in range(n_procs)]
+
+
+def _mp_uses(knobs):
+    """The kernels a mode's workers must launch (fused ingest, sort and the
+    cross-process exchange on the store's routes; the greedy entry and the
+    scan entry for greedy) and the in-process exchange, which they must
+    not."""
+    if knobs.get("estimate_only") or knobs.get("k", 27) < 14:
+        return ()
+    uses = ("fused_ingest", "radix_sort", "ragged_all_to_all_processes")
+    if knobs.get("signature_map_policy") == "greedy":
+        uses += ("greedy_entry", "splitter_scan")
+    return uses
+
+
+def _check_mp_launches(label, knobs, res, n_local):
+    uses = _mp_uses(knobs)
+    for pid, r in enumerate(res):
+        got = r["kernels"]
+        if any((got[k] > 0) != (k in uses) for k in got) or (
+                "ragged_all_to_all_processes" in uses
+                and got["ragged_all_to_all_processes"] != n_local):
+            raise SystemExit(f"phase 19: {label} rank {pid} launched {got}, "
+                             f"it must launch {uses} ({n_local} cross-process "
+                             "exchange launches, one per owner) and no other")
+
+
+def _same_stats(label, res, single):
+    """Every rank's stats == the single-process count's, but the local
+    ones; the ranks agree."""
+    want = {k: v for k, v in json.loads(json.dumps(single)).items()
+            if k not in MP_LOCAL}
+    for pid, r in enumerate(res):
+        got = {k: v for k, v in r["stats"].items() if k not in MP_LOCAL}
+        if got != want:
+            raise SystemExit(f"phase 19: {label} rank {pid} stats {got} != "
+                             f"the single-process count's {want}")
+
+
+def phase_mp_mid(fq_mid):
+    """Phase 19 at mid size: every mode of the process group against the
+    single-process count over 4 shards on the card, each process reading
+    the whole stream (so the deal, the compactions and the spills are the
+    single process's), files byte for byte and stats."""
+    import dataclasses
+
+    from kmc_tpu_torch import memory
+
+    n_procs, devs = mp_layout()
+    n_local = 4 // n_procs
+    out = WORK / "mp_mid"
+    wall = run_workers(fq_mid, out, dict(
+        MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 18,
+        MP_CAPACITY=3 << 19, MP_SHARD_INPUT=0, MP_SPILL_CAPACITY=1 << 19,
+        MP_MODES=",".join(m for m, _ in MP_MODES_MID)), n_procs)
+    log(f"[phase 19] mid size: {n_procs} processes ({devs}) ran "
+        f"{len(MP_MODES_MID)} modes in {wall:.1f} s")
+    planned = memory.plan_memory
+    rows = {}
+    for mode, knobs in MP_MODES_MID:
+        res = worker_results(out, mode, n_procs)
+        name, _, budget = mode.partition("@")
+        single = WORK / f"mp_mid_single_{name}"
+        if budget:
+            memory.plan_memory = lambda *a, **kw: dataclasses.replace(
+                planned(*a, **kw), spill_budget_bytes=int(budget))
+        try:
+            st, s_wall = run_sharded(fq_mid, single, shard_devices(),
+                                     **dict(dict(
+                                         batch_positions=1 << 18,
+                                         capacity_rows_per_device=3 << 19),
+                                         **knobs))
+        finally:
+            memory.plan_memory = planned
+        _same_stats(f"mid {mode}", res, st)
+        files = _route_files(single)
+        mine = [suf for suf in _route_files(Path(
+            f"{out}.{mode.replace('@', '_')}")) if not suf.startswith(
+                ".stats")]
+        if files != mine or bool(files) == (name == "e"):
+            raise SystemExit(f"phase 19: mid {mode} wrote {mine}, the "
+                             f"single-process count {files}")
+        for suf in files:
+            a = Path(f"{out}.{mode.replace('@', '_')}{suf}").read_bytes()
+            if a != Path(f"{single}{suf}").read_bytes():
+                raise SystemExit(f"phase 19: mid {mode}: {suf} differs from "
+                                 "the single-process count's")
+        _check_mp_launches(f"mid {mode}", knobs, res, n_local)
+        if name == "spill" and (st["n_spills"] < 2 or st["n_remerges"] < 1):
+            raise SystemExit(f"phase 19: mid spill: {st['n_spills']} spills, "
+                             f"{st['n_remerges']} re-merges")
+        rows[mode] = dict(walls=[r["wall_s"] for r in res],
+                          launches=[r["launches"] for r in res])
+        log(f"[phase 19] mid {mode}: {n_procs} processes == one process "
+            f"over 4 card shards ({', '.join(files) or 'no files'}; stats "
+            f"equal); n_total {st.get('n_total')} n_spills "
+            f"{st.get('n_spills')} n_remerges {st.get('n_remerges')}; "
+            f"cross-process exchange launches by rank "
+            f"{[r['launches'] for r in res]}; walls by rank "
+            f"{[round(r['wall_s'], 3) for r in res]} s, one process "
+            f"{s_wall:.3f} s")
+        for prefix in (single, Path(f"{out}.{mode.replace('@', '_')}")):
+            for q in prefix.parent.glob(prefix.name + ".*"):
+                q.unlink()
+    return rows
+
+
+def phase_mp_full(full):
+    """Phase 19 at full size: phase 5's FASTQ and knobs, the processes
+    parsing disjoint byte ranges of it, 4 shards of 2^26 rows: the DB ==
+    phase 5's, n_total and n_super_kmers == phase 5's; walls, stage
+    seconds, peak device memory and the cross-process exchange's kernel
+    time against its bytes' bound, per rank."""
+    fq, n_reads, ref = full
+    n_procs, devs = mp_layout()
+    out = WORK / "mp_full"
+    wall = run_workers(fq, out, dict(
+        MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 22,
+        MP_CAPACITY=1 << 26, MP_MODES="default"), n_procs)
+    res = worker_results(out, "default", n_procs)
+    st = res[0]["stats"]
+    if any({k: v for k, v in r["stats"].items() if k not in MP_LOCAL}
+           != {k: v for k, v in st.items() if k not in MP_LOCAL}
+           for r in res):
+        raise SystemExit("phase 19: full size: the ranks' stats differ")
+    if st["n_total"] != n_reads * 124 or st["n_reads"] != n_reads:
+        raise SystemExit(f"phase 19: full size n_total {st['n_total']}, "
+                         f"n_reads {st['n_reads']}")
+    if st["n_super_kmers"] != ref.n_super_kmers:
+        raise SystemExit(f"phase 19: full size n_super_kmers "
+                         f"{st['n_super_kmers']} != phase 5's "
+                         f"{ref.n_super_kmers}")
+    if not _same_db(Path(f"{out}.default"), WORK / "bench_out"):
+        raise SystemExit("phase 19: full-size DB differs from phase 5's")
+    parsed = [r["stats"]["consumed_bytes_local"] for r in res]
+    if sum(parsed) != fq.stat().st_size or min(parsed) <= 0:
+        raise SystemExit(f"phase 19: the processes parsed {parsed} bytes of "
+                         f"{fq.stat().st_size}")
+    _check_mp_launches("full", {}, res, 4 // n_procs)
+    # the exchange on the card: from the first process's first launch to
+    # the last process's synchronize (one monotonic clock on the machine)
+    span_ms = (max(r["exchange_span"][1] for r in res)
+               - min(r["exchange_span"][0] for r in res)) * 1e3
+    ms = max(r["exchange_ms"] for r in res)
+    nbytes = sum(r["exchange_bytes"] for r in res)
+    # one card moves every byte; on four cards each its owners', the rows
+    # of other cards' senders over its NVLink (450 GB/s in)
+    if n_procs == 2:
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+    else:
+        bound = max(max(r["exchange_bytes"] for r in res) / HBM_BYTES_PER_S,
+                    max(r["exchange_peer_bytes"] for r in res)
+                    / NVLINK_BYTES_PER_S) * 1e3
+    keys = ("ingest_wall_s", "owner_hist_s", "exchange_groupsort_s",
+            "finalize_exec_s", "finalize_d2h_s", "finalize_wall_s")
+    for pid, r in enumerate(res):
+        t = r["stats"]["timings"]
+        log(f"[phase 19] full size rank {pid} ({devs.replace('{pid}', str(pid))}): "
+            f"wall_s {r['wall_s']:.3f}, " + ", ".join(
+                f"{k} {t[k]:.3f}" for k in keys)
+            + f", route {t['exchange_route']}, parsed "
+            f"{r['stats']['consumed_bytes_local']} bytes "
+            f"({r['stats']['n_reads_local']} reads), peak device memory "
+            f"{r['peak_bytes']}, launches {r['kernels']}, cross-process "
+            f"exchange {r['exchange_ms']:.4f} ms for {r['exchange_bytes']} "
+            "bytes")
+    log(f"[phase 19] full size, {n_procs} processes x {4 // n_procs} shards "
+        f"of 2^26 rows: DB == phase 5 DB byte for byte; n_total "
+        f"{st['n_total']} (= {n_reads} x 124), n_super_kmers "
+        f"{st['n_super_kmers']} == phase 5's; all processes {wall:.3f} s; "
+        f"the cross-process exchange {span_ms:.4f} ms from the first "
+        f"launch to the last synchronize (host clock; the slowest rank's "
+        f"kernels {ms:.4f} ms by CUDA events) for {nbytes} bytes, bound_ms "
+        f"{bound:.4f}")
+    for q in WORK.glob("mp_full.*"):
+        q.unlink()
+    return dict(ms=span_ms, event_ms=ms, bound_ms=bound, bytes=nbytes,
+                launches=[r["launches"] for r in res],
+                walls=[r["wall_s"] for r in res])
+
+
+_IPC_BENCH = r"""
+import json, sys
+sys.path.insert(0, sys.argv[5])
+import numpy as np, torch
+import torch.distributed as dist
+from kmc_tpu_torch.parallel.distributed import init_multihost
+from kmc_tpu_torch.parallel.exchange_kernel import (
+    ragged_all_to_all_processes as xp, send_buffer)
+
+init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+init_multihost(init, n_procs, rank)
+dev = torch.device("cuda", rank if n_procs == 4 else 0)
+D, cap, C, reps = 4, 1 << 24, 2, 10
+per = D // n_procs
+layout = [list(range(p * per, (p + 1) * per)) for p in range(n_procs)]
+mine = layout[rank]
+# phase 7's senders and counts, made alike in every process
+gen = torch.Generator(device=dev).manual_seed(C)
+full = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), generator=gen,
+                      dtype=torch.int32, device=dev) for _ in range(D)]
+n_rows = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
+n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, cap, 12345
+ok, ms, spans = True, [], []
+for rep in range(reps + 1):
+    xs = []
+    for j in mine:
+        buf = send_buffer((D, cap, C), dev, True)
+        buf.copy_(full[j])
+        xs.append(buf)
+    before = xp.kernel_ms
+    outs, recv = xp(xs, n_rows, layout)
+    if rep == 0:
+        for l, o in enumerate(mine):
+            for j in range(D):
+                m = int(n_rows[j, o])
+                ok &= bool(torch.equal(outs[l][j, :m], full[j][o, :m]))
+    else:
+        ms.append(xp.kernel_ms - before)
+        spans.append(xp.span)
+    del xs, outs
+json.dump({"ok": ok, "ms": float(np.mean(ms)), "best_ms": min(ms),
+           "spans": spans, "launches": xp.launches,
+           "bytes": xp.bytes // (reps + 1)}, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def phase_mp_exchange(exchange):
+    """The cross-process exchange alone at phase 7's shapes (4 senders of
+    [4, 2^24, 2], phase 7's counts), each process's senders in IPC memory:
+    bit-exact against the senders' rows, timed from the first process's
+    first launch to the last process's synchronize on the host clock (mean
+    of 10 exchanges after one; each process's CUDA events beside it),
+    beside phase 7's in-process kernel."""
+    n_procs, _ = mp_layout()
+    init = WORK / "mp_bench_pg"
+    init.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _IPC_BENCH, f"file://{init}", str(n_procs),
+         str(pid), str(WORK / f"mp_bench.{pid}"), str(ROOT)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in range(n_procs)]
+    logs = [p.communicate(timeout=600)[0].decode(errors="replace")
+            for p in procs]
+    for pid, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise SystemExit(f"phase 19: exchange bench process {pid} "
+                             f"exited {p.returncode}:\n{text[-3000:]}")
+    res = [json.loads((WORK / f"mp_bench.{pid}").read_text())
+           for pid in range(n_procs)]
+    if not all(r["ok"] for r in res):
+        raise SystemExit("phase 19: the cross-process exchange delivered "
+                         "rows that differ from the senders'")
+    nbytes = sum(r["bytes"] for r in res)
+    # each exchange from the first process's first launch to the last
+    # process's synchronize (one monotonic clock on the machine); a
+    # process's own CUDA events miss the time its peers' launches run alone
+    spans = [(max(r["spans"][i][1] for r in res)
+              - min(r["spans"][i][0] for r in res)) * 1e3
+             for i in range(len(res[0]["spans"]))]
+    ms = float(np.mean(spans))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    if n_procs == 4:  # rows that cross cards go over NVLink
+        rng = np.random.default_rng(2)
+        n_rows = rng.integers(0, (1 << 24) + 1, size=(4, 4))
+        n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, 1 << 24, 12345
+        peer = n_rows * (1 - np.eye(4, dtype=np.int64))
+        link = max(peer.sum(0).max(), peer.sum(1).max()) * 4 * 2
+        bound = max(bound / 4, link / NVLINK_BYTES_PER_S * 1e3)
+    x2 = exchange[2]
+    log(f"[phase 19] cross-process exchange, {n_procs} processes, 4 x "
+        f"[4, 2^24, 2]: bit-exact; {ms:.4f} ms (mean of 10; best "
+        f"{min(spans):.4f}) from the first launch to the last synchronize "
+        f"(host clock), each process's kernels by CUDA events "
+        f"{[round(r['ms'], 4) for r in res]} ms, for {nbytes} bytes, "
+        f"bound_ms {bound:.4f}; in one process (phase 7) kernel_ms "
+        f"{x2['ms']:.4f} (CUDA events) bound_ms {x2['bound_ms']:.4f}; "
+        f"launches {[r['launches'] for r in res]}")
+    for pid in range(n_procs):
+        (WORK / f"mp_bench.{pid}").unlink()
+    return dict(ms=ms, event_ms=[r["ms"] for r in res], bound_ms=bound,
+                bytes=nbytes)
+
+
+def phase_multiprocess(fq_mid, full, exchange):
+    """Phase 19: multi-process counting, at mid size against one process,
+    at full size against phase 5, then the cross-process exchange alone."""
+    mid = phase_mp_mid(fq_mid)
+    full_row = phase_mp_full(full)
+    bench = phase_mp_exchange(exchange)
+    return dict(mid=mid, full=full_row, bench=bench)
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -3253,9 +3587,10 @@ PHASES = (
     (13, phase_sharded_spill_full, (12,)),
     (14, phase_other_routes, (4, 5)),
     (15, phase_inputs_and_readers, (4, 5)),
-    (16, phase_tools, (4, 5)),
+    (16, phase_tools, (5,)),
     (17, phase_greedy, (4, 5)),
     (18, phase_sharded_modes, (4, 5)),
+    (19, phase_multiprocess, (4, 5, 7)),
 )
 
 
@@ -3280,6 +3615,7 @@ def main(argv=()) -> int:
     (scan, fused, greedy), sort, exchange = got[2], got[3], got[7]
     greedy_run = got[17]  # phase 17's deferred full-size run
     modes = got[18]  # phase 18: the sharded modes and the SPMD step
+    mp = got[19]  # phase 19: multi-process counting
     step18 = modes["step"]["launches"]
     xs18 = modes["step"]["exchange"]
     sharded, (scan_1d, probes) = got[9], got[10]
@@ -3361,7 +3697,18 @@ def main(argv=()) -> int:
          "library_ms": x2["library_ms"],
          "sharded_modes_launches": {
              name: row["launches"]["ragged_all_to_all"]
-             for name, row in modes["full"].items()}},
+             for name, row in modes["full"].items()},
+         # phase 19: the same kernel across processes (peer processes'
+         # senders opened through CUDA IPC): each rank's launches in the
+         # full-size multi-process count, its kernel time there, and at
+         # phase 7's shapes, each against the bytes' bound
+         # (times: the host clock from the first process's first launch to
+         # the last one's synchronize)
+         "ipc_launches": mp["full"]["launches"],
+         "ipc_full_ms": mp["full"]["ms"],
+         "ipc_full_bound_ms": mp["full"]["bound_ms"],
+         "ipc_ms": mp["bench"]["ms"], "ipc_bound_ms": mp["bench"]["bound_ms"],
+         "ipc_event_ms": mp["bench"]["event_ms"]},
         {"name": "all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",

@@ -8,7 +8,9 @@ KMC1 output), the host-bucket route (device_store=False), the ntCard
 estimator (-e, --opt-out-size) and BAM and KMC-database input (-fbam,
 -fkmc).  distributed_count splits the store into shards, one per device
 of a list (a device may repeat), and routes rows to their bin owners
-through a third kernel, the ragged all-to-all.  Entry points take
+through a third kernel, the ragged all-to-all; after init_multihost the
+shards of several processes (a torch.distributed group) form one store,
+the kernel reading peer processes' rows through CUDA IPC.  Entry points take
 device="cuda" (default) or device="cpu" (devices= for the sharded count);
 they never fall back to the CPU on their own.
 
@@ -30,6 +32,7 @@ _LAZY = {
     "Stage2Results": ".runner",
     "count": ".runner",
     "distributed_count": ".parallel.multihost",
+    "init_multihost": ".parallel.distributed",
     "make_mesh": ".parallel.distributed",
 }
 

@@ -63,6 +63,13 @@ SIGNATURES = {
         # n_chunks, out, stream
         "kmc_ragged_a2a_owner": [_I32, _P, _I32, _I32, _I64, _I32, _I64,
                                  _I64, _P, _P],
+        # device, bytes, void** ptr, handle (64 bytes)
+        "kmc_ipc_alloc": [_I32, _I64, ctypes.POINTER(_P), _P],
+        # device, ptr
+        "kmc_ipc_free": [_I32, _P],
+        # device, handle (64 bytes), void** ptr
+        "kmc_ipc_open": [_I32, _P, ctypes.POINTER(_P)],
+        "kmc_ipc_close": [_I32, _P],
     },
     "probes": {
         # x, o, n, stream

@@ -13,8 +13,8 @@
 // and the port's consumers read only the first recv_rows[r][j] = n[j][r]
 // rows, as kmc_tpu/parallel/multihost.py:306-311 masks by them.
 //
-// Design.  One process drives every shard, so there is no remote DMA: the
-// owner's kernel reads the senders' buffers directly.  The launch gets a
+// Design.  There is no remote DMA: the owner's kernel reads the senders'
+// buffers directly, wherever they are (see "Across processes" below).  The launch gets a
 // device-resident table of int64: the D senders' base pointers, then the D*D
 // counts row-major (n[j][r] at D + j*D + r).  The grid runs over (chunk,
 // sender): block (c, j) copies rows [c*ci, min((c+1)*ci, n)) of sender j's
@@ -27,11 +27,26 @@
 // pair; on one card this is a device-to-device copy.  The kernel allocates
 // nothing and does not synchronise.
 //
+// Across processes.  When the shards belong to several processes (one
+// torch.distributed group on one node), the same kernel runs: each process
+// allocates its senders' buffers here (kmc_ipc_alloc: one cudaMalloc each,
+// exported with cudaIpcGetMemHandle, so a handle names the buffer's own
+// base and no offset inside a caching allocator's block is needed), the
+// handles cross the group as bytes, and each owner's process opens the
+// other processes' buffers (kmc_ipc_open: cudaIpcOpenMemHandle with
+// cudaIpcMemLazyEnablePeerAccess) and writes the opened pointers into the
+// same table.  A process never opens its own handles: its own senders keep
+// their direct pointers.  The caller orders it: senders synchronise, the
+// handles cross the group, owners open them, the group meets, owners
+// launch and synchronise, opened buffers are closed (kmc_ipc_close), the
+// group meets again, senders free (kmc_ipc_free).
+//
 // Bound.  Bytes: every delivered row read once and written once,
 // 2 * 4 B * C * sum(n); over 3.35 TB/s on one card, or, for rows that cross
 // cards, over NVLink's 450 GB/s each way.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -133,6 +148,69 @@ int kmc_ragged_a2a_owner(int device, const void* table, int n_dev, int owner,
   err = cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
+}
+
+// Allocate `bytes` of device memory on `device` for a sender's buffer and
+// export it: *ptr gets the buffer, handle (64 bytes, cudaIpcMemHandle_t) its
+// handle for the other processes of the group.  The caller's current device
+// is kept.
+int kmc_ipc_alloc(int device, long long bytes, void** ptr, void* handle) {
+  if (bytes < 1 || ptr == nullptr || handle == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  *ptr = nullptr;
+  err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) {
+    err = cudaIpcGetMemHandle((cudaIpcMemHandle_t*)handle, *ptr);
+    if (err != cudaSuccess) {
+      cudaFree(*ptr);
+      *ptr = nullptr;
+    }
+  }
+  cudaError_t err2 = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : err2);
+}
+
+// Free a buffer of kmc_ipc_alloc, once every process has closed it.
+int kmc_ipc_free(int device, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  err = cudaFree(ptr);
+  cudaError_t err2 = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : err2);
+}
+
+// Open another process's buffer (its 64-byte handle) for kernels on
+// `device`; *ptr gets its address there.  Peer access to the buffer's card
+// is enabled as needed (cudaIpcMemLazyEnablePeerAccess).
+int kmc_ipc_open(int device, const void* handle, void** ptr) {
+  if (handle == nullptr || ptr == nullptr) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  *ptr = nullptr;
+  err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  cudaError_t err2 = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : err2);
+}
+
+// Close a buffer of kmc_ipc_open.
+int kmc_ipc_close(int device, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  err = cudaIpcCloseMemHandle(ptr);
+  cudaError_t err2 = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : err2);
 }
 
 }  // extern "C"

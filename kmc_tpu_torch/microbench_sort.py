@@ -1,8 +1,7 @@
-"""Microbenchmarks on the card: the port of tools/microbench_sort.py's
-`pallas` and `sort` sections.
+"""Microbenchmarks on the card: the port of tools/microbench_sort.py.
 
-    python -m kmc_tpu_torch.microbench_sort [pallas|sort|all] \
-        [--device=cuda|cpu]
+    python -m kmc_tpu_torch.microbench_sort \
+        [sort|roofline|bitonic|pallas|scatter|onehot|all] [--device=cuda|cpu]
 
 MB_LOGN (default 28) sets N = 2^MB_LOGN u32 words, as in the tool.
 
@@ -28,11 +27,23 @@ key.  Each line sets the kernel beside one torch.sort of the same rows: of
 a packed int64 key for 2 keys, of the int64 key (stable=True when a
 payload rides) otherwise.  --device=cpu runs the plain version.
 
-Each measurement prints the tool's report line (name, n, ms, GB/s), then
-the kernel's time against the byte bound (every column read once and
-written once over 3.35 TB/s) and the library call.  The tool's other
-sections (roofline, bitonic, scatter, onehot) run no Pallas kernel and
-are not ported (ROADMAP §A).
+Each measurement of those two prints the tool's report line (name, n,
+ms, GB/s), then the kernel's time against the byte bound (every column
+read once and written once over 3.35 TB/s) and the library call.
+
+The other four sections time the tool's XLA ops as torch ops on the same
+inputs (no Pallas kernel runs there, so no kernel of the port's either),
+with the tool's labels and byte counts; u32 math runs on int32 bit views:
+
+  roofline  x + 1, the u32 cumulative sum and the reverse of N words
+            (numpy seed 0), each 2 x 4 B x N moved;
+  bitonic   one log N ladder of compare-exchange passes (a bitonic merge)
+            built from torch.roll and torch.where, and one pass alone;
+  scatter   a full permutation's scatter and gather (numpy seed 4) and a
+            scatter-add histogram into 64 K bins (index_add_);
+  onehot    the permutation of 256-row tiles of 8 u8 columns by a bf16
+            einsum with one_hot(perm) (numpy seed 5; at most 2^24 rows, as
+            the tool).
 """
 from __future__ import annotations
 
@@ -275,7 +286,179 @@ def sec_sort(n: int | None = None, device="cuda") -> dict:
     return out
 
 
-SECTIONS = {"pallas": sec_pallas, "sort": sec_sort}
+def _rand_u32(n: int, dev, seed: int = 0) -> torch.Tensor:
+    """The tool's rand_u32 (numpy seed), as an int32 bit view."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**32, size=n, dtype=np.uint32).view(np.int32)).to(dev)
+
+
+def _logn(n: int | None) -> int:
+    n = n or 1 << int(os.environ.get("MB_LOGN", "28"))
+    if n & (n - 1):
+        raise ValueError("N must be a power of two")
+    return n.bit_length() - 1
+
+
+def u32_add1(x: torch.Tensor) -> torch.Tensor:
+    return x + 1  # int32 adds wrap like u32
+
+
+def u32_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive u32 sum, wrapping (int32 bit views)."""
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def reverse(x: torch.Tensor) -> torch.Tensor:
+    return torch.flip(x, (0,))
+
+
+def sec_roofline(n: int | None = None, device="cuda") -> dict:
+    """The tool's roofline section: x + 1, cumsum and reverse of N u32
+    words; returns {label: {"n", "ms", "gbs"}}."""
+    logn = _logn(n)
+    N = 1 << logn
+    dev = resolve_device(device)
+    a = _rand_u32(N, dev)
+    out = {}
+    for label, fn in (("elementwise add (r+w)", u32_add1),
+                      ("cumsum u32", u32_cumsum),
+                      ("reverse (r+w)", reverse)):
+        secs = _timeit(lambda: fn(a), dev)
+        report(label, N, secs, 2 * 4 * N)
+        out[label] = dict(n=N, ms=secs * 1e3, gbs=2 * 4 * N / secs / 1e9)
+    return out
+
+
+_SIGN = -(1 << 31)  # flips the sign bit: u32 order as int32 order
+
+
+def ce_pass(x: torch.Tensor, stride: int, iota: torch.Tensor) -> torch.Tensor:
+    """One bitonic compare-exchange pass at `stride` over u32 words (the
+    tool's _ce_pass): the lower element of each pair takes the minimum,
+    the upper the maximum, from rolled copies."""
+    up = torch.roll(x, -stride)
+    dn = torch.roll(x, stride)
+    is_lo = (iota & stride) == 0
+    fx, fup, fdn = x ^ _SIGN, up ^ _SIGN, dn ^ _SIGN
+    return torch.where(is_lo, torch.minimum(fx, fup),
+                       torch.maximum(fx, fdn)) ^ _SIGN
+
+
+def bitonic_ladder(x: torch.Tensor, iota: torch.Tensor) -> torch.Tensor:
+    """log N compare-exchange passes at strides N/2, ..., 1: a bitonic
+    merge (the tool's `merge`)."""
+    for s in range(x.shape[0].bit_length() - 2, -1, -1):
+        x = ce_pass(x, 1 << s, iota)
+    return x
+
+
+def sec_bitonic(n: int | None = None, device="cuda") -> dict:
+    """The tool's bitonic section: the merge ladder of log N passes and one
+    pass alone; returns {label: {"n", "ms", "gbs"}}."""
+    logn = _logn(n)
+    N = 1 << logn
+    dev = resolve_device(device)
+    a = _rand_u32(N, dev)
+    iota = torch.arange(N, dtype=torch.int32, device=dev)
+    out = {}
+    for label, fn, nbytes in (
+            (f"bitonic merge ladder ({logn} passes)",
+             lambda: bitonic_ladder(a, iota), 2 * 4 * N * logn),
+            ("single compare-exchange pass",
+             lambda: ce_pass(a, 1 << (logn - 1), iota), 2 * 4 * N)):
+        secs = _timeit(fn, dev)
+        report(label, N, secs, nbytes)
+        out[label] = dict(n=N, ms=secs * 1e3, gbs=nbytes / secs / 1e9)
+    return out
+
+
+HIST_BINS = 1 << 16
+
+
+def scatter_inputs(N: int, dev):
+    """The tool's scatter inputs: x (seed 0), a permutation of N (seed 4)
+    and its low 16 bits, the histogram's bins."""
+    idx = torch.from_numpy(np.random.default_rng(4).permutation(N).astype(
+        np.int32)).to(dev)
+    return _rand_u32(N, dev), idx, idx & (HIST_BINS - 1)
+
+
+def scatter_perm(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """zeros_like(x).at[idx].set(x)."""
+    out = torch.zeros_like(x)
+    out[idx.long()] = x
+    return out
+
+
+def gather_perm(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x[idx.long()]
+
+
+def scatter_add_histogram(bins: torch.Tensor) -> torch.Tensor:
+    """zeros(64 K, u32).at[bins].add(1), as an int32 bit view."""
+    hist = torch.zeros(HIST_BINS, dtype=torch.int32, device=bins.device)
+    return hist.index_add_(0, bins.long(), torch.ones_like(bins))
+
+
+def sec_scatter(n: int | None = None, device="cuda") -> dict:
+    """The tool's scatter section: a full permutation's scatter and gather,
+    and a scatter-add histogram into 64 K bins; returns {label: {"n",
+    "ms"}}."""
+    N = 1 << _logn(n)
+    dev = resolve_device(device)
+    a, idx, hi = scatter_inputs(N, dev)
+    out = {}
+    for label, fn in (("XLA scatter (full permutation)",
+                       lambda: scatter_perm(a, idx)),
+                      ("XLA gather (full permutation)",
+                       lambda: gather_perm(a, idx)),
+                      ("XLA scatter-add histogram (64K bins)",
+                       lambda: scatter_add_histogram(hi))):
+        secs = _timeit(fn, dev)
+        report(label, N, secs, None)
+        out[label] = dict(n=N, ms=secs * 1e3)
+    return out
+
+
+TILE = 256  # the one-hot permute's tile
+
+
+def onehot_inputs(N: int, dev):
+    """The tool's one-hot inputs (numpy seed 5): perm int32[nb, 256], each
+    row one of 1024 permutations of 256, and vals u8[nb, 256, 8], nb =
+    min(N, 2^24) / 256."""
+    nb = min(N, 1 << 24) // TILE
+    rng = np.random.default_rng(5)
+    perm = np.stack([rng.permutation(TILE) for _ in range(1024)])[
+        rng.integers(0, 1024, nb)].astype(np.int32)
+    vals = rng.integers(0, 256, (nb, TILE, 8), dtype=np.uint8)
+    return torch.from_numpy(perm).to(dev), torch.from_numpy(vals).to(dev)
+
+
+def onehot_permute(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """out[b, i] = vals[b, perm[b, i]] as the tool computes it: a bf16
+    einsum of one_hot(perm) with the rows (u8 values are exact in bf16)."""
+    oh = torch.nn.functional.one_hot(perm.long(), TILE).to(torch.bfloat16)
+    out = torch.einsum("bij,bjc->bic", oh, vals.to(torch.bfloat16))
+    return out.to(torch.uint8)
+
+
+def sec_onehot(n: int | None = None, device="cuda") -> dict:
+    """The tool's onehot section: 256-row tiles of 8-byte rows permuted by
+    a one-hot matmul; returns {label: {"n", "ms", "rows_per_s"}}."""
+    N = 1 << _logn(n)
+    dev = resolve_device(device)
+    perm, vals = onehot_inputs(N, dev)
+    label = "one-hot matmul permute 256-tiles (8B rows)"
+    secs = _timeit(lambda: onehot_permute(perm, vals), dev)
+    report(label, N, secs, None)
+    print(f"  -> {N / secs / 1e6:.0f} M rows/s", flush=True)
+    return {label: dict(n=N, ms=secs * 1e3, rows_per_s=N / secs)}
+
+
+SECTIONS = {"sort": sec_sort, "roofline": sec_roofline,
+            "bitonic": sec_bitonic, "pallas": sec_pallas,
+            "scatter": sec_scatter, "onehot": sec_onehot}
 
 
 def main(argv=None) -> int:
@@ -287,8 +470,7 @@ def main(argv=None) -> int:
             args.remove(a)
     which = args[0] if args else "all"
     if which != "all" and which not in SECTIONS:
-        print(f"section {which!r} is not ported: it runs no Pallas kernel "
-              f"(ROADMAP §A lists it); ported: {', '.join(SECTIONS)}",
+        print(f"no section {which!r}; the sections: {', '.join(SECTIONS)}",
               file=sys.stderr)
         return 2
     dev = resolve_device(device)

@@ -1,5 +1,5 @@
-"""Devices of a multi-device count, and the SPMD count step (the port's
-kmc_tpu/parallel/distributed.py).
+"""Devices and processes of a multi-device count, and the SPMD count step
+(the port's kmc_tpu/parallel/distributed.py).
 
 kmc_tpu builds a jax.sharding.Mesh; the port takes a plain list of
 torch.devices, one per shard of the store.  A list may repeat a device, so
@@ -14,11 +14,23 @@ dense exchange of fixed-capacity segments (exchange_kernel.py's
 all_to_all, the dense entry of csrc/ragged_a2a.cu) and are merged by each
 owner with the grouping sort.  kmc_tpu's step runs jax.lax.sort and
 jax.lax.all_to_all under shard_map; one process drives every shard here.
+
+init_multihost joins a torch.distributed group (gloo), the counterpart of
+jax.distributed's control plane: flags, histograms, scalars and stats
+cross it as CPU tensors or pickled objects, whatever the shards' devices
+are, so several processes may share one card.  Fleet is a process's view
+of that group for the sharded count: its rank, and the global shard list,
+which is the ranks' own device lists concatenated rank-major (the order
+of jax's mesh positions).
 """
 from __future__ import annotations
 
+import socket
+from datetime import timedelta
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.extract import i32_to_u32, u32_to_i32
@@ -26,6 +38,154 @@ from ..ops.sort_kernel import radix_sort_columns
 from ..ops.sortcount import stage1_batch
 from ..ops.store import _group_reduce
 from .exchange_kernel import all_to_all
+
+
+def init_multihost(coordinator_address: str | None = None,
+                   num_processes: int | None = None,
+                   process_id: int | None = None,
+                   heartbeat_timeout_seconds: int | None = None) -> None:
+    """Join the torch.distributed group of a multi-process count (mirrors
+    kmc_tpu's init_multihost).  Call once per process, before the count;
+    one-process runs may skip it.
+
+    coordinator_address: "host:port" (TCP, process 0 listens), or an init
+    URL ("tcp://host:port", "file:///path" for processes of one node that
+    share a file system); None takes torch's environment variables
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  The group is gloo: the
+    control plane runs on CPU tensors whatever the shards' devices are,
+    and needs no NCCL.
+
+    heartbeat_timeout_seconds bounds how long a collective waits for a
+    peer (default 100 s, jax's default, which kmc_tpu keeps); a peer that
+    dies closes its connections, so the survivors' next collective raises
+    instead of hanging.  The cross-process exchange of card shards reads
+    the other processes' card memory through CUDA IPC, which needs one
+    node: a group whose ranks sit on several hosts raises here when this
+    machine has a card."""
+    if coordinator_address is None:
+        url = "env://"
+    elif "://" in coordinator_address:
+        url = coordinator_address
+    else:
+        url = f"tcp://{coordinator_address}"
+    kwargs = {}
+    if num_processes is not None:
+        kwargs["world_size"] = int(num_processes)
+    if process_id is not None:
+        kwargs["rank"] = int(process_id)
+    dist.init_process_group(
+        "gloo", init_method=url,
+        timeout=timedelta(seconds=heartbeat_timeout_seconds or 100),
+        **kwargs)
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    if len(set(hosts)) > 1 and torch.cuda.is_available():
+        raise RuntimeError(
+            f"kmc_tpu_torch: the ranks run on several hosts "
+            f"{sorted(set(hosts))}; the cross-process exchange of card shards "
+            "reads peer processes' card memory through CUDA IPC, which works "
+            "on one node only")
+
+
+def process_count() -> int:
+    """Ranks of the live torch.distributed group (1 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def process_index() -> int:
+    """This process's rank (0 without a group)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+class Fleet:
+    """This process's place in the count's process group: rank, world size
+    and the global shard layout (layout[r] lists rank r's global shard
+    positions; the global list is the ranks' device lists concatenated
+    rank-major).  With one process every collective is the identity."""
+
+    def __init__(self, devices):
+        self.world = process_count()
+        self.rank = process_index()
+        self.multi = self.world > 1
+        kinds = {d.type for d in devices}
+        if len(kinds) != 1:
+            raise ValueError(f"shards of mixed device types {sorted(kinds)}")
+        mine = (len(devices), kinds.pop())
+        every = self.all_gather_obj(mine)
+        if len({kind for _, kind in every}) != 1:
+            raise ValueError(f"the ranks' shards mix device types: {every}")
+        self.layout, pos = [], 0
+        for n, _ in every:
+            self.layout.append(list(range(pos, pos + n)))
+            pos += n
+        self.D = pos
+        self.positions = self.layout[self.rank]
+
+    def all_gather_obj(self, obj) -> list:
+        """Every rank's obj, in rank order."""
+        if not self.multi:
+            return [obj]
+        out = [None] * self.world
+        dist.all_gather_object(out, obj)
+        return out
+
+    def gather_obj(self, obj):
+        """Every rank's obj in rank order on rank 0; None elsewhere."""
+        if not self.multi:
+            return [obj]
+        out = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0)
+        return out
+
+    def broadcast_obj(self, obj):
+        """Rank 0's obj on every rank."""
+        if not self.multi:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def allsum(self, values):
+        """Elementwise int64 sums over the ranks of a list of ints."""
+        v = torch.tensor([int(x) for x in values], dtype=torch.int64)
+        if self.multi:
+                dist.all_reduce(v)
+        return [int(x) for x in v]
+
+    def allmax(self, value: int) -> int:
+        if not self.multi:
+            return int(value)
+        v = torch.tensor([int(value)], dtype=torch.int64)
+        dist.all_reduce(v, op=dist.ReduceOp.MAX)
+        return int(v)
+
+    def sum_to_root(self, t: torch.Tensor):
+        """The ranks' CPU tensors t summed on rank 0; None elsewhere."""
+        if not self.multi:
+            return t
+        dist.reduce(t, dst=0)
+        return t if self.rank == 0 else None
+
+    def all_flags(self, flags) -> np.ndarray:
+        """Every rank's list of bools as int64[world, n], by one all-gather
+        of a small tensor."""
+        v = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64)
+        if not self.multi:
+            return v.numpy()[None]
+        out = [torch.empty_like(v) for _ in range(self.world)]
+        dist.all_gather(out, v)
+        return torch.stack(out).numpy()
+
+    def all_rows(self, local: np.ndarray) -> np.ndarray:
+        """Each rank's rows (one per local shard), stacked in global shard
+        order."""
+        if not self.multi:
+            return local
+        return np.concatenate(self.all_gather_obj(local))
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> list:

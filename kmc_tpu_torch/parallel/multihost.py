@@ -1,7 +1,9 @@
 """Multi-device counting: kmc_tpu/parallel/multihost.py's distributed_count on torch.
 
-One process drives D shards of the store, each a DeviceKmerStore
-(ops/store.py) on its own device; a device may hold several shards.
+A process drives its shards of the store, each a DeviceKmerStore
+(ops/store.py) on its own device; a device may hold several shards.  One
+process may drive every shard (D below), or several processes theirs
+(the last paragraph).
 
   ingest    batches are dealt round-robin to the shards, one group of D
             batches at a time; each shard runs the single-device ingest
@@ -56,7 +58,30 @@ The other modes follow kmc_tpu's distributed_count in one process:
             shard's device hashes the chunk stream the count ingests, in
             kmc_tpu's order; -e writes nothing, --opt-out-size takes the
             LUT width from the estimate.
-Multi-process runs (torch.distributed) are ROADMAP A11c.
+
+Several processes (a torch.distributed group, parallel/distributed.py's
+init_multihost; kmc_tpu's multi-host run): each process drives its own
+devices' shards, and the global shard list is the ranks' lists
+concatenated rank-major.  With shard_input each process parses a disjoint
+record-aligned byte range of the input (gz, BAM and -fkmc files whole, by
+size midpoint), threads the super-k-mer carry through its own shards
+only, and every process runs the same number of ingest groups: one flag
+all-gather a group, a process that runs dry padding with all-invalid
+batches, the feed (boundary-delta or packed+mask) chosen fleet-wide.
+Without shard_input every process parses the whole stream and ingests
+its own positions of each group of D batches; the carry of its first
+shard is the previous batch's last signature, computed on the host.
+Compactions and spills are fleet-wide decisions: the fullest shard is a
+max over the group, and each spill's runs are gathered to every process,
+so the budget, the re-merge and the MemoryError fall at the same spill on
+every rank.  At finalize the per-sender bin edges are gathered so every
+rank plans the same owners; the exchange moves the rows across processes
+(exchange_kernel.py's ragged_all_to_all_processes: the same kernel, peer
+processes' buffers opened through CUDA IPC; all_to_all_single on CPU
+shards); each owner reduces what it received, and rank 0 gathers the
+records and writes the database.  Every rank returns the same global
+stats.  Small k sums the histograms to rank 0; the sketches of -e and
+--opt-out-size are summed across processes (kmc_tpu's exact COO merge).
 """
 from __future__ import annotations
 
@@ -74,8 +99,9 @@ from ..ops.sort_kernel import radix_sort_columns
 from ..ops.store import (DeviceKmerStore, _completer, _cutoffs, _group_reduce,
                          _host_u32, _split_bins, merge_runs, remerge_runs)
 from ..runner import MIN_DEVICE_K, n_cpus
-from .distributed import resolve_devices
-from .exchange_kernel import ragged_all_to_all
+from .distributed import Fleet, resolve_devices
+from .exchange_kernel import (ragged_all_to_all, ragged_all_to_all_processes,
+                              send_buffer)
 
 
 def _round_pow2(x: int, lo: int = 64) -> int:
@@ -109,16 +135,21 @@ class ShardedKmerStore:
                  sig_len: int = 9, both_strands: bool = True,
                  n_bins: int = 512, initial_rows: int | None = None,
                  map_mode: str = "prefix", sig_map: np.ndarray | None = None,
-                 spill_budget_bytes: int | None = None):
-        """map_mode "prefix" or "greedy" (sig_map, from
-        signatures.build_signature_map, required: every shard bins its
-        batches through it as it ingests them, kmc_tpu's eager sharded
-        greedy).  spill_budget_bytes: the -m plan's budget for spilled rows
-        (None sets none)."""
+                 spill_budget_bytes: int | None = None,
+                 fleet: Fleet | None = None):
+        """devices: this process's shards.  map_mode "prefix" or "greedy"
+        (sig_map, from signatures.build_signature_map, required: every shard
+        bins its batches through it as it ingests them, kmc_tpu's eager
+        sharded greedy).  spill_budget_bytes: the -m plan's budget for
+        spilled rows (None sets none).  fleet: the process group's layout
+        (default: this process's, made here; a collective when a group is
+        live)."""
         if map_mode == "greedy" and sig_map is None:
             raise ValueError("greedy map_mode requires sig_map")
         self.devices = resolve_devices(devices)
-        self.D = len(self.devices)
+        self.fleet = fleet or Fleet(self.devices)
+        self.D = self.fleet.D  # shards of the whole group
+        self.positions = self.fleet.positions  # this process's, in order
         self.cap = int(capacity_rows_per_device)
         greedy = dict(sig_map=sig_map, greedy_defer=False) \
             if map_mode == "greedy" else {}
@@ -143,6 +174,7 @@ class ShardedKmerStore:
         self._carry = None  # last signature of the latest ingested batch
         self.n_compactions = 0
         self.exchange_bytes = 0  # bytes the exchange read and wrote
+        self.exchange_route = None  # "kernel", "ipc_kernel" or "plain"
         # host-side spilled rows: per spill, each shard's sorted run
         # (uint32 key columns tuple, uint32 counts)
         self.spilled: list[list] = []
@@ -150,18 +182,25 @@ class ShardedKmerStore:
         self.n_spills = 0
         self.n_remerges = 0
         self.merge_launches = 0  # grouping-sort launches of the merges
+        self._owner_merge_launches = 0  # of them, this process's owners'
         self.timings: dict[str, float] = dict(spill_s=0.0, remerge_s=0.0)
 
     # -- ingest --
 
-    def ingest_group(self, items, *, s: int):
-        """Ingest one group: items[d] is shard d's packed batch, ("b", buf,
-        tail_start) in the boundary-delta feed or ("m", buf) in the
-        packed+mask feed; a last group may hold fewer than D."""
+    def ingest_group(self, items, *, s: int, carry=None):
+        """Ingest one group: items[d] is this process's shard d's packed
+        batch, ("b", buf, tail_start) in the boundary-delta feed or ("m",
+        buf) in the packed+mask feed; a last group may hold fewer.  Every
+        process of a group calls it once a group (compaction and spill are
+        fleet-wide).  carry (int32[1]), when given, is the signature before
+        the first shard's batch (a multi-process count without sharded
+        input: the previous batch was another process's)."""
         if self._rows_per_device + s > self.cap:
             self.compact()
             if self._rows_per_device + s > self.cap:
                 self.spill()
+        if carry is not None:
+            self._carry = carry
         for shard, item in zip(self.shards, items):
             if self._carry is not None:
                 shard.prev_sig = self._carry.to(shard.device)
@@ -177,7 +216,8 @@ class ShardedKmerStore:
         for shard in self.shards:
             shard.compact()
         self.n_compactions += 1
-        self._rows_per_device = max(sh.n_used for sh in self.shards)
+        self._rows_per_device = self.fleet.allmax(
+            max(sh.n_used for sh in self.shards))
 
     # -- spill to host RAM under the -m budget --
 
@@ -185,7 +225,10 @@ class ShardedKmerStore:
         """Move every shard's live rows to host RAM, each shard's as one run
         sorted by its key columns, and start every shard empty (mirrors
         kmc_tpu's spill, which pulls the live rows as they stand: no
-        compaction first); then hold the runs to the budget."""
+        compaction first); then hold the runs to the budget.  The runs of
+        every process are gathered to every process in global shard order
+        (kmc_tpu's _pull_rows all-gathers them), so the spilled set, its
+        budget and its re-merges are the same on every rank."""
         t0 = time.perf_counter()
         runs = []
         for shard in self.shards:
@@ -196,6 +239,9 @@ class ShardedKmerStore:
                          _host_u32(rows[-1])))
             shard.n_used = 0
             shard._since_compact = 0
+        if self.fleet.multi:
+            runs = [run for part in self.fleet.all_gather_obj(runs)
+                    for run in part]
         self.timings["spill_s"] += time.perf_counter() - t0
         self.spilled.append(runs)
         self.n_spills += 1
@@ -234,9 +280,11 @@ class ShardedKmerStore:
         self.timings["remerge_s"] += time.perf_counter() - t0
 
     def total_occurrences(self) -> int:
+        """This process's shards' occurrences."""
         return sum(sh.total_occurrences() for sh in self.shards)
 
     def total_super_kmers(self) -> int:
+        """This process's shards' super-k-mers."""
         return sum(sh.total_super_kmers() for sh in self.shards)
 
     def host_sig_map(self) -> np.ndarray:
@@ -270,10 +318,11 @@ class ShardedKmerStore:
         return _round_pow2(int(seg.max()) if seg.size else 64), bounds
 
     def _received_rows(self):
-        """Exchange: returns (per owner (key columns, counts or None) of the
-        rows it owns, from every shard; the owners' bin bounds, None for
-        one owner)."""
+        """Exchange: returns (per owner of this process (key columns, counts
+        or None) of the rows it owns, from every shard of the group; the
+        owners' bin bounds, None for one owner)."""
         D = self.D
+        multi = self.fleet.multi
         t0 = time.perf_counter()
         senders = [sh._live_rows() for sh in self.shards]
         for sh in self.shards:  # the store is consumed
@@ -294,31 +343,39 @@ class ShardedKmerStore:
             edges.append(torch.searchsorted(
                 self._bins(rows[0]), torch.arange(nh + 1, device=dev)))
         del senders
-        # edges[j, b]: sender j's first row of bin b or a later one
-        edges = np.stack([e.cpu().numpy() for e in edges])
+        # edges[j, b]: sender j's first row of bin b or a later one, for
+        # every sender of the group (each process plans the same owners)
+        local_edges = np.stack([e.cpu().numpy() for e in edges])
+        edges = self.fleet.all_rows(local_edges)
         cap, bounds = self._owner_plan(np.diff(edges, axis=1))
         self.timings["owner_hist_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         C = self.n_cols + int(has_counts)
-        send, n_rows = [], []
-        for rows, starts, dev in zip(sorted_rows, edges[:, bounds],
+        counts = np.diff(edges[:, bounds], axis=1)  # n[j][o], every sender
+        if int(np.maximum(counts - cap, 0).sum()):
+            raise MemoryError("all_to_all capacity exceeded: the owner "
+                              "plan's segments disagree with the rows")
+        send = []
+        for rows, starts, dev in zip(sorted_rows, local_edges[:, bounds],
                                      self.devices):
-            n_per_owner = np.diff(starts)
-            if int(np.maximum(n_per_owner - cap, 0).sum()):
-                raise MemoryError("all_to_all capacity exceeded: the owner "
-                                  "plan's segments disagree with the rows")
-            buf = torch.empty((D, cap, C), dtype=torch.int32, device=dev)
+            buf = send_buffer((D, cap, C), dev, multi)
             for o in range(D):
-                lo, n = int(starts[o]), int(n_per_owner[o])
+                lo, n = int(starts[o]), int(starts[o + 1] - starts[o])
                 for c, col in enumerate(rows):
                     buf[o, :n, c] = col[lo:lo + n]
             send.append(buf)
-            n_rows.append(n_per_owner)
         del sorted_rows
-        outs, recv_rows = ragged_all_to_all(send, n_rows)
+        if multi:
+            outs, recv_rows = ragged_all_to_all_processes(
+                send, counts, self.fleet.layout)
+            route = "plain" if self.devices[0].type == "cpu" else "ipc_kernel"
+        else:
+            outs, recv_rows = ragged_all_to_all(send, counts)
+            route = "plain" if self.devices[0].type == "cpu" else "kernel"
         del send
-        self.exchange_bytes = int(2 * 4 * C * recv_rows.sum())
+        self.exchange_route = route
+        self.exchange_bytes = int(2 * 4 * C * counts.sum())
         received = []
         for r, out in enumerate(outs):
             rows = torch.cat([out[j, :int(recv_rows[r, j])]
@@ -340,14 +397,14 @@ class ShardedKmerStore:
         return lo, hi
 
     def _owner_groups(self, emit):
-        """Exchange, then per owner the grouping sort and, when the store
-        spilled, the merge with the spilled rows of its bins.  emit(reps,
-        totals) takes each owner's groups in (bin, k-mer) order, owner
-        after owner: key columns and int64 totals, the u32 group totals
-        (a group that wraps to 0 dropped) or, after spills, their exact
-        sums with the spilled rows clamped at 0xFFFFFFFF, as kmc_tpu's
-        finalize_packed and finalize take them.  Returns (n_total,
-        n_super_kmers).  The store is consumed."""
+        """Exchange, then per owner of this process the grouping sort and,
+        when the store spilled, the merge with the spilled rows of its
+        bins.  emit(reps, totals) takes each owner's groups in (bin, k-mer)
+        order, owner after owner: key columns and int64 totals, the u32
+        group totals (a group that wraps to 0 dropped) or, after spills,
+        their exact sums with the spilled rows clamped at 0xFFFFFFFF, as
+        kmc_tpu's finalize_packed and finalize take them.  Returns this
+        process's (n_total, n_super_kmers).  The store is consumed."""
         n_total = self.total_occurrences()
         n_skm = self.total_super_kmers()
         received, bounds = self._received_rows()
@@ -361,23 +418,32 @@ class ShardedKmerStore:
         spilled = [run for spill in self.spilled for run in spill]
         self.spilled = []
         launches = radix_sort_columns.launches
-        for o in range(self.D):
-            reps, totals = grouped[o]
-            grouped[o] = None
+        for l, o in enumerate(self.positions):
+            reps, totals = grouped[l]
+            grouped[l] = None
             if not spilled:
                 emit(reps, totals)
                 continue
             lo, hi = self._owner_keys(bounds, o)
             merge_runs([(reps, u32_to_i32(totals))] + spilled, self.n_cols,
-                       self.devices[o],
+                       self.devices[l],
                        lambda r, t: emit(r, t.clamp_(max=0xFFFFFFFF)),
                        lo=lo, hi=hi)
             del reps, totals
         del spilled
         _sync(self.devices)
-        self.merge_launches += radix_sort_columns.launches - launches
+        self._owner_merge_launches = radix_sort_columns.launches - launches
+        self.merge_launches += self._owner_merge_launches
         self.timings["finalize_exec_s"] = time.perf_counter() - t0
         return n_total, n_skm
+
+    def _global(self, n_total, n_skm, stats):
+        """The group's (n_total, n_super_kmers, stats) from this process's,
+        and the merges' launches of every owner added in."""
+        sums = self.fleet.allsum([n_total, n_skm, *stats,
+                                  self._owner_merge_launches])
+        self.merge_launches += sums[-1] - self._owner_merge_launches
+        return sums[0], sums[1], tuple(sums[2:-1])
 
     def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
                          counter_max: int, lut_prefix_len: int,
@@ -385,8 +451,9 @@ class ShardedKmerStore:
         """The owners' groups (_owner_groups) through the completer.
         Returns (rec u8[N, record_bytes] in (bin, k-mer) order,
         cutoff-filtered; lut uint64[n_used_bins << 2*lpl]; (n_unique,
-        n_below, n_above); n_total; n_super_kmers).  The store is
-        consumed."""
+        n_below, n_above); n_total; n_super_kmers), the counts the whole
+        group's; in a process group rank 0 gathers rec and lut, and the
+        other ranks get None for both.  The store is consumed."""
         parts = []
 
         def complete(reps, totals):
@@ -405,9 +472,21 @@ class ShardedKmerStore:
             lut_h = lut_o.cpu().numpy().astype(np.uint64)
             lut = lut_h if lut is None else lut + lut_h
             stats += torch.stack(stats_o).cpu().numpy()
+        del parts
+        n_total, n_skm, stats = self._global(n_total, n_skm, stats)
+        if self.fleet.multi:
+            # the owners are rank-major: rank 0 concatenates in rank order
+            got = self.fleet.gather_obj((recs, lut))
+            if got is None:
+                recs, lut = [None], None
+            else:
+                # an owner whose bins hold no row emits nothing
+                recs = [r for part, _ in got for r in part]
+                luts = [lut_p for _, lut_p in got if lut_p is not None]
+                lut = sum(luts[1:], luts[0]) if luts else None
         self.timings["finalize_d2h_s"] = time.perf_counter() - t0
         rec = np.concatenate(recs) if len(recs) > 1 else recs[0]
-        return (rec, lut, tuple(int(x) for x in stats), n_total, n_skm)
+        return (rec, lut, stats, n_total, n_skm)
 
     def finalize(self, *, cutoff_min: int, cutoff_max: int,
                  counter_max: int):
@@ -416,7 +495,9 @@ class ShardedKmerStore:
         (_owner_groups), cutoff-filtered and clamped to counter_max.
         Returns (bins int32, words uint32[N, W], counts uint32, (n_unique,
         n_below, n_above), n_total, n_super_kmers), host arrays in (bin,
-        k-mer) order.  The store is consumed."""
+        k-mer) order, the counts the whole group's; in a process group
+        rank 0 gathers the arrays, the other ranks get None for them.  The
+        store is consumed."""
         parts = []
 
         def collect(reps, totals):
@@ -441,37 +522,60 @@ class ShardedKmerStore:
             words.append(_host_u32(w))
             counts.append(_host_u32(c))
             stats += st.cpu().numpy()
+        del parts
+        n_total, n_skm, stats = self._global(n_total, n_skm, stats)
+        out = [np.concatenate(bins), np.concatenate(words),
+               np.concatenate(counts)]
+        if self.fleet.multi:
+            got = self.fleet.gather_obj(out)
+            out = [None] * 3 if got is None else [
+                np.concatenate(cols) for cols in zip(*got)]
         self.timings["finalize_d2h_s"] = time.perf_counter() - t0
-        return (np.concatenate(bins), np.concatenate(words),
-                np.concatenate(counts), tuple(int(x) for x in stats),
-                n_total, n_skm)
+        return (*out, stats, n_total, n_skm)
 
 
 def _process_chunk_gen(input_files, fmt, state, *, shard_input,
-                       n_parse_threads, min_shard_bytes):
-    """The input's code-chunk stream (mirrors kmc_tpu's _process_chunk_gen
-    for one process): for text formats one record-aligned shard list read
-    by N parser threads, or the serial stream when not shard_input; BAM
-    and KMC-database files are read whole, as kmc_tpu reads them (both
-    strands of every BAM record, whatever both_strands says)."""
+                       n_parse_threads, min_shard_bytes, fleet=None):
+    """This process's code-chunk stream (mirrors kmc_tpu's
+    _process_chunk_gen): for text formats its record-aligned part of the
+    shard list (process_input_shards over the group's processes) read by N
+    parser threads, or the whole serial stream when not shard_input; BAM
+    and KMC-database files are read whole, each by the process whose share
+    of the input's bytes holds the file's midpoint, as kmc_tpu reads them
+    (both strands of every BAM record, whatever both_strands says)."""
     from ..io.readers import (file_code_stream, process_input_shards,
                               shard_code_stream)
 
     if not shard_input:
         return file_code_stream(input_files, fmt, state)
+    n_procs, pid = (fleet.world, fleet.rank) if fleet else (1, 0)
     n_th = n_parse_threads or n_cpus()
-    if fmt == "bam":
-        from ..runner import bam_chunks
+    if fmt in ("bam", "kmc"):
+        from pathlib import Path
 
-        return bam_chunks(input_files, state, both_strands=True,
-                          n_threads=n_th)
-    if fmt == "kmc":
+        def size(p):
+            if Path(p).exists():
+                return Path(p).stat().st_size
+            suf = Path(str(p) + ".kmc_suf")  # -fkmc takes a DB prefix
+            return suf.stat().st_size if suf.exists() else 0
+
+        sizes = [size(p) for p in input_files]
+        total = sum(sizes) or 1
+        mine, acc = [], 0
+        for path, sz in zip(input_files, sizes):
+            if min(int((acc + sz / 2) * n_procs / total), n_procs - 1) == pid:
+                mine.append(path)
+            acc += sz
+        if fmt == "bam":
+            from ..runner import bam_chunks
+
+            return bam_chunks(mine, state, both_strands=True, n_threads=n_th)
         from ..runner import kmc_db_code_chunks
 
-        return kmc_db_code_chunks(input_files, state)
-    parts = process_input_shards(input_files, fmt, 1,
+        return kmc_db_code_chunks(mine, state)
+    parts = process_input_shards(input_files, fmt, n_procs,
                                  min_shard_bytes=min_shard_bytes)
-    return shard_code_stream(parts[0], fmt, state, n_threads=n_th)
+    return shard_code_stream(parts[pid], fmt, state, n_threads=n_th)
 
 
 def _groups(batches, D: int):
@@ -491,6 +595,112 @@ def _groups(batches, D: int):
             group = []
     if group:
         yield group
+
+
+def _local_groups(batches, n_local: int):
+    """This process's batches in groups of up to n_local, each (batch, its
+    boundary-delta pack (buf or None, tail_start)): the producer half of
+    _lockstep_groups, which runs no collective."""
+    from ..io.native import pack_codes_boundaries
+
+    group = []
+    for batch in batches:
+        group.append((batch, pack_codes_boundaries(batch)))
+        if len(group) == n_local:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def _lockstep_groups(local_groups, fleet, n_local: int, batch_bytes: int):
+    """Groups of this process's batches (sharded input in a process
+    group), every process yielding the same number (mirrors kmc_tpu's
+    _lockstep_groups): one flag all-gather a group, on the calling thread;
+    a process whose own stream has run dry pads its shards with
+    all-invalid batches until every process has; a group takes the
+    boundary-delta feed only when every batch of every process admits it,
+    else the packed+mask feed.  local_groups yields _local_groups' groups."""
+    from ..defs import CODE_INVALID
+    from ..io.native import pack_codes_fused
+
+    src = iter(local_groups)
+    pad = None
+    done = False
+    try:
+        while True:
+            group = None if done else next(src, None)
+            if group is None:
+                done, group = True, []
+            bounds_ok = (len(group) == n_local
+                         and all(buf is not None for _, (buf, _) in group))
+            flags = fleet.all_flags([bool(group), bounds_ok])
+            if not flags[:, 0].any():
+                return
+            if flags[:, 1].all():
+                yield [("b", buf, ts) for _, (buf, ts) in group]
+                continue
+            if pad is None and len(group) < n_local:
+                pad = np.full(batch_bytes, CODE_INVALID, np.uint8)
+            raw = [batch for batch, _ in group] + [pad] * (n_local - len(group))
+            yield [("m", pack_codes_fused(batch)) for batch in raw]
+    finally:
+        close = getattr(src, "close", None)
+        if close is not None:
+            close()
+
+
+def _last_signature(batch: np.ndarray, *, s: int, k: int, sig_len: int,
+                    both_strands: bool) -> torch.Tensor:
+    """The signature at a batch's last start position (int32[1]; the
+    ingest's prev_sig after the batch), from the plain splitter scan of
+    its last 8 positions on the host: a position's signature depends on
+    its own window only."""
+    from ..io.readers import batch_len
+    from ..ops.extract_kernel import splitter_scan_plain
+
+    w = 8
+    codes = torch.from_numpy(np.ascontiguousarray(
+        batch[s - w:s - w + batch_len(w, k)]))
+    sig, _ = splitter_scan_plain(codes, s=w, k=k, sig_len=sig_len,
+                                 both_strands=both_strands)
+    return sig[-1:].clone()
+
+
+def _serial_deal(batches, fleet, pack, carry_of=None):
+    """Without sharded input in a process group: every process reads the
+    whole stream, and of each group of D batches takes its own positions,
+    packed by pack(batch).  Yields (items, carry): carry is
+    carry_of(batch) of the batch before this process's first position (an
+    other process's; None for the stream's first batch, or without
+    carry_of)."""
+    D, pos = fleet.D, fleet.positions
+    prev_last = None  # the previous group's last batch
+
+    def take(group):
+        items = [pack(group[p]) for p in pos if p < len(group)]
+        if not items or carry_of is None:
+            return items, None
+        before = group[pos[0] - 1] if pos[0] > 0 else prev_last
+        return items, None if before is None else carry_of(before)
+
+    group = []
+    for batch in batches:
+        group.append(batch)
+        if len(group) == D:
+            yield take(group)
+            prev_last, group = group[-1], []
+    if group:
+        yield take(group)
+
+
+def _pack_batch(batch):
+    """One batch in the single-device runner's feed choice (see _groups)."""
+    from ..io.native import pack_codes_boundaries, pack_codes_fused
+
+    buf, ts = pack_codes_boundaries(batch)
+    return ("b", buf, ts) if buf is not None else ("m",
+                                                   pack_codes_fused(batch))
 
 
 def _prefetch_groups(gen, depth: int = 2):
@@ -545,24 +755,14 @@ def _prefetch_groups(gen, depth: int = 2):
         t.join(timeout=10)
 
 
-def _check_ported():
-    """Raise NotImplementedError for what the port does not count yet."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process counting over torch.distributed is ROADMAP A11c")
-
-
 def _code_chunks(input_files, fmt, state, *, shard_input, n_parse_threads,
-                 min_shard_bytes, homopolymer_compressed):
-    """The code-chunk stream that the count ingests (_process_chunk_gen,
-    then -hc's run collapse)."""
+                 min_shard_bytes, homopolymer_compressed, fleet=None):
+    """The code-chunk stream that this process ingests
+    (_process_chunk_gen, then -hc's run collapse)."""
     gen = _process_chunk_gen(input_files, fmt, state,
                              shard_input=shard_input,
                              n_parse_threads=n_parse_threads,
-                             min_shard_bytes=min_shard_bytes)
+                             min_shard_bytes=min_shard_bytes, fleet=fleet)
     if homopolymer_compressed:
         gen = homopolymer_compress_stream(gen)
     return gen
@@ -575,11 +775,24 @@ def _estimator_wrap(gen, est):
         yield chunk
 
 
-def _merge_estimator_multihost(est):
-    """The sketches' merge across processes (kmc_tpu's
-    _merge_estimator_multihost: counter increments commute, so the merged
-    sketch is their sum).  One process holds the only sketch: the
-    identity, until multi-process runs (ROADMAP A11c)."""
+def _merge_estimator_multihost(est, fleet):
+    """The sketches' exact merge across processes (kmc_tpu's
+    _merge_estimator_multihost): counter increments commute, so the merged
+    sketch is their sum, u32 wrapping as kmc_tpu's; each counter crosses
+    the group as COO (its nonzero slots and values: the sketches are
+    sparse at sampling rate 2^-s).  One process (or fleet None): the
+    identity."""
+    if fleet is None or not fleet.multi:
+        return est
+    for ci, ctr in enumerate(est.counters):
+        nz = torch.nonzero(ctr).squeeze(1)
+        coo = (nz.cpu().numpy().astype(np.int64),
+               ctr[nz].cpu().numpy().astype(np.int64))
+        merged = np.zeros(ctr.shape[0], np.int64)
+        for idx, val in fleet.all_gather_obj(coo):
+            np.add.at(merged, idx, val & 0xFFFFFFFF)
+        merged = (merged & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        est.counters[ci] = torch.from_numpy(merged).to(ctr.device)
     return est
 
 
@@ -633,12 +846,15 @@ def _distributed_smallk(input_files, output_file_name, *, k, devices,
                         cutoff_min, cutoff_max, counter_max, both_strands,
                         batch_positions, input_file_type, output_type,
                         shard_input, n_parse_threads, min_shard_bytes,
-                        homopolymer_compressed):
+                        homopolymer_compressed, fleet):
     """Small k (k <= 13) over shards (mirrors kmc_tpu's
     _distributed_smallk): each shard adds the batches dealt to it into a
     dense 4^k + 1 histogram on its own device (ops/smallk.py); the
-    histograms are summed on the first shard's device, mod 2^32 as
-    kmc_tpu's u32 sum wraps, and written as KMC1 or one KFF section."""
+    histograms are summed on the first shard's device, then over the
+    processes of a group on rank 0, mod 2^32 as kmc_tpu's u32 sum wraps,
+    and rank 0 writes them as KMC1 or one KFF section.  No collective runs
+    while the shards count."""
+    from ..io.native import pack_codes_fused
     from ..io.readers import BatchStream, ParseState
     from ..ops.smallk import smallk_batch, smallk_histogram_size
     from ..runner import smallk_finalize_and_write
@@ -651,9 +867,15 @@ def _distributed_smallk(input_files, output_file_name, *, k, devices,
                        shard_input=shard_input,
                        n_parse_threads=n_parse_threads,
                        min_shard_bytes=min_shard_bytes,
-                       homopolymer_compressed=homopolymer_compressed)
-    for group in _prefetch_groups(_fused_groups(
-            BatchStream(s, k).batches(gen), len(devices))):
+                       homopolymer_compressed=homopolymer_compressed,
+                       fleet=fleet)
+    batches = BatchStream(s, k).batches(gen)
+    if fleet.multi and not shard_input:
+        groups = (items for items, _ in _serial_deal(batches, fleet,
+                                                     pack_codes_fused))
+    else:
+        groups = _fused_groups(batches, len(devices))
+    for group in _prefetch_groups(groups):
         for buf, hist in zip(group, hists):
             smallk_batch(torch.from_numpy(buf).to(hist.device), hist, s=s,
                          k=k, both_strands=both_strands)
@@ -661,24 +883,41 @@ def _distributed_smallk(input_files, output_file_name, *, k, devices,
     for hist in hists[1:]:
         total += hist.to(total.device)
     del hists
-    total = total.bitwise_and_(0xFFFFFFFF)[:-1]
-    n_unique, n_below, n_above, n_total = smallk_finalize_and_write(
-        total, k, cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-        counter_max=counter_max, canonical=both_strands,
-        output_file_name=output_file_name, output_kff=output_type == "kff")
+    if fleet.multi:
+        host = fleet.sum_to_root(total.cpu())
+        total = None if host is None else host.to(total.device)
+        del host
+    stats = None
+    if total is not None:
+        total = total.bitwise_and_(0xFFFFFFFF)[:-1]
+        stats = smallk_finalize_and_write(
+            total, k, cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+            counter_max=counter_max, canonical=both_strands,
+            output_file_name=output_file_name,
+            output_kff=output_type == "kff")
+        del total
+    n_unique, n_below, n_above, n_total = fleet.broadcast_obj(stats)
     return {
         "n_unique": n_unique,
         "n_below": n_below,
         "n_above": n_above,
         "n_total": n_total,
         "n_super_kmers": 0,  # small k bins nothing: no super-k-mers
-        "n_reads": state.n_reads,
+        "n_reads": _n_reads(state, fleet, shard_input),
         "n_reads_local": state.n_reads,
         "consumed_bytes_local": state.consumed_bytes,
-        "n_devices": len(devices),
-        "n_processes": 1,
+        "n_devices": fleet.D,
+        "n_processes": fleet.world,
         "was_small_k_opt_used": True,
     }
+
+
+def _n_reads(state, fleet, shard_input) -> int:
+    """The input's reads: summed over the processes' shards, or this
+    process's count when every process parsed the whole input."""
+    if fleet.multi and shard_input:
+        return fleet.allsum([state.n_reads])[0]
+    return state.n_reads
 
 
 def distributed_count(
@@ -723,18 +962,25 @@ def distributed_count(
     (its stage-0 and map-build seconds in "timings"), output_type="kff"
     writes out_db.kff, estimate_only (-e) returns "estimated_histogram"
     and "n_reads" and writes nothing, opt_out_size picks the LUT width
-    from the estimate (and returns it too).  Multi-process runs raise
-    NotImplementedError (ROADMAP A11c).  input_file_type takes "fastq",
-    "fasta", "multifasta", "bam" and "kmc" (-fkmc: database prefixes)."""
+    from the estimate (and returns it too).  input_file_type takes
+    "fastq", "fasta", "multifasta", "bam" and "kmc" (-fkmc: database
+    prefixes).
+
+    In a torch.distributed group (init_multihost first) every process
+    calls it with its own `devices`; the shards of all processes form one
+    store (see the module docstring), rank 0 writes the database, and
+    every rank returns the same stats but "n_reads_local",
+    "consumed_bytes_local" and "timings" (this process's parse and
+    clocks; "exchange_route" there names the exchange's route)."""
     from ..formats.kmc_db import DbInfo, Kmc2DbWriter, pick_lut_prefix_len
     from ..io.readers import BatchStream, ParseState
     from ..memory import plan_memory
 
     if not (1 <= k <= MAX_K):
         raise ValueError(f"k must be in [1,{MAX_K}]")
-    _check_ported()
     devices = resolve_devices(devices)
-    D = len(devices)
+    fleet = Fleet(devices)
+    D = fleet.D
     s = batch_positions
     stream = dict(shard_input=shard_input, n_parse_threads=n_parse_threads,
                   min_shard_bytes=min_shard_bytes,
@@ -747,7 +993,7 @@ def distributed_count(
             cutoff_min=cutoff_min, cutoff_max=cutoff_max,
             counter_max=counter_max, both_strands=both_strands,
             batch_positions=s, input_file_type=input_file_type,
-            output_type=output_type, **stream)
+            output_type=output_type, fleet=fleet, **stream)
 
     est = None
     if estimate_only or opt_out_size:
@@ -760,25 +1006,30 @@ def distributed_count(
                         if Path(p).exists())
         est = NtCardEstimator(k, s=7 if predicted < 50_000_000_000 else 11,
                               device=devices[0])
+    # every process's sketch hashed its own shard, and their sum is the
+    # input's; without sharded input each already hashed all of it
+    est_fleet = fleet if shard_input else None
 
     state = ParseState()
     if estimate_only:
         for chunk in _code_chunks(input_files, input_file_type, state,
-                                  **stream):
+                                  fleet=fleet, **stream):
             est.process_codes(chunk)
-        _merge_estimator_multihost(est)
+        _merge_estimator_multihost(est, est_fleet)
         return {
             "estimated_histogram": est.estimate_histogram(),
-            "n_reads": state.n_reads,
+            "n_reads": _n_reads(state, fleet, shard_input),
             "n_reads_local": state.n_reads,
             "consumed_bytes_local": state.consumed_bytes,
             "n_devices": D,
-            "n_processes": 1,
+            "n_processes": fleet.world,
         }
 
     timings = {}
     sig_map = None
     if signature_map_policy == "greedy":
+        # every process samples the same start of the serial stream, so
+        # every process builds the same map
         sig_map = _stage0_greedy_map(
             input_files, input_file_type, k=k, sig_len=sig_len,
             n_bins=n_bins, batch_positions=s,
@@ -800,16 +1051,32 @@ def distributed_count(
                              both_strands=both_strands, n_bins=n_bins,
                              initial_rows=None if on_card else 2 * s,
                              map_mode=signature_map_policy, sig_map=sig_map,
-                             spill_budget_bytes=plan.spill_budget_bytes)
+                             spill_budget_bytes=plan.spill_budget_bytes,
+                             fleet=fleet)
     bs = BatchStream(s, k)
 
     t_ingest0 = time.perf_counter()
-    gen = _code_chunks(input_files, input_file_type, state, **stream)
+    gen = _code_chunks(input_files, input_file_type, state, fleet=fleet,
+                       **stream)
     if est is not None:
         gen = _estimator_wrap(gen, est)
-    for items in _prefetch_groups(_groups(bs.batches(gen), D)):
-        store.ingest_group(items, s=s)
+    batches = bs.batches(gen)
+    if not fleet.multi:
+        groups = ((items, None) for items in _prefetch_groups(
+            _groups(batches, D)))
+    elif shard_input:
+        groups = ((items, None) for items in _lockstep_groups(
+            _prefetch_groups(_local_groups(batches, len(devices))), fleet,
+            len(devices), bs.batch_bytes))
+    else:
+        groups = _prefetch_groups(_serial_deal(
+            batches, fleet, _pack_batch, lambda batch: _last_signature(
+                batch, s=s, k=k, sig_len=sig_len,
+                both_strands=both_strands)))
+    for items, carry in groups:
+        store.ingest_group(items, s=s, carry=carry)
     _sync(devices)
+    n_reads = _n_reads(state, fleet, shard_input)
     t_finalize0 = time.perf_counter()
 
     n_used_bins = store.n_used_bins
@@ -820,13 +1087,13 @@ def distributed_count(
     # database is the same bytes
     estimated_histogram = None
     if est is not None:
-        _merge_estimator_multihost(est)
+        _merge_estimator_multihost(est, est_fleet)
         estimated_histogram = est.estimate_histogram()
         del est
         end = min(cutoff_max + 1, len(estimated_histogram))
         n_est_unique = sum(estimated_histogram[cutoff_min:end])
     else:
-        n_est_unique = 4 * state.n_reads
+        n_est_unique = 4 * n_reads
     lut_prefix_len = pick_lut_prefix_len(k, n_used_bins,
                                          max(n_est_unique, 1))
     if output_type == "kff":
@@ -842,8 +1109,12 @@ def distributed_count(
     timings.update(store.timings)
     timings["ingest_wall_s"] = t_finalize0 - t_ingest0
     timings["finalize_wall_s"] = time.perf_counter() - t_finalize0
+    if store.exchange_route is not None:
+        timings["exchange_route"] = store.exchange_route
 
-    if output_type == "kff":
+    if fleet.rank != 0:
+        pass  # rank 0 writes the database
+    elif output_type == "kff":
         from ..formats.kff import KffWriter
         from ..runner import write_kff_sections
 
@@ -870,11 +1141,11 @@ def distributed_count(
         "n_above": n_above,
         "n_total": n_total,
         "n_super_kmers": n_skm,
-        "n_reads": state.n_reads,
+        "n_reads": n_reads,
         "n_reads_local": state.n_reads,
         "consumed_bytes_local": state.consumed_bytes,
         "n_devices": D,
-        "n_processes": 1,
+        "n_processes": fleet.world,
         "n_compactions": store.n_compactions,
         "n_spills": store.n_spills,
         "n_remerges": store.n_remerges,

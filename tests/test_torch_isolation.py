@@ -186,3 +186,53 @@ def test_cli_without_card_fails(tmp_path, monkeypatch, capsys):
                  str(tmp_path)]) == 1
     assert "cuda" in capsys.readouterr().err
     assert kmc_tpu_torch.Runner(device="cpu").device.type == "cpu"
+
+
+_MULTIPROC_PROBE = r"""
+import ast, importlib.util, sys
+from pathlib import Path
+spec = importlib.util.spec_from_file_location(
+    "torch_multiproc_worker", "tests/torch_multiproc_worker.py")
+worker = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(worker)
+from kmc_tpu_torch.parallel.distributed import (Fleet, init_multihost,
+    process_count, process_index)
+from kmc_tpu_torch.parallel.exchange_kernel import (
+    ragged_all_to_all_processes, send_buffer)
+from kmc_tpu_torch.parallel.multihost import (_lockstep_groups,
+    _merge_estimator_multihost, _serial_deal, distributed_count)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kmc_tpu"))
+assert not bad, bad
+for path in ["tests/torch_multiproc_worker.py"] + sorted(
+        str(p) for p in Path("kmc_tpu_torch/parallel").glob("*.py")):
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        names = ([a.name for a in node.names]
+                 if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "kmc_tpu"), \
+                (path, name)
+assert process_count() == 1 and process_index() == 0
+print("ok")
+"""
+
+
+def test_multiprocess_code_loads_no_jax():
+    """The port's multi-process worker (tests/torch_multiproc_worker.py)
+    and the process-group code of kmc_tpu_torch.parallel import neither
+    jax nor kmc_tpu, by import and by their sources' import statements."""
+    r = subprocess.run([sys.executable, "-c", _MULTIPROC_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_microbench_sections_default_to_cuda(monkeypatch):
+    from kmc_tpu_torch import microbench_sort
+
+    _no_card(monkeypatch)
+    for name in ("roofline", "bitonic", "scatter", "onehot"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            microbench_sort.SECTIONS[name](1 << 12)

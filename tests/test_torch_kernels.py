@@ -484,6 +484,124 @@ def test_exchange_across_cards_matches_plain():
     _check_exchange(devices, (1 << 14) + 4, 2, seed=5)
 
 
+_IPC_CHILD = r"""
+import json, sys
+import numpy as np, torch
+import torch.distributed as dist
+from kmc_tpu_torch.parallel.distributed import init_multihost
+from kmc_tpu_torch.parallel.exchange_kernel import (
+    ragged_all_to_all_plain, ragged_all_to_all_processes, send_buffer)
+
+init, rank, out, cap, C = sys.argv[1:6]
+rank, cap, C = int(rank), int(cap), int(C)
+init_multihost(init, 2, rank)
+D, layout = 4, [[0, 1], [2, 3]]
+counts = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
+counts[0, 3], counts[2, 1] = 0, cap
+full = [torch.from_numpy(np.random.default_rng(100 + j).integers(
+    -2**31, 2**31, (D, cap, C)).astype(np.int32)) for j in range(D)]
+want, _ = ragged_all_to_all_plain(full, counts)
+refused = False
+try:  # a sender's buffer not exported for IPC is refused on every rank
+    ragged_all_to_all_processes(
+        [torch.empty((D, cap, C), dtype=torch.int32, device="cuda:0")] * 2,
+        counts, layout)
+except ValueError:
+    refused = True
+xs = []
+for j in layout[rank]:
+    buf = send_buffer((D, cap, C), "cuda:0", True)
+    buf.copy_(full[j].cuda())
+    xs.append(buf)
+outs, recv = ragged_all_to_all_processes(xs, counts, layout)
+torch.cuda.synchronize()
+ok = all(torch.equal(outs[l][j, :counts[j, o]].cpu(),
+                     want[o][j, :counts[j, o]])
+         for l, o in enumerate(layout[rank]) for j in range(D))
+json.dump({"ok": ok, "refused": refused, "recv": recv.tolist(),
+           "launches": ragged_all_to_all_processes.launches}, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,C", [(1024, 2), ((1 << 16) + 3, 3)])
+def test_exchange_across_processes_matches_plain(tmp_path, cap, C):
+    """Two processes on card 0, two senders each: the owners' launches
+    read the other process's buffers through CUDA IPC and deliver what
+    the plain version does."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _need_card()
+    repo = Path(__file__).resolve().parent.parent
+    init = f"file://{tmp_path / 'pg'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _IPC_CHILD, init, str(r),
+         str(tmp_path / f"r{r}.json"), str(cap), str(C)], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+            for p in procs]
+    counts = np.random.default_rng(C).integers(0, cap + 1, size=(4, 4))
+    counts[0, 3], counts[2, 1] = 0, cap
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, log[-3000:]
+        got = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert got["ok"] and got["refused"], got
+        assert got["launches"] == 2  # one per owner of the process
+        assert got["recv"] == counts[:, [2 * r, 2 * r + 1]].T.tolist()
+
+
+@pytest.mark.gpu
+def test_two_process_count_on_card_matches_cpu(tmp_path):
+    """tests/torch_multiproc_worker.py as two processes on card 0 (two
+    shards each): the database and stats equal the single-process count
+    over 4 CPU shards, and the exchange ran the kernel across processes."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _need_card()
+    from kmc_tpu_torch import distributed_count
+
+    fq = _card_fastq(tmp_path / "in.fastq", 20000, 4000, seed=3)
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, MP_DEVICES="cuda:0,cuda:0", MP_K="27", MP_CI="2",
+               MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
+               MP_SHARD_INPUT="0", MP_MODES="default,kff")
+    init = f"file://{tmp_path / 'pg'}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_multiproc_worker.py"), init, "2",
+         str(r), fq, str(tmp_path / "mp")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+            for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    for mode, kw in (("default", {}), ("kff", dict(output_type="kff"))):
+        res = [json.loads((tmp_path / f"mp.{mode}.stats.{r}").read_text())
+               for r in range(2)]
+        st = distributed_count([fq], str(tmp_path / f"cpu_{mode}"),
+                               devices=["cpu"] * 4, k=27, cutoff_min=2,
+                               batch_positions=1 << 14,
+                               capacity_rows_per_device=5 << 13, **kw)
+        for r in res:
+            assert r["launches"] == 2 and r["kernels"]["fused_ingest"] > 0
+            assert r["stats"]["timings"]["exchange_route"] == "ipc_kernel"
+            for key in ("n_unique", "n_total", "n_super_kmers", "n_below",
+                        "n_above", "n_compactions", "n_spills",
+                        "exchange_bytes"):
+                assert r["stats"][key] == st[key], (mode, key)
+        for suf in ((".kff",) if mode == "kff" else (".kmc_pre",
+                                                      ".kmc_suf")):
+            assert (tmp_path / f"mp.{mode}{suf}").read_bytes() == \
+                (tmp_path / f"cpu_{mode}{suf}").read_bytes(), (mode, suf)
+
+
 @pytest.mark.gpu
 def test_distributed_count_on_card_matches_cpu(tmp_path):
     _need_card()

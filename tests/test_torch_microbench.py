@@ -1,6 +1,8 @@
 """The plain versions of the port's memory probes (kmc_tpu_torch.
-microbench_sort) against jax.numpy on the tool's block shape, and the
-`sort` section on the CPU against jax.lax.sort on the tool's inputs.
+microbench_sort) against jax.numpy on the tool's block shape, the `sort`
+section on the CPU against jax.lax.sort on the tool's inputs, and the
+roofline, bitonic, scatter and onehot sections' ops against NumPy (the
+compare-exchange pass also against the tool's own jnp _ce_pass).
 
 tools/microbench_sort.py's Pallas bodies (copy_kernel, gather_kernel,
 gatherl_kernel) are closures inside sec_pallas and cannot be imported, so
@@ -85,7 +87,7 @@ def test_section_runs_on_cpu_when_asked(capsys, monkeypatch):
     for name in ("probe_add1", "probe_gather_rows", "probe_gather_lanes"):
         assert any(line.startswith(name) and "n=2^20" in line
                    and "GB/s" in line for line in lines), name
-    assert mb.main(["bitonic", "--device=cpu"]) == 2
+    assert mb.main(["nosuch", "--device=cpu"]) == 2
 
 
 def test_section_needs_a_card_by_default(monkeypatch):
@@ -141,3 +143,99 @@ def test_sort_section_inputs_and_order_match_lax_sort():
     packed = mb._packed_key(a, b)
     order = torch.sort(packed).indices
     assert torch.equal(a[order], got[0]) and torch.equal(b[order], got[1])
+
+
+def _tool():
+    """tools/microbench_sort.py, loaded by path (tools/ is no package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "microbench_sort.py"
+    spec = importlib.util.spec_from_file_location("mb_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_roofline_ops_match_numpy():
+    x = mb._rand_u32(1 << 12, "cpu")
+    xu = _u32(x)
+    assert np.array_equal(xu, np.random.default_rng(0).integers(
+        0, 2**32, size=1 << 12, dtype=np.uint32))
+    assert np.array_equal(_u32(mb.u32_add1(x)), xu + np.uint32(1))
+    assert np.array_equal(_u32(mb.u32_cumsum(x)),
+                          np.cumsum(xu, dtype=np.uint32))
+    assert np.array_equal(_u32(mb.reverse(x)), xu[::-1])
+
+
+@pytest.mark.parametrize("logn", [1, 5, 12])
+def test_bitonic_ladder_matches_tool_and_merges(logn):
+    N = 1 << logn
+    x = mb._rand_u32(N, "cpu", seed=logn)
+    iota = torch.arange(N, dtype=torch.int32)
+    tool = _tool()
+    ref, xj = [], jnp.asarray(_u32(x))
+    iota_j = jnp.arange(N, dtype=jnp.uint32)
+    for s in range(logn - 1, -1, -1):
+        xj = tool._ce_pass(xj, 1 << s, iota_j)
+        ref.append(np.asarray(xj))
+    got = x
+    for i, s in enumerate(range(logn - 1, -1, -1)):
+        got = mb.ce_pass(got, 1 << s, iota)
+        assert np.array_equal(_u32(got), ref[i]), s
+    assert np.array_equal(_u32(mb.bitonic_ladder(x, iota)), ref[-1])
+    # a bitonic sequence (ascending, then descending) merges into order
+    u = np.sort(_u32(x))
+    bitonic = np.concatenate([u[: N // 2], u[N // 2:][::-1]])
+    merged = mb.bitonic_ladder(torch.from_numpy(bitonic.view(np.int32)),
+                               iota)
+    assert np.array_equal(_u32(merged), np.sort(bitonic))
+
+
+def test_scatter_ops_match_numpy():
+    N = 1 << 12
+    x, idx, hi = mb.scatter_inputs(N, "cpu")
+    xu, iu = _u32(x), idx.numpy()
+    assert np.array_equal(iu, np.random.default_rng(4).permutation(N))
+    want = np.zeros(N, np.uint32)
+    want[iu] = xu
+    assert np.array_equal(_u32(mb.scatter_perm(x, idx)), want)
+    assert np.array_equal(_u32(mb.gather_perm(x, idx)), xu[iu])
+    hist = mb.scatter_add_histogram(hi).numpy()
+    assert np.array_equal(hist, np.bincount(iu & 0xFFFF,
+                                            minlength=mb.HIST_BINS))
+
+
+def test_onehot_permute_matches_numpy():
+    perm, vals = mb.onehot_inputs(1 << 12, "cpu")
+    assert tuple(perm.shape) == (16, 256) and tuple(vals.shape) == (16, 256,
+                                                                     8)
+    assert all(sorted(row) == list(range(256)) for row in perm.tolist())
+    got = mb.onehot_permute(perm, vals).numpy()
+    want = np.take_along_axis(vals.numpy(), perm.numpy()[:, :, None].astype(
+        np.int64), axis=1)
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("section,labels", [
+    ("roofline", ["elementwise add (r+w)", "cumsum u32", "reverse (r+w)"]),
+    ("bitonic", ["bitonic merge ladder (12 passes)",
+                 "single compare-exchange pass"]),
+    ("scatter", ["XLA scatter (full permutation)",
+                 "XLA gather (full permutation)",
+                 "XLA scatter-add histogram (64K bins)"]),
+    ("onehot", ["one-hot matmul permute 256-tiles (8B rows)"]),
+])
+def test_other_sections_run_on_cpu_when_asked(capsys, monkeypatch, section,
+                                              labels):
+    monkeypatch.setenv("MB_LOGN", "12")
+    assert mb.main([section, "--device=cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:2] == ["device=cpu", f"--- {section} ---"]
+    for label in labels:
+        assert any(line.startswith(label) and "n=2^12" in line
+                   for line in lines), label
+    got = mb.SECTIONS[section](1 << 12, device="cpu")
+    assert list(got) == labels
+    assert all(row["n"] == 1 << 12 and row["ms"] > 0 for row in got.values())

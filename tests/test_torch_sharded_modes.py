@@ -216,16 +216,3 @@ def test_smallk_equals_single_device_count(results, reads_file, tmp_path,
             Path(out_t + suf).read_bytes(), suf
     assert (st["n_unique"], st["n_total"]) == (r2.n_unique_kmers,
                                                r2.n_total_kmers)
-
-
-def test_multi_process_group_still_raises(reads_file, tmp_path, monkeypatch):
-    """A live torch.distributed group of several ranks is ROADMAP A11c."""
-    import torch.distributed as dist
-
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        distributed_count([reads_file], str(tmp_path / "db"), k=25,
-                          devices=["cpu"] * 2)
-    assert not list(tmp_path.glob("db*"))
