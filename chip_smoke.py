@@ -46,7 +46,9 @@ Phases (any failure exits non-zero):
      the device time, items and host launches under the store's "ingest"
      and "compact" labels;
   7. the exchange kernel (ragged and dense all-to-all) against its plain
-     version: 4 shards, segments of 2^24 rows, 2 and 3 words a row;
+     version: 4 shards, segments of 2^24 rows, 2 and 3 words a row, one
+     launch for the card; on a machine of several cards also each shard
+     on its own card (one launch a card), timed on the host clock;
   8. the sharded count (distributed_count, 4 shards) on phase 4's FASTQ
      with small shards that compact: the card's database must equal the
      CPU's and phase 4's single-device one, byte for byte; then with shards
@@ -163,13 +165,17 @@ Phases (any failure exits non-zero):
      budget, each == the single-process count over 4 card shards, every
      file byte for byte and every global stat, each store route launching
      the fused ingest, the sort and the exchange kernel across processes
-     (one launch per owner, peer processes' rows read through CUDA IPC).
+     (one launch a card, by the lowest rank on it, the other processes'
+     buffers opened through CUDA IPC).
      At full size (phase 5's FASTQ and knobs, the processes parsing
      disjoint byte ranges, shards of 2^26 rows): DB == phase 5's,
      n_total and n_super_kmers == phase 5's, each rank's wall, stage
      seconds, peak device memory and the exchange kernel's time against
-     its bytes' bound.  Then the cross-process exchange alone at phase 7's
-     shapes, bit-exact and timed beside phase 7's in-process figure.
+     its bytes' bound and the launch skew between the processes.  Then
+     the cross-process exchange alone at phase 7's shapes, bit-exact and
+     timed beside phase 7's in-process figure, and NCCL's
+     all_to_all_single of the same rows as its yardstick (four cards; on
+     one card whether NCCL takes two ranks on one GPU).
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all from phase 18's SPMD step; the 2-D scan entry from
@@ -179,12 +185,14 @@ The fused ingest's row also holds the greedy entry's and the histogram's
 times from phase 2 and their launches in phase 17, and phase 18's
 sharded greedy and KFF launches; the radix sort's row the collect's
 launches in phase 17 and phase 18's; the scan entry's, the exchanges'
-rows phase 18's too; the ragged exchange's row phase 19's launches
-across processes (each rank's, in the full-size count) and the times
-of the exchange across processes there and at phase 7's shapes (host
-clock from the first process's first launch to the last one's
-synchronize) against their bytes' bounds.  Every device-store path
-must ingest through the fused kernel and never through the scan entry.
+rows phase 18's too; the ragged exchange's row phase 7's time across
+cards, phase 19's launches across processes (each rank's, in the
+full-size count) and the times of the exchange across processes there
+and at phase 7's shapes (host clock from the first launching process's
+launch to the last one's synchronize; the launch skew beside them)
+against their bytes' bounds, with NCCL's time for the same rows.  Every
+device-store path must ingest through the fused kernel and never
+through the scan entry.
 Shards sit on distinct cards when the machine has two or more, else all
 on card 0.  The last line is {"ok": true, "device": {...}}.
 Imports neither jax nor kmc_tpu.  Times come from CUDA events around
@@ -1326,6 +1334,17 @@ def host_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def one_ms(fn):
+    """CUDA-event milliseconds of one fn() on card 0."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def phase_exchange():
     """The exchange kernel against its plain version on card 0, 4 shards of
     [4, 2^24, C]: bit-exact delivered prefixes, then times."""
@@ -1345,9 +1364,15 @@ def phase_exchange():
         n_rows[0, 1] = 0
         n_rows[1, 2] = cap
         n_rows[2, 3] = 12345
+        before = (ragged_all_to_all.launches, all_to_all.launches)
         outs, rr = ragged_all_to_all(xs, n_rows)
         ref, rr_ref = ragged_all_to_all_plain(xs, n_rows)
         torch.cuda.synchronize()
+        if ragged_all_to_all.launches != before[0] + 1:
+            raise SystemExit(f"phase 7: the ragged exchange of 4 shards on "
+                             f"one card launched "
+                             f"{ragged_all_to_all.launches - before[0]} "
+                             "kernels, not one")
         if not np.array_equal(rr, rr_ref) or not np.array_equal(rr, n_rows.T):
             raise SystemExit(f"phase 7: recv_rows differ (C={C})")
         err = 0
@@ -1363,6 +1388,9 @@ def phase_exchange():
         dense = all_to_all(xs)
         dense_ref = all_to_all_plain(xs)
         torch.cuda.synchronize()
+        if all_to_all.launches != before[1] + 1:
+            raise SystemExit("phase 7: the dense exchange of 4 shards on one "
+                             "card did not launch one kernel")
         for got, want in zip(dense, dense_ref):
             err = max(err, max_abs_err(got, want))
             if not torch.equal(got, want):
@@ -1383,6 +1411,20 @@ def phase_exchange():
             library_ms=cuda_ms(
                 lambda: torch.stack(xs).transpose(0, 1).contiguous(), 3),
             dense_launches=all_to_all.launches)
+        if C == 2:
+            # one exchange right after others (the card busy) and after the
+            # card idled 0.3 s, as a count's exchange follows host work
+            row["busy_ms"] = [one_ms(lambda: ragged_all_to_all(xs, n_rows))
+                              for _ in range(3)]
+            row["after_idle_ms"] = []
+            for _ in range(3):
+                time.sleep(0.3)
+                row["after_idle_ms"].append(
+                    one_ms(lambda: ragged_all_to_all(xs, n_rows)))
+            log(f"[phase 7] one ragged exchange (C=2) by CUDA events: "
+                f"busy card {[round(t, 4) for t in row['busy_ms']]} ms, "
+                f"after 0.3 s idle "
+                f"{[round(t, 4) for t in row['after_idle_ms']]} ms")
         rows[C] = row
         log(f"[phase 7] exchange D={D} cap=2^24 C={C}: bit-exact; ragged "
             f"({int(n_rows.sum())} rows, {r_bytes} bytes) kernel_ms "
@@ -1395,14 +1437,16 @@ def phase_exchange():
         del xs
         torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
-        phase_exchange_cross_cards()
+        rows["cross"] = phase_exchange_cross_cards()
     return rows
 
 
 def phase_exchange_cross_cards():
-    """The exchange with each shard on its own card (peer reads over
-    NVLink): bit-exact against the plain version, timed on the host clock
-    around whole exchanges (events do not span cards)."""
+    """The exchange with each shard on its own card (one launch a card,
+    each card pushing its sender's rows to the other cards' outputs over
+    NVLink): bit-exact against the plain version with one launch a card,
+    timed on the host clock around whole exchanges (events do not span
+    cards)."""
     from kmc_tpu_torch.parallel.exchange_kernel import (
         ragged_all_to_all, ragged_all_to_all_plain)
 
@@ -1411,9 +1455,13 @@ def phase_exchange_cross_cards():
     xs = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), dtype=torch.int32,
                         device=d) for d in devices]
     n_rows = np.random.default_rng(7).integers(0, cap + 1, size=(D, D))
+    before = ragged_all_to_all.launches
     outs, rr = ragged_all_to_all(xs, n_rows)
     ref, _ = ragged_all_to_all_plain(xs, n_rows)
     _sync_all()
+    if ragged_all_to_all.launches != before + len(set(devices)):
+        raise SystemExit("phase 7: the cross-card exchange did not launch "
+                         "once a card")
     for r in range(D):
         for j in range(D):
             m = int(rr[r, j])
@@ -1425,18 +1473,20 @@ def phase_exchange_cross_cards():
     row_b = 4 * C
     peer = n_rows * (1 - np.eye(D, dtype=np.int64))  # rows crossing cards
     link_b = max(peer.sum(0).max(), peer.sum(1).max()) * row_b
+    bound_ms = link_b / NVLINK_BYTES_PER_S * 1e3
     ms = host_ms(lambda: ragged_all_to_all(xs, n_rows), 10)
     plain_ms = host_ms(lambda: ragged_all_to_all_plain(xs, n_rows), 3)
     log(f"[phase 7] cross-card exchange on {devices}, cap=2^24 C={C}: "
-        f"bit-exact; {int(n_rows.sum())} rows, {int(peer.sum()) * row_b} "
-        f"bytes over NVLink (busiest link direction {int(link_b)} bytes); "
-        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} (host clock) "
-        f"bound_ms {link_b / NVLINK_BYTES_PER_S * 1e3:.4f} (450 GB/s each "
-        "way)")
+        f"bit-exact, one launch a card; {int(n_rows.sum())} rows, "
+        f"{int(peer.sum()) * row_b} bytes over NVLink (busiest link "
+        f"direction {int(link_b)} bytes); kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} (host clock, mean of 10) bound_ms {bound_ms:.4f} "
+        "(450 GB/s each way)")
     del xs
     for d in devices:
         with torch.cuda.device(d):
             torch.cuda.empty_cache()
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def _same_db(a: Path, b: Path) -> bool:
@@ -3079,9 +3129,10 @@ def phase_distributed_step(full, devices, s=1 << 22, k=27):
     launches = {name: w[name].launches for name in
                 ("all_to_all", "radix_sort", "splitter_scan")}
     if min(launches.values()) == 0 or launches["all_to_all"] != \
-            D * len(rounds):
+            len(set(devices)) * len(rounds):
         raise SystemExit(f"phase 18: the SPMD step launched {launches} in "
-                         f"{len(rounds)} rounds of {D} shards")
+                         f"{len(rounds)} rounds of {D} shards (the exchange "
+                         "must launch once a card)")
     total, err, n_dropped_all = 0, 0, 0
     for codes, (words, counts, n_out, n_dropped) in zip(rounds, outs):
         with plain_step_kernels():
@@ -3271,16 +3322,31 @@ def _mp_uses(knobs):
     return uses
 
 
-def _check_mp_launches(label, knobs, res, n_local):
+def mp_leads(n_procs):
+    """The cross-process exchange's launches a count makes on each rank:
+    one a card, by the lowest rank on it (mp_layout: every rank of four on
+    four cards, rank 0 of two on card 0)."""
+    return [1] * n_procs if n_procs == 4 else [1] + [0] * (n_procs - 1)
+
+
+def _check_mp_launches(label, knobs, res):
+    """Each rank launched the kernels its mode uses and no other, and the
+    cross-process exchange once for each card it leads whose senders sent
+    a row (a shard may have spilled every row before finalize)."""
     uses = _mp_uses(knobs)
-    for pid, r in enumerate(res):
+    sent = [r["exchange_sent_rows"] for r in res]
+    if len(res) != 4:  # every shard on card 0
+        sent = [sum(sent)] + [0] * (len(res) - 1)
+    leads = [lead * (n > 0) for lead, n in zip(mp_leads(len(res)), sent)]
+    for pid, (r, lead) in enumerate(zip(res, leads)):
         got = r["kernels"]
-        if any((got[k] > 0) != (k in uses) for k in got) or (
-                "ragged_all_to_all_processes" in uses
-                and got["ragged_all_to_all_processes"] != n_local):
+        xp = "ragged_all_to_all_processes"
+        if any((got[k] > 0) != (k in uses) for k in got if k != xp) or (
+                got[xp] != (lead if xp in uses else 0)):
             raise SystemExit(f"phase 19: {label} rank {pid} launched {got}, "
-                             f"it must launch {uses} ({n_local} cross-process "
-                             "exchange launches, one per owner) and no other")
+                             f"it must launch {uses} ({lead} cross-process "
+                             "exchange launches: one a card with rows to "
+                             "send, by its lowest rank) and no other")
 
 
 def _same_stats(label, res, single):
@@ -3305,7 +3371,6 @@ def phase_mp_mid(fq_mid):
     from kmc_tpu_torch import memory
 
     n_procs, devs = mp_layout()
-    n_local = 4 // n_procs
     out = WORK / "mp_mid"
     wall = run_workers(fq_mid, out, dict(
         MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 18,
@@ -3343,7 +3408,7 @@ def phase_mp_mid(fq_mid):
             if a != Path(f"{single}{suf}").read_bytes():
                 raise SystemExit(f"phase 19: mid {mode}: {suf} differs from "
                                  "the single-process count's")
-        _check_mp_launches(f"mid {mode}", knobs, res, n_local)
+        _check_mp_launches(f"mid {mode}", knobs, res)
         if name == "spill" and (st["n_spills"] < 2 or st["n_remerges"] < 1):
             raise SystemExit(f"phase 19: mid spill: {st['n_spills']} spills, "
                              f"{st['n_remerges']} re-merges")
@@ -3394,11 +3459,13 @@ def phase_mp_full(full):
     if sum(parsed) != fq.stat().st_size or min(parsed) <= 0:
         raise SystemExit(f"phase 19: the processes parsed {parsed} bytes of "
                          f"{fq.stat().st_size}")
-    _check_mp_launches("full", {}, res, 4 // n_procs)
-    # the exchange on the card: from the first process's first launch to
-    # the last process's synchronize (one monotonic clock on the machine)
-    span_ms = (max(r["exchange_span"][1] for r in res)
-               - min(r["exchange_span"][0] for r in res)) * 1e3
+    _check_mp_launches("full", {}, res)
+    # the exchange on the card: from the first launching process's launch
+    # to the last one's synchronize (one monotonic clock on the machine);
+    # what the slowest card's kernel (CUDA events) leaves of that span is
+    # the launch skew between the processes
+    spans = [r["exchange_span"] for r in res if r["exchange_span"]]
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) * 1e3
     ms = max(r["exchange_ms"] for r in res)
     nbytes = sum(r["exchange_bytes"] for r in res)
     # one card moves every byte; on four cards each its owners', the rows
@@ -3427,13 +3494,14 @@ def phase_mp_full(full):
         f"{st['n_total']} (= {n_reads} x 124), n_super_kmers "
         f"{st['n_super_kmers']} == phase 5's; all processes {wall:.3f} s; "
         f"the cross-process exchange {span_ms:.4f} ms from the first "
-        f"launch to the last synchronize (host clock; the slowest rank's "
-        f"kernels {ms:.4f} ms by CUDA events) for {nbytes} bytes, bound_ms "
-        f"{bound:.4f}")
+        f"launch to the last synchronize (host clock; the slowest card's "
+        f"kernel {ms:.4f} ms by CUDA events, launch skew "
+        f"{span_ms - ms:.4f} ms) for {nbytes} bytes, bound_ms {bound:.4f}; "
+        f"launches by rank {[r['launches'] for r in res]}")
     for q in WORK.glob("mp_full.*"):
         q.unlink()
-    return dict(ms=span_ms, event_ms=ms, bound_ms=bound, bytes=nbytes,
-                launches=[r["launches"] for r in res],
+    return dict(ms=span_ms, event_ms=ms, skew_ms=span_ms - ms, bound_ms=bound,
+                bytes=nbytes, launches=[r["launches"] for r in res],
                 walls=[r["wall_s"] for r in res])
 
 
@@ -3442,12 +3510,12 @@ import json, sys
 sys.path.insert(0, sys.argv[5])
 import numpy as np, torch
 import torch.distributed as dist
+from kmc_tpu_torch.parallel import exchange_kernel as xk
 from kmc_tpu_torch.parallel.distributed import init_multihost
-from kmc_tpu_torch.parallel.exchange_kernel import (
-    ragged_all_to_all_processes as xp, send_buffer)
 
 init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     sys.argv[4]
+xp = xk.ragged_all_to_all_processes
 init_multihost(init, n_procs, rank)
 dev = torch.device("cuda", rank if n_procs == 4 else 0)
 D, cap, C, reps = 4, 1 << 24, 2, 10
@@ -3464,7 +3532,7 @@ ok, ms, spans = True, [], []
 for rep in range(reps + 1):
     xs = []
     for j in mine:
-        buf = send_buffer((D, cap, C), dev, True)
+        buf = xk.send_buffer((D, cap, C), dev, True)
         buf.copy_(full[j])
         xs.append(buf)
     before = xp.kernel_ms
@@ -3476,49 +3544,149 @@ for rep in range(reps + 1):
                 ok &= bool(torch.equal(outs[l][j, :m], full[j][o, :m]))
     else:
         ms.append(xp.kernel_ms - before)
-        spans.append(xp.span)
+        spans.append(xp.span)  # None on a rank that leads no card
     del xs, outs
-json.dump({"ok": ok, "ms": float(np.mean(ms)), "best_ms": min(ms),
-           "spans": spans, "launches": xp.launches,
+json.dump({"ok": ok, "ms": ms, "spans": spans, "launches": xp.launches,
            "bytes": xp.bytes // (reps + 1)}, open(out, "w"))
 dist.destroy_process_group()
 """
+
+# The yardstick of the exchange across processes: NCCL's
+# all_to_all_single of the same rows (phase 7's senders and counts, one
+# process a card), first launch to last synchronize on the host clock, each
+# rank's CUDA events beside it.  The port never calls NCCL.
+_NCCL_BENCH = r"""
+import json, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+
+init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+dev = torch.device("cuda", rank if n_procs == 4 else 0)
+torch.cuda.set_device(dev)
+D, cap, C, reps = 4, 1 << 24, 2, 10
+per = D // n_procs
+procs = [list(range(p * per, (p + 1) * per)) for p in range(n_procs)]
+mine = procs[rank]
+gen = torch.Generator(device=dev).manual_seed(C)
+full = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), generator=gen,
+                      dtype=torch.int32, device=dev) for _ in range(D)]
+n_rows = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
+n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, cap, 12345
+# to process q: owner by owner of q's, each local sender's rows
+send = torch.cat([full[j][o, :n_rows[j, o]].reshape(-1)
+                  for q in procs for o in q for j in mine])
+in_split = [int(sum(n_rows[j, o] for o in q for j in mine)) * C
+            for q in procs]
+out_split = [int(sum(n_rows[j, o] for o in mine for j in q)) * C
+             for q in procs]
+want = torch.cat([full[j][o, :n_rows[j, o]].reshape(-1)
+                  for q in procs for o in mine for j in q])
+del full
+recv = torch.empty(sum(out_split), dtype=torch.int32, device=dev)
+try:
+    dist.init_process_group("nccl", init_method=init, world_size=n_procs,
+                            rank=rank, device_id=dev)
+    ms, spans = [], []
+    for rep in range(reps + 1):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
+        a.record()
+        dist.all_to_all_single(recv, send, out_split, in_split)
+        b.record()
+        torch.cuda.synchronize(dev)
+        t1 = time.monotonic()
+        if rep == 0:
+            ok = bool(torch.equal(recv, want))
+        else:
+            ms.append(a.elapsed_time(b))
+            spans.append((t0, t1))
+    result = {"ok": ok, "ms": ms, "spans": spans,
+              "bytes": 2 * 4 * (recv.numel())}
+    dist.destroy_process_group()
+except Exception as e:  # the yardstick's own failure, reported as such
+    result = {"ok": False, "refused": f"{type(e).__name__}: {e}"[:1500]}
+json.dump(result, open(out, "w"))
+"""
+
+
+def _run_bench(script, name, n_procs, *args, timeout=600):
+    """script as n_procs processes (argv: init URL, n_procs, rank, result
+    file, *args); returns each process's JSON result, None for a process
+    that wrote none, and each process's exit code and output."""
+    init = WORK / f"{name}_pg"
+    init.unlink(missing_ok=True)
+    outs = [WORK / f"{name}.{pid}" for pid in range(n_procs)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, f"file://{init}", str(n_procs),
+         str(pid), str(outs[pid]), *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in range(n_procs)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0].decode(
+                    errors="replace"))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0].decode(errors="replace")
+                            + f"\n(killed after {timeout} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = [json.loads(o.read_text()) if o.exists() else None for o in outs]
+    for o in outs + [init]:
+        o.unlink(missing_ok=True)
+    return res, [p.returncode for p in procs], logs
+
+
+def _span_stats(res):
+    """Per exchange: the span from the first launching process's launch to
+    the last one's synchronize, the slowest card's events, and the skew
+    (span minus those events); means over the exchanges."""
+    spans, skews = [], []
+    for i in range(len(res[0]["spans"])):
+        sp = [r["spans"][i] for r in res if r["spans"][i]]
+        span = (max(b for _, b in sp) - min(a for a, _ in sp)) * 1e3
+        spans.append(span)
+        skews.append(span - max(r["ms"][i] for r in res))
+    return float(np.mean(spans)), min(spans), float(np.mean(skews))
 
 
 def phase_mp_exchange(exchange):
     """The cross-process exchange alone at phase 7's shapes (4 senders of
     [4, 2^24, 2], phase 7's counts), each process's senders in IPC memory:
-    bit-exact against the senders' rows, timed from the first process's
-    first launch to the last process's synchronize on the host clock (mean
-    of 10 exchanges after one; each process's CUDA events beside it),
-    beside phase 7's in-process kernel."""
+    bit-exact against the senders' rows with one launch a card, timed from
+    the first launching process's launch to the last one's synchronize on
+    the host clock (mean of 10 exchanges after one; each card's CUDA
+    events and the launch skew beside it), beside phase 7's in-process
+    kernel; then NCCL's all_to_all_single of the same rows as the
+    yardstick (on one card, two NCCL ranks on one GPU: whether NCCL takes
+    them)."""
     n_procs, _ = mp_layout()
-    init = WORK / "mp_bench_pg"
-    init.unlink(missing_ok=True)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _IPC_BENCH, f"file://{init}", str(n_procs),
-         str(pid), str(WORK / f"mp_bench.{pid}"), str(ROOT)], cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for pid in range(n_procs)]
-    logs = [p.communicate(timeout=600)[0].decode(errors="replace")
-            for p in procs]
-    for pid, (p, text) in enumerate(zip(procs, logs)):
-        if p.returncode:
-            raise SystemExit(f"phase 19: exchange bench process {pid} "
-                             f"exited {p.returncode}:\n{text[-3000:]}")
-    res = [json.loads((WORK / f"mp_bench.{pid}").read_text())
-           for pid in range(n_procs)]
+    res, rcs, logs = _run_bench(_IPC_BENCH, "mp_bench", n_procs, str(ROOT))
+    for pid, (rc, text) in enumerate(zip(rcs, logs)):
+        if rc:
+            raise SystemExit(f"phase 19: exchange bench process {pid} exited "
+                             f"{rc}:\n{text[-3000:]}")
     if not all(r["ok"] for r in res):
         raise SystemExit("phase 19: the cross-process exchange delivered "
                          "rows that differ from the senders'")
+    leads = [lead * 11 for lead in mp_leads(n_procs)]
+    if [r["launches"] for r in res] != leads:
+        raise SystemExit(f"phase 19: exchange bench launches "
+                         f"{[r['launches'] for r in res]}, one a card by its "
+                         f"lowest rank would be {leads}")
+    ms, best, skew = _span_stats(res)
     nbytes = sum(r["bytes"] for r in res)
-    # each exchange from the first process's first launch to the last
-    # process's synchronize (one monotonic clock on the machine); a
-    # process's own CUDA events miss the time its peers' launches run alone
-    spans = [(max(r["spans"][i][1] for r in res)
-              - min(r["spans"][i][0] for r in res)) * 1e3
-             for i in range(len(res[0]["spans"]))]
-    ms = float(np.mean(spans))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     if n_procs == 4:  # rows that cross cards go over NVLink
         rng = np.random.default_rng(2)
@@ -3527,19 +3695,42 @@ def phase_mp_exchange(exchange):
         peer = n_rows * (1 - np.eye(4, dtype=np.int64))
         link = max(peer.sum(0).max(), peer.sum(1).max()) * 4 * 2
         bound = max(bound / 4, link / NVLINK_BYTES_PER_S * 1e3)
+    event_ms = [float(np.mean(r["ms"])) for r in res]
     x2 = exchange[2]
     log(f"[phase 19] cross-process exchange, {n_procs} processes, 4 x "
-        f"[4, 2^24, 2]: bit-exact; {ms:.4f} ms (mean of 10; best "
-        f"{min(spans):.4f}) from the first launch to the last synchronize "
-        f"(host clock), each process's kernels by CUDA events "
-        f"{[round(r['ms'], 4) for r in res]} ms, for {nbytes} bytes, "
-        f"bound_ms {bound:.4f}; in one process (phase 7) kernel_ms "
-        f"{x2['ms']:.4f} (CUDA events) bound_ms {x2['bound_ms']:.4f}; "
-        f"launches {[r['launches'] for r in res]}")
-    for pid in range(n_procs):
-        (WORK / f"mp_bench.{pid}").unlink()
-    return dict(ms=ms, event_ms=[r["ms"] for r in res], bound_ms=bound,
-                bytes=nbytes)
+        f"[4, 2^24, 2]: bit-exact, one launch a card; {ms:.4f} ms (mean of "
+        f"10; best {best:.4f}) from the first launch to the last "
+        f"synchronize (host clock), each process's kernel by CUDA events "
+        f"{[round(e, 4) for e in event_ms]} ms (0: it led no card), launch "
+        f"skew {skew:.4f} ms, for {nbytes} bytes, bound_ms {bound:.4f}; in "
+        f"one process (phase 7) kernel_ms {x2['ms']:.4f} (CUDA events) "
+        f"bound_ms {x2['bound_ms']:.4f}")
+    out = dict(ms=ms, best=best, skew_ms=skew, event_ms=event_ms,
+               bound_ms=bound, bytes=nbytes)
+    res, rcs, logs = _run_bench(_NCCL_BENCH, "nccl_bench", n_procs,
+                                timeout=240)
+    if all(r and r["ok"] for r in res):
+        ms, best_ms, skew = _span_stats(res)
+        out.update(nccl_ms=ms, nccl_event_ms=[float(np.mean(r["ms"]))
+                                              for r in res], nccl_note=None)
+        log(f"[phase 19] NCCL all_to_all_single, {n_procs} processes, the "
+            f"same rows ({sum(r['bytes'] for r in res)} bytes read and "
+            f"written):"
+            f" bit-exact; {ms:.4f} ms (mean of 10; best {best_ms:.4f}) from "
+            f"the first launch to the last synchronize (host clock), each "
+            f"rank's CUDA events {out['nccl_event_ms']} ms, skew "
+            f"{skew:.4f} ms")
+    else:
+        why = [r.get("refused") if r else f"exit {rc}: {text[-400:]}"
+               for r, rc, text in zip(res, rcs, logs)]
+        if n_procs == 4:
+            raise SystemExit(f"phase 19: NCCL all_to_all_single on four "
+                             f"cards failed: {why}")
+        out.update(nccl_ms=None, nccl_event_ms=None,
+                   nccl_note=f"NCCL refused {n_procs} ranks on one GPU: "
+                   f"{why[0]}"[:600])
+        log(f"[phase 19] {out['nccl_note']}")
+    return out
 
 
 def phase_multiprocess(fq_mid, full, exchange):
@@ -3698,17 +3889,33 @@ def main(argv=()) -> int:
          "sharded_modes_launches": {
              name: row["launches"]["ragged_all_to_all"]
              for name, row in modes["full"].items()},
-         # phase 19: the same kernel across processes (peer processes'
-         # senders opened through CUDA IPC): each rank's launches in the
-         # full-size multi-process count, its kernel time there, and at
-         # phase 7's shapes, each against the bytes' bound
-         # (times: the host clock from the first process's first launch to
-         # the last one's synchronize)
+         # phase 7 on distinct cards (one process; null on one card): the
+         # host clock around whole exchanges against the NVLink bound
+         "phase7_busy_ms": x2["busy_ms"],
+         "phase7_after_idle_ms": x2["after_idle_ms"],
+         "cross_card_ms": exchange.get("cross", {}).get("ms"),
+         "cross_card_bound_ms": exchange.get("cross", {}).get("bound_ms"),
+         # phase 19: the same kernel across processes (one launch a card
+         # by its lowest rank; other processes' buffers opened through
+         # CUDA IPC): each rank's launches in the full-size multi-process
+         # count, the exchange's time there and at phase 7's shapes, each
+         # against the bytes' bound, with the launch skew between the
+         # processes (times: the host clock from the first launching
+         # process's launch to the last one's synchronize)
          "ipc_launches": mp["full"]["launches"],
          "ipc_full_ms": mp["full"]["ms"],
+         "ipc_full_event_ms": mp["full"]["event_ms"],
+         "ipc_full_skew_ms": mp["full"]["skew_ms"],
          "ipc_full_bound_ms": mp["full"]["bound_ms"],
          "ipc_ms": mp["bench"]["ms"], "ipc_bound_ms": mp["bench"]["bound_ms"],
-         "ipc_event_ms": mp["bench"]["event_ms"]},
+         "ipc_event_ms": mp["bench"]["event_ms"],
+         "ipc_skew_ms": mp["bench"]["skew_ms"],
+         # the library call across processes: NCCL's all_to_all_single of
+         # the same rows over four cards (null where NCCL refused the
+         # layout: the note says why)
+         "ipc_library_ms": mp["bench"]["nccl_ms"],
+         "ipc_library_event_ms": mp["bench"]["nccl_event_ms"],
+         "ipc_library_note": mp["bench"]["nccl_note"]},
         {"name": "all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",

@@ -59,10 +59,13 @@ SIGNATURES = {
     "ragged_a2a": {
         # device, peer
         "kmc_enable_peer_access": [_I32, _I32],
-        # device, table, n_dev, owner, cap, n_words_row, chunk_rows,
-        # n_chunks, out, stream
-        "kmc_ragged_a2a_owner": [_I32, _P, _I32, _I32, _I64, _I32, _I64,
-                                 _I64, _P, _P],
+        # device, char* buf, len
+        "kmc_pci_bus_id": [_I32, ctypes.c_char_p, _I32],
+        # device
+        "kmc_exchange_load": [_I32],
+        # device, ptrs (host int64[2 * n_dev]), tiles, n_tiles, n_dev, cap,
+        # n_words_row, counter, stream
+        "kmc_exchange_tiles": [_I32, _P, _P, _I64, _I32, _I64, _I32, _P, _P],
         # device, bytes, void** ptr, handle (64 bytes)
         "kmc_ipc_alloc": [_I32, _I64, ctypes.POINTER(_P), _P],
         # device, ptr

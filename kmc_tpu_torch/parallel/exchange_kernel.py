@@ -3,11 +3,13 @@
 Kernel: csrc/ragged_a2a.cu, which takes the place of the TPU kernels
 kmc_tpu/parallel/pallas_a2a.py::pallas_ragged_all_to_all and (as the dense
 entry) pallas_all_to_all; see the source for its design and bound.  One
-process drives every shard, so the owner's kernel reads the senders'
-buffers directly: on one card as a device copy, across cards over peer
-access.  Plain versions: ragged_all_to_all_plain and all_to_all_plain
-below, built from slicing and copy_; the wrappers take them for CPU tensors
-only, and the kernel is held against them on the card.
+launch a card (launch_plan) copies the rows of every sender on that card
+to every owner, walking a tile list built here (tile_list): on one card
+as a device copy, to other cards' outputs over peer access (the senders'
+cards push).  Plain versions:
+ragged_all_to_all_plain and all_to_all_plain below, built from slicing and
+copy_; the wrappers take them for CPU tensors only, and the kernel is held
+against them on the card.
 
 Contract (D shards; shard j's tensors on its own device):
 
@@ -33,14 +35,17 @@ only its own senders and owners:
       recv_rows[l][j] == counts[j][layout[rank][l]]
 
 On CUDA shards the senders' buffers come from send_buffer (memory the
-kernel library allocates and exports, csrc/ragged_a2a.cu's IPC entries):
-the owners' launches read the other processes' buffers through CUDA IPC
-handles and their own directly.  CPU shards take the plain version,
-torch.distributed.all_to_all_single of the flattened segments over the
-group.  The route follows the shards' device type only: a failed open or
-launch raises.  The processes meet before the owners' launches (so the
-launches of every process run together) and again before the senders'
-buffers are freed.
+kernel library allocates and exports, csrc/ragged_a2a.cu's IPC entries).
+The lowest rank holding a shard on a card launches that card's kernel for
+every process's senders there: it opens the other processes' senders on
+its card and the outputs of the other processes' owners (exported the
+same way), through CUDA IPC handles.  A rank that leads no card launches
+nothing.  CPU shards
+take the plain version, torch.distributed.all_to_all_single of the
+flattened segments over the group.  The route follows the shards' device
+type only: a failed allocation, open or launch raises on every rank.  The
+processes meet before the launches (so the cards' launches run together)
+and again before the senders' buffers are freed and the owners read.
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_CHUNK_ROWS = 2048  # rows per block of the kernel (a multiple of 4)
+_TILE_WORDS = 1 << 14  # words a tile of the kernel copies (64 KB)
+_MAX_SHARDS = 128  # csrc/ragged_a2a.cu's MAX_DEV
 _peers_on: set = set()  # (device, peer) pairs with peer access enabled
 
 
@@ -124,66 +130,143 @@ def _enable_peer(lib, dev: int, peer: int) -> None:
     _peers_on.add((dev, peer))
 
 
+def tile_rows(C: int) -> int:
+    """Rows of one tile: _TILE_WORDS words, a multiple of 4 rows."""
+    return max(4, _TILE_WORDS // C // 4 * 4)
+
+
+def tile_list(counts, pairs, C: int) -> np.ndarray:
+    """The tiles of one launch: int32[n, 4] of (owner, sender, row0, rows),
+    covering rows [0, counts[sender, owner]) of every (owner, sender) pair
+    of `pairs` exactly once in runs of tile_rows(C) rows (the last run of a
+    pair shorter), with the pairs interleaved round-robin: tile 0 of every
+    pair in the order of `pairs`, then tile 1, and so on."""
+    rows = tile_rows(C)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    n = np.asarray(counts, np.int64)[pairs[:, 1], pairs[:, 0]]
+    k = -(-n // rows)  # tiles of each pair
+    # (tile t, pair) in row-major order: tile 0 of every pair, then tile 1
+    t, pair = np.nonzero(np.arange(int(k.max(initial=0)))[:, None] < k)
+    row0 = t * rows
+    return np.stack([pairs[pair, 0], pairs[pair, 1], row0,
+                     np.minimum(rows, n[pair] - row0)], 1).astype(np.int32)
+
+
+def launch_plan(cards, layout) -> dict:
+    """Who launches for what.  cards[g]: the card of global shard g (any
+    id that names it alike in every process); layout[p]: process p's
+    global shards.  Returns {card: (leader rank, pairs)} in the order the
+    cards first appear: the lowest rank holding a shard on the card
+    launches one kernel there for the (owner, sender) pairs whose sender
+    is on the card, every owner, the owners alternating (the card pushes
+    its senders' rows to every owner's output)."""
+    D = len(cards)
+    rank_of = np.empty(D, np.int64)
+    for p, pos in enumerate(layout):
+        rank_of[list(pos)] = p
+    plan = {}
+    for c in dict.fromkeys(cards):
+        on = [g for g in range(D) if cards[g] == c]
+        plan[c] = (int(rank_of[on].min()),
+                   [(o, s) for s in on for o in range(D)])
+    return plan
+
+
+_tile_cache: dict = {}  # (device, C, pairs, counts) -> tiles on the card
+_TILE_CACHE_ENTRIES = 16
+_loaded: set = set()  # devices with the kernel's module loaded
+
+
+def _device_tiles(lib, dev: int, counts, pairs, C: int):
+    """tile_list's tiles on card dev, uploaded once for each plan and counts
+    (the dense exchange's and a repeated exchange's are the same every
+    call); returns (tensor, n)."""
+    from .. import _build
+
+    if dev not in _loaded:  # the kernel's module, before any launch
+        _build.check(lib, lib.kmc_exchange_load(dev), f"loading the "
+                     f"exchange kernel on cuda:{dev}")
+        _loaded.add(dev)
+    counts = np.ascontiguousarray(counts, np.int64)
+    key = (dev, C, tuple(pairs), counts.tobytes())
+    hit = _tile_cache.get(key)
+    if hit is None:
+        tiles = tile_list(counts, pairs, C)
+        hit = (torch.from_numpy(tiles).to(torch.device("cuda", dev),
+                                          non_blocking=True), len(tiles))
+        if len(_tile_cache) >= _TILE_CACHE_ENTRIES:
+            _tile_cache.pop(next(iter(_tile_cache)))
+        _tile_cache[key] = hit
+    return hit
+
+
+def _launch(lib, dev: int, ptrs, tiles, cap: int, C: int) -> int:
+    """One card's launch on its current stream: ptrs, int64[2 * D] (the
+    senders' then the outputs' pointers as the card sees them), tiles from
+    _device_tiles.  Returns 1, or 0 when there is no tile."""
+    from .. import _build
+
+    t, n = tiles
+    ptrs = np.ascontiguousarray(ptrs, np.uint64).view(np.int64)
+    counter = torch.empty(1, dtype=torch.int64,
+                          device=torch.device("cuda", dev))
+    err = lib.kmc_exchange_tiles(dev, ptrs.ctypes.data, t.data_ptr(), n,
+                                 len(ptrs) // 2, cap, C, counter.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "all-to-all launch")
+    return int(n > 0)
+
+
 def _exchange_kernel(xs, counts):
-    """Launch the kernel once per owner, on the owner's current stream.
+    """One launch a card (launch_plan), each on the card's current stream.
     Returns (outs, number of launches)."""
     from .. import _build
 
     lib = _build.load("ragged_a2a")
     D = len(xs)
     cap, C = xs[0].shape[1], xs[0].shape[2]
-    devs = [x.device for x in xs]
-    streams = [torch.cuda.current_stream(d) for d in devs]
-    multi = len({d.index for d in devs}) > 1
-    ready = []
+    if cap >= 1 << 31 or D > _MAX_SHARDS:
+        raise ValueError(f"the kernel takes cap < 2^31 and at most "
+                         f"{_MAX_SHARDS} shards, got cap {cap}, {D} shards")
+    cards = [x.device.index for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    plan = launch_plan(cards, [list(range(D))])
+    # the other cards a card's launch writes
+    peers = {c: sorted({cards[g] for pair in pairs for g in pair} - {c})
+             for c, (_, pairs) in plan.items()}
+    for c, qs in peers.items():
+        for q in qs:
+            _enable_peer(lib, c, q)
+    ptrs = [x.data_ptr() for x in xs] + [o.data_ptr() for o in outs]
+    tiles = {c: _device_tiles(lib, c, counts, pairs, C)
+             for c, (_, pairs) in plan.items()}
+    streams = {c: torch.cuda.current_stream(c) for c in plan}
+    multi = any(peers.values())
     if multi:
-        # an owner reads a sender's buffer only once the sender's stream has
-        # written it
-        for j in range(D):
-            ev = torch.cuda.Event()
-            ev.record(streams[j])
-            ready.append(ev)
-    # the table (senders' base pointers, then the D x D counts) is the same
-    # for every owner: one pinned, asynchronous copy per card
-    table_h = torch.from_numpy(np.concatenate(
-        [np.array([x.data_ptr() for x in xs], np.uint64).view(np.int64),
-         counts.reshape(-1)]))
-    tables = {}
-    outs = []
-    launches = 0
-    for r in range(D):
-        dev = devs[r].index
-        for j in range(D):
-            if devs[j].index != dev:
-                _enable_peer(lib, dev, devs[j].index)
-                streams[r].wait_event(ready[j])
-        if dev not in tables:
-            with torch.cuda.device(dev):
-                tables[dev] = table_h.pin_memory().to(devs[r],
-                                                      non_blocking=True)
-        out = torch.empty_like(xs[r])
-        n_chunks = -(-int(counts[:, r].max()) // _CHUNK_ROWS)
-        err = lib.kmc_ragged_a2a_owner(
-            dev, tables[dev].data_ptr(), D, r, cap, C, _CHUNK_ROWS, n_chunks,
-            out.data_ptr(), streams[r].cuda_stream)
-        _build.check(lib, err, "ragged all-to-all launch")
-        launches += 1
-        outs.append(out)
+        # a card writes an owner's block on another card only once that
+        # card's stream is done with the memory
+        ready = {}
+        for c, s in streams.items():
+            ready[c] = torch.cuda.Event()
+            ready[c].record(s)
+        for c, qs in peers.items():
+            for q in qs:
+                streams[c].wait_event(ready[q])
+    launches = sum(_launch(lib, c, ptrs, tiles[c], cap, C) for c in plan)
     if multi:
-        # a sender's memory may be reused only after every owner's read
-        for r in range(D):
-            ev = torch.cuda.Event()
-            ev.record(streams[r])
-            for j in range(D):
-                if devs[j].index != devs[r].index:
-                    streams[j].wait_event(ev)
+        # and the owner's card reads it only after the launch is done
+        for c, qs in peers.items():
+            done = torch.cuda.Event()
+            done.record(streams[c])
+            for q in qs:
+                streams[q].wait_event(done)
     return outs, launches
 
 
 def ragged_all_to_all(xs, n_rows):
     """The ragged exchange (see the module docstring).  CPU shards take the
-    plain version; CUDA shards launch the kernel, once per owner on the
-    owner's current stream (each launch counted); anything else raises."""
+    plain version; CUDA shards launch the kernel, once a card on the card's
+    current stream (each launch counted); anything else raises."""
     D, _, _, counts = _check(xs, n_rows)
     xs = list(xs)
     if xs[0].device.type == "cpu":
@@ -195,8 +278,8 @@ def ragged_all_to_all(xs, n_rows):
 
 def all_to_all(xs):
     """The dense exchange: outs[r][j] == xs[j][r].  CPU shards take the
-    plain version; CUDA shards launch the kernel with every segment full
-    (each launch counted); anything else raises."""
+    plain version; CUDA shards launch the kernel with every segment full,
+    once a card (each launch counted); anything else raises."""
     _, _, _, counts = _check(xs)
     xs = list(xs)
     if xs[0].device.type == "cpu":
@@ -217,9 +300,10 @@ _ipc_buffers: dict = {}  # data_ptr -> _IpcBuffer of this process's senders
 
 
 class _IpcBuffer:
-    """A sender's buffer in memory the kernel library allocated
-    (kmc_ipc_alloc) and exported; torch views it through the CUDA array
-    interface."""
+    """A buffer in memory the kernel library allocated (kmc_ipc_alloc) and
+    exported: a sender's, or the output of an owner whose card another
+    process launches for; torch views it through the CUDA array interface
+    (and holds this object while the view lives)."""
 
     def __init__(self, shape, device: torch.device):
         from .. import _build
@@ -232,7 +316,7 @@ class _IpcBuffer:
         self.handle = ctypes.create_string_buffer(_IPC_HANDLE_BYTES)
         err = self.lib.kmc_ipc_alloc(device.index, nbytes, ctypes.byref(ptr),
                                      self.handle)
-        _build.check(self.lib, err, "IPC send buffer allocation")
+        _build.check(self.lib, err, "IPC buffer allocation")
         self.ptr = ptr.value
 
     @property
@@ -240,13 +324,27 @@ class _IpcBuffer:
         return {"shape": self.shape, "typestr": "<i4",
                 "data": (self.ptr, False), "version": 2}
 
+    def tensor(self) -> torch.Tensor:
+        t = torch.as_tensor(self, device=self.device)
+        if t.data_ptr() != self.ptr:
+            self.free()
+            raise RuntimeError("torch did not view the IPC buffer in place")
+        return t
+
     def free(self):
         from .. import _build
 
         if self.ptr is not None:
             err = self.lib.kmc_ipc_free(self.device.index, self.ptr)
             self.ptr = None
-            _build.check(self.lib, err, "IPC send buffer free")
+            _build.check(self.lib, err, "IPC buffer free")
+
+    def __del__(self):
+        # an output's memory goes with the last view of it (every process
+        # that opened it has closed it before the exchange returned)
+        if self.ptr is not None:
+            self.lib.kmc_ipc_free(self.device.index, self.ptr)
+            self.ptr = None
 
 
 def send_buffer(shape, device, multi: bool) -> torch.Tensor:
@@ -257,10 +355,7 @@ def send_buffer(shape, device, multi: bool) -> torch.Tensor:
     if not multi or device.type != "cuda":
         return torch.empty(shape, dtype=torch.int32, device=device)
     buf = _IpcBuffer(shape, device)
-    t = torch.as_tensor(buf, device=device)
-    if t.data_ptr() != buf.ptr:
-        buf.free()
-        raise RuntimeError("torch did not view the IPC send buffer in place")
+    t = buf.tensor()
     _ipc_buffers[buf.ptr] = buf
     return t
 
@@ -297,14 +392,31 @@ def _plain_processes(xs, counts, layout, rank):
     return outs
 
 
+_card_ids: dict = {}  # device index -> PCI bus id
+
+
+def _card_id(lib, index: int) -> str:
+    from .. import _build
+
+    if index not in _card_ids:
+        buf = ctypes.create_string_buffer(32)
+        _build.check(lib, lib.kmc_pci_bus_id(index, buf, len(buf)),
+                     f"PCI bus id of cuda:{index}")
+        _card_ids[index] = buf.value.decode()
+    return _card_ids[index]
+
+
 def _kernel_processes(xs, counts, layout, rank):
-    """The owners' launches over every process's senders (see the module
+    """One launch a card over every process's shards (see the module
     docstring); returns (outs, launches)."""
     from .. import _build
 
     lib = _build.load("ragged_a2a")
     D = counts.shape[0]
     cap, C = xs[0].shape[1], xs[0].shape[2]
+    if cap >= 1 << 31 or D > _MAX_SHARDS:
+        raise ValueError(f"the kernel takes cap < 2^31 and at most "
+                         f"{_MAX_SHARDS} shards, got cap {cap}, {D} shards")
     mine = layout[rank]
     bufs = []
     for x in xs:
@@ -313,78 +425,119 @@ def _kernel_processes(xs, counts, layout, rank):
             raise ValueError("a sender's buffer of a cross-process exchange "
                              "must come from send_buffer")
         bufs.append(buf)
-    for dev in {x.device for x in xs}:
-        torch.cuda.synchronize(dev)  # the senders' rows are written
-    handles = [None] * dist.get_world_size()
-    dist.all_gather_object(handles, [b.handle.raw for b in bufs])
-    opened = {}  # (device, sender) -> pointer opened on that device
+    world = dist.get_world_size()
+    devs = [x.device for x in xs]
+    got = [None] * world
+    dist.all_gather_object(got, ([b.handle.raw for b in bufs],
+                                 [_card_id(lib, d.index) for d in devs]))
+    cards, send_h, rank_of = [None] * D, [None] * D, [0] * D
+    for p, pos in enumerate(layout):
+        for i, g in enumerate(pos):
+            send_h[g], cards[g], rank_of[g] = got[p][0][i], got[p][1][i], p
+    plan = launch_plan(cards, layout)
+    # an owner's output is exported when another process's launch writes it
+    exported = [False] * D
+    for leader, pairs in plan.values():
+        for o, _ in pairs:
+            exported[o] |= leader != rank_of[o]
+    led = {c: pairs for c, (leader, pairs) in plan.items() if leader == rank}
+    opened = {}  # (device, buffer kind, shard) -> pointer opened there
     try:
         failed = None
+        outs, out_bufs = [], []
         try:
-            # one table a card (the senders' pointers as that card sees
-            # them, then the counts) and every output, before the launches
-            tables = {}
-            for dev in dict.fromkeys(x.device for x in xs):
-                ptrs = []
-                for p, p_pos in enumerate(layout):
-                    for i, j in enumerate(p_pos):
-                        if p == rank:
-                            ptrs.append(xs[i].data_ptr())
-                            continue
-                        ptr = ctypes.c_void_p()
-                        err = lib.kmc_ipc_open(dev.index, handles[p][i],
-                                               ctypes.byref(ptr))
-                        _build.check(lib, err, f"opening sender {j}'s "
-                                     f"buffer (rank {p}) on {dev}")
-                        opened[(dev.index, j)] = ptr.value
-                        ptrs.append(ptr.value)
-                tables[dev] = torch.from_numpy(np.concatenate(
-                    [np.array(ptrs, np.uint64).view(np.int64),
-                     counts.reshape(-1)])).to(dev)
-            outs = [torch.empty((D, cap, C), dtype=torch.int32,
-                                device=x.device) for x in xs]
-            events = {dev: (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                      for dev in tables}
+            for l, g in enumerate(mine):
+                if exported[g]:
+                    out_bufs.append(_IpcBuffer((D, cap, C), devs[l]))
+                    outs.append(out_bufs[-1].tensor())
+                else:
+                    outs.append(torch.empty((D, cap, C), dtype=torch.int32,
+                                            device=devs[l]))
+            for dev in set(devs):
+                torch.cuda.synchronize(dev)  # the senders' rows are written
         except Exception as e:  # noqa: BLE001 - raised after the meeting
             failed = e
-        # the group meets before any launch (so every process's launches
-        # run together), and no process launches when one could not open
-        ready = [None] * dist.get_world_size()
+        got = [None] * world
+        dist.all_gather_object(got, (failed is None,
+                                     [b.handle.raw for b in out_bufs]))
+        if failed is not None:
+            raise failed
+        if not all(ok for ok, _ in got):
+            raise RuntimeError("a peer process could not allocate the "
+                               "outputs of the exchange")
+        out_h = [None] * D
+        for p, pos in enumerate(layout):
+            for g, h in zip([g for g in pos if exported[g]], got[p][1]):
+                out_h[g] = h
+        local = {_card_id(lib, d.index): d.index for d in devs}
+        launch_args = {}
+        try:
+            # each card this process launches for: the pointers as that
+            # card sees them and its tiles, before the launches
+            for c, pairs in led.items():
+                dev = local[c]
+                ptrs = np.zeros(2 * D, np.uint64)
+                for kind, shards, own, handles in (
+                        (0, {s for _, s in pairs}, xs, send_h),
+                        (1, {o for o, _ in pairs}, outs, out_h)):
+                    for g in sorted(shards):
+                        if rank_of[g] == rank:
+                            t = own[mine.index(g)]
+                            if t.device.index != dev:
+                                _enable_peer(lib, dev, t.device.index)
+                            ptrs[kind * D + g] = t.data_ptr()
+                            continue
+                        ptr = ctypes.c_void_p()
+                        err = lib.kmc_ipc_open(dev, handles[g],
+                                               ctypes.byref(ptr))
+                        _build.check(lib, err, f"opening shard {g}'s "
+                                     f"{'output' if kind else 'sender'} "
+                                     f"(rank {rank_of[g]}) on cuda:{dev}")
+                        opened[(dev, kind, g)] = ptr.value
+                        ptrs[kind * D + g] = ptr.value
+                launch_args[dev] = (ptrs, _device_tiles(lib, dev, counts,
+                                                        pairs, C))
+            events = {dev: (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                      for dev in launch_args}
+            for dev in launch_args:
+                torch.cuda.synchronize(dev)  # the tiles are on the card
+        except Exception as e:  # noqa: BLE001 - raised after the meeting
+            failed = e
+        # the group meets before any launch (so the cards' launches run
+        # together), and no process launches when one could not open
+        ready = [None] * world
         dist.all_gather_object(ready, failed is None)
         if failed is not None:
             raise failed
         if not all(ready):
-            raise RuntimeError("a peer process could not open the senders' "
-                               "buffers of the exchange")
-        for dev, (start, _) in events.items():
-            start.record(torch.cuda.current_stream(dev))
-        t0 = time.monotonic()
-        for l, o in enumerate(mine):
-            dev = xs[l].device
-            n_chunks = -(-int(counts[:, o].max()) // _CHUNK_ROWS)
-            err = lib.kmc_ragged_a2a_owner(
-                dev.index, tables[dev].data_ptr(), D, o, cap, C, _CHUNK_ROWS,
-                n_chunks, outs[l].data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-            _build.check(lib, err, "ragged all-to-all launch")
-        for dev, (_, end) in events.items():
-            end.record(torch.cuda.current_stream(dev))
-        for dev in tables:
-            torch.cuda.synchronize(dev)  # every read of a peer is done
-        ragged_all_to_all_processes.span = (t0, time.monotonic())
-        ragged_all_to_all_processes.kernel_ms += max(
-            a.elapsed_time(b) for a, b in events.values())
+            raise RuntimeError("a peer process could not open the buffers "
+                               "of the exchange")
+        launches = 0
+        ragged_all_to_all_processes.span = None
+        if launch_args:
+            for dev, (start, _) in events.items():
+                start.record(torch.cuda.current_stream(dev))
+            t0 = time.monotonic()
+            for dev, (ptrs, tiles) in launch_args.items():
+                launches += _launch(lib, dev, ptrs, tiles, cap, C)
+            for dev, (_, end) in events.items():
+                end.record(torch.cuda.current_stream(dev))
+            for dev in launch_args:
+                torch.cuda.synchronize(dev)  # every peer read and write done
+            ragged_all_to_all_processes.span = (t0, time.monotonic())
+            ragged_all_to_all_processes.kernel_ms += max(
+                a.elapsed_time(b) for a, b in events.values())
     finally:
         errs = [lib.kmc_ipc_close(dev, ptr)
-                for (dev, _), ptr in opened.items()]
-        dist.barrier()  # no process reads another's buffers any more
+                for (dev, _, _), ptr in opened.items()]
+        dist.barrier()  # no process touches another's buffers any more
         for b in bufs:
             _ipc_buffers.pop(b.ptr, None)
             b.free()
     for err in errs:
         _build.check(lib, err, "closing a peer's buffer")
-    return outs, len(mine)
+    return outs, launches
 
 
 def ragged_all_to_all_processes(xs, counts, layout):
@@ -417,18 +570,22 @@ def ragged_all_to_all_processes(xs, counts, layout):
     peers = np.setdiff1d(np.arange(D), mine)
     ragged_all_to_all_processes.peer_bytes += int(
         row * counts[np.ix_(peers, mine)].sum())
+    ragged_all_to_all_processes.sent_rows += int(counts[mine].sum())
     return outs, recv_rows
 
 
-# launches of the kernel; the device milliseconds of this process's owner
-# launches (CUDA events, the slowest card's), the bytes they read and
-# wrote and, of them, the bytes read from other processes' senders, summed
-# over the exchanges; and the last exchange's host monotonic
-# clock (one clock for every process of a machine) from this process's
-# first launch to its cards' synchronize, so the processes' spans together
-# bound the whole exchange
+# launches of the kernel by this process (one a card it leads whose senders
+# have a row to send); the device milliseconds of its launches (CUDA
+# events, the slowest card's); the bytes its owners' rows take to read and
+# write and, of them, the bytes read from other processes' senders, and
+# the rows its senders sent, summed over the exchanges; and the last
+# exchange's host monotonic clock (one clock for every process of a
+# machine) from this process's first launch to its cards' synchronize
+# (None when it led no card), so the leaders' spans together bound the
+# whole exchange
 ragged_all_to_all_processes.launches = 0
 ragged_all_to_all_processes.kernel_ms = 0.0
 ragged_all_to_all_processes.bytes = 0
 ragged_all_to_all_processes.peer_bytes = 0
+ragged_all_to_all_processes.sent_rows = 0
 ragged_all_to_all_processes.span = None

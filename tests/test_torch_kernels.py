@@ -450,7 +450,7 @@ def _check_exchange(devices, cap, C, seed):
     outs, rr = ragged_all_to_all(xs, n_rows)
     for d in set(devices):
         torch.cuda.synchronize(d)
-    assert ragged_all_to_all.launches == before + D
+    assert ragged_all_to_all.launches == before + len(set(devices))
     assert np.array_equal(rr, rr_ref)
     for r in range(D):
         assert outs[r].device == xs[r].device
@@ -462,7 +462,7 @@ def _check_exchange(devices, cap, C, seed):
     dense = all_to_all(xs)
     for d in set(devices):
         torch.cuda.synchronize(d)
-    assert all_to_all.launches == before + D
+    assert all_to_all.launches == before + len(set(devices))
     for got, want in zip(dense, dense_ref):
         assert torch.equal(got, want)
 
@@ -527,9 +527,9 @@ dist.destroy_process_group()
 @pytest.mark.gpu
 @pytest.mark.parametrize("cap,C", [(1024, 2), ((1 << 16) + 3, 3)])
 def test_exchange_across_processes_matches_plain(tmp_path, cap, C):
-    """Two processes on card 0, two senders each: the owners' launches
-    read the other process's buffers through CUDA IPC and deliver what
-    the plain version does."""
+    """Two processes on card 0, two senders and two owners each: rank 0's
+    one launch reads rank 1's senders and writes rank 1's outputs through
+    CUDA IPC, and every owner gets what the plain version delivers."""
     import json
     import subprocess
     import sys
@@ -550,7 +550,8 @@ def test_exchange_across_processes_matches_plain(tmp_path, cap, C):
         assert p.returncode == 0, log[-3000:]
         got = json.loads((tmp_path / f"r{r}.json").read_text())
         assert got["ok"] and got["refused"], got
-        assert got["launches"] == 2  # one per owner of the process
+        # one launch a card, by the lowest rank on it
+        assert got["launches"] == (1 if r == 0 else 0)
         assert got["recv"] == counts[:, [2 * r, 2 * r + 1]].T.tolist()
 
 
@@ -589,8 +590,10 @@ def test_two_process_count_on_card_matches_cpu(tmp_path):
                                devices=["cpu"] * 4, k=27, cutoff_min=2,
                                batch_positions=1 << 14,
                                capacity_rows_per_device=5 << 13, **kw)
-        for r in res:
-            assert r["launches"] == 2 and r["kernels"]["fused_ingest"] > 0
+        for rank, r in enumerate(res):
+            # one exchange launch for card 0, by rank 0
+            assert r["launches"] == (1 if rank == 0 else 0)
+            assert r["kernels"]["fused_ingest"] > 0
             assert r["stats"]["timings"]["exchange_route"] == "ipc_kernel"
             for key in ("n_unique", "n_total", "n_super_kmers", "n_below",
                         "n_above", "n_compactions", "n_spills",
@@ -802,7 +805,7 @@ def test_distributed_step_on_card_matches_cpu(k):
     ref, _ = make_distributed_count_step(["cpu"] * D, s=s, k=k, sig_len=M)
     before = all_to_all.launches
     got = step(codes, sig_map)
-    assert all_to_all.launches == before + D
+    assert all_to_all.launches == before + min(n, D)  # one a card
     want = ref(codes, sig_map)
     for g, w in zip(got, want):
         for a, b in zip(g, w):

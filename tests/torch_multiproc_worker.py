@@ -22,10 +22,11 @@ Each mode m counts into <out>.<m> ("@" written "_"); process 0 writes the
 database, and every process writes <out>.<m>.stats.<pid>: JSON of
 {"stats": the returned stats, "launches": the exchange kernel's
 cross-process launches in that count, "kernels": each kernel's launches,
-"exchange_ms" / "exchange_bytes" / "exchange_peer_bytes": the
-cross-process exchange kernel's device time in this process, the bytes
-its owners read and wrote and of them those read from other processes'
-senders, "exchange_span": the host
+"exchange_ms" / "exchange_bytes" / "exchange_peer_bytes" /
+"exchange_sent_rows": the cross-process exchange kernel's device time in
+this process, the bytes its owners read and wrote and of them those read
+from other processes' senders, the rows its senders sent,
+"exchange_span": the host
 monotonic clock around this process's launches of the count's exchange
 (null without one), "wall_s", "peak_bytes": the peak
 device memory of each card (CUDA shards)}, or {"error": "MemoryError",
@@ -127,7 +128,7 @@ def main():
             for d in cards:
                 torch.cuda.reset_peak_memory_stats(d)
         before = (_launches(), xp.launches, xp.kernel_ms, xp.bytes,
-                  xp.peer_bytes)
+                  xp.peer_bytes, xp.sent_rows)
         t0 = time.perf_counter()
         try:
             stats = distributed_count([reads], dst, devices=devices, **kw)
@@ -138,6 +139,7 @@ def main():
                 "exchange_ms": xp.kernel_ms - before[2],
                 "exchange_bytes": xp.bytes - before[3],
                 "exchange_peer_bytes": xp.peer_bytes - before[4],
+                "exchange_sent_rows": xp.sent_rows - before[5],
                 "exchange_span": xp.span if xp.launches > before[1]
                 else None,
                 "wall_s": time.perf_counter() - t0,
