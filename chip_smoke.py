@@ -9,6 +9,7 @@
     python3 chip_smoke.py 16 17      # kmc_tools and the greedy map (4, 5)
     python3 chip_smoke.py 18         # the sharded modes, the SPMD step (4, 5)
     python3 chip_smoke.py 19         # multi-process counting (4, 5, 7)
+    python3 chip_smoke.py 20         # counting across nodes (4, 5, 7)
 
 Phases (any failure exits non-zero):
   1. card facts (name, power limit) and the kernels' build, with ptxas's
@@ -175,7 +176,22 @@ Phases (any failure exits non-zero):
      the cross-process exchange alone at phase 7's shapes, bit-exact and
      timed beside phase 7's in-process figure, and NCCL's
      all_to_all_single of the same rows as its yardstick (four cards; on
-     one card whether NCCL takes two ranks on one GPU).
+     one card whether NCCL takes two ranks on one GPU);
+ 20. counting across nodes, emulated on one machine as two nodes of two
+     processes (tests/torch_multiproc_worker.py's MP_NODE: ranks 0-1 and
+     2-3), one card each on a machine of four or more cards: at mid size
+     every mode of phase 19 == one process over the four cards, files and
+     stats, the exchange in two legs (the kernel over CUDA IPC within a
+     node, NCCL point-to-point between the nodes) with no IPC open of the
+     other node's handles; at full size phase 5's input split by bytes,
+     DB == phase 5's; then the exchange alone at phase 7's shapes,
+     bit-exact, the on-node kernel's and the NCCL leg's device times each
+     against its bound (NVLink's 450 GB/s for the NCCL leg: one machine,
+     no InfiniBand figure), each node's span; then whether NCCL carries
+     a process that holds two cards (the layout the port refuses across
+     nodes).  On fewer than four cards the same emulation on CPU shards
+     over phase 4's first 16,000 reads (every mode, and the input split by
+     bytes, == one process); the NCCL leg is not run there.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all from phase 18's SPMD step; the 2-D scan entry from
@@ -190,7 +206,8 @@ cards, phase 19's launches across processes (each rank's, in the
 full-size count) and the times of the exchange across processes there
 and at phase 7's shapes (host clock from the first launching process's
 launch to the last one's synchronize; the launch skew beside them)
-against their bytes' bounds, with NCCL's time for the same rows.  Every
+against their bytes' bounds, with NCCL's time for the same rows, and
+phase 20's two legs across emulated nodes.  Every
 device-store path must ingest through the fused kernel and never
 through the scan entry.
 Shards sit on distinct cards when the machine has two or more, else all
@@ -3271,7 +3288,8 @@ def mp_layout():
     return 2, "cuda:0,cuda:0"
 
 
-def run_workers(reads, out: Path, env: dict, n_procs: int, timeout=900):
+def run_workers(reads, out: Path, env: dict, n_procs: int, timeout=900,
+                phase=19):
     """tests/torch_multiproc_worker.py as n_procs processes (gloo, through
     a file:// store), each its own fresh interpreter; fails the phase when
     one exits non-zero.  Returns the seconds to the last one's exit."""
@@ -3297,7 +3315,7 @@ def run_workers(reads, out: Path, env: dict, n_procs: int, timeout=900):
     wall = time.perf_counter() - t0
     for pid, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode:
-            raise SystemExit(f"phase 19: worker {pid} exited "
+            raise SystemExit(f"phase {phase}: worker {pid} exited "
                              f"{p.returncode}:\n{text[-3000:]}")
     init.unlink(missing_ok=True)
     return wall
@@ -3329,7 +3347,7 @@ def mp_leads(n_procs):
     return [1] * n_procs if n_procs == 4 else [1] + [0] * (n_procs - 1)
 
 
-def _check_mp_launches(label, knobs, res):
+def _check_mp_launches(label, knobs, res, phase=19):
     """Each rank launched the kernels its mode uses and no other, and the
     cross-process exchange once for each card it leads whose senders sent
     a row (a shard may have spilled every row before finalize)."""
@@ -3343,13 +3361,14 @@ def _check_mp_launches(label, knobs, res):
         xp = "ragged_all_to_all_processes"
         if any((got[k] > 0) != (k in uses) for k in got if k != xp) or (
                 got[xp] != (lead if xp in uses else 0)):
-            raise SystemExit(f"phase 19: {label} rank {pid} launched {got}, "
+            raise SystemExit(f"phase {phase}: {label} rank {pid} launched "
+                             f"{got}, "
                              f"it must launch {uses} ({lead} cross-process "
                              "exchange launches: one a card with rows to "
                              "send, by its lowest rank) and no other")
 
 
-def _same_stats(label, res, single):
+def _same_stats(label, res, single, phase=19):
     """Every rank's stats == the single-process count's, but the local
     ones; the ranks agree."""
     want = {k: v for k, v in json.loads(json.dumps(single)).items()
@@ -3357,68 +3376,70 @@ def _same_stats(label, res, single):
     for pid, r in enumerate(res):
         got = {k: v for k, v in r["stats"].items() if k not in MP_LOCAL}
         if got != want:
-            raise SystemExit(f"phase 19: {label} rank {pid} stats {got} != "
+            raise SystemExit(f"phase {phase}: {label} rank {pid} stats {got} "
+                             "!= "
                              f"the single-process count's {want}")
 
 
-def phase_mp_mid(fq_mid):
-    """Phase 19 at mid size: every mode of the process group against the
-    single-process count over 4 shards on the card, each process reading
-    the whole stream (so the deal, the compactions and the spills are the
-    single process's), files byte for byte and stats."""
+def _group_modes(fq, out: Path, n_procs: int, env: dict, devices, knobs,
+                 modes, phase: int, on_cards: bool = True):
+    """Every mode of `modes` ((worker mode, the single-process count's
+    knobs)) by n_procs workers (env: their MP_* knobs; every process reads
+    the whole stream, so the deal, the compactions and the spills are the
+    single process's) against the single-process count over `devices`
+    with `knobs`: files byte for byte and global stats; on cards each
+    rank's launches.  Returns {mode: (each rank's result, the single
+    count's stats, its wall)}."""
     import dataclasses
 
     from kmc_tpu_torch import memory
 
-    n_procs, devs = mp_layout()
-    out = WORK / "mp_mid"
-    wall = run_workers(fq_mid, out, dict(
-        MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 18,
-        MP_CAPACITY=3 << 19, MP_SHARD_INPUT=0, MP_SPILL_CAPACITY=1 << 19,
-        MP_MODES=",".join(m for m, _ in MP_MODES_MID)), n_procs)
-    log(f"[phase 19] mid size: {n_procs} processes ({devs}) ran "
-        f"{len(MP_MODES_MID)} modes in {wall:.1f} s")
+    wall = run_workers(fq, out, dict(env, MP_MODES=",".join(
+        m for m, _ in modes)), n_procs, phase=phase)
+    log(f"[phase {phase}] {out.name}: {n_procs} processes "
+        f"({env['MP_DEVICES']}) ran {len(modes)} modes in {wall:.1f} s")
     planned = memory.plan_memory
     rows = {}
-    for mode, knobs in MP_MODES_MID:
+    for mode, mode_knobs in modes:
         res = worker_results(out, mode, n_procs)
         name, _, budget = mode.partition("@")
-        single = WORK / f"mp_mid_single_{name}"
+        single = WORK / f"{out.name}_single_{name}"
         if budget:
             memory.plan_memory = lambda *a, **kw: dataclasses.replace(
                 planned(*a, **kw), spill_budget_bytes=int(budget))
         try:
-            st, s_wall = run_sharded(fq_mid, single, shard_devices(),
-                                     **dict(dict(
-                                         batch_positions=1 << 18,
-                                         capacity_rows_per_device=3 << 19),
-                                         **knobs))
+            st, s_wall = run_sharded(fq, single, devices,
+                                     **dict(knobs, **mode_knobs))
         finally:
             memory.plan_memory = planned
-        _same_stats(f"mid {mode}", res, st)
+        _same_stats(f"{out.name} {mode}", res, st, phase)
         files = _route_files(single)
         mine = [suf for suf in _route_files(Path(
             f"{out}.{mode.replace('@', '_')}")) if not suf.startswith(
                 ".stats")]
         if files != mine or bool(files) == (name == "e"):
-            raise SystemExit(f"phase 19: mid {mode} wrote {mine}, the "
-                             f"single-process count {files}")
+            raise SystemExit(f"phase {phase}: {out.name} {mode} wrote {mine}, "
+                             f"the single-process count {files}")
         for suf in files:
             a = Path(f"{out}.{mode.replace('@', '_')}{suf}").read_bytes()
             if a != Path(f"{single}{suf}").read_bytes():
-                raise SystemExit(f"phase 19: mid {mode}: {suf} differs from "
-                                 "the single-process count's")
-        _check_mp_launches(f"mid {mode}", knobs, res)
+                raise SystemExit(f"phase {phase}: {out.name} {mode}: {suf} "
+                                 "differs from the single-process count's")
+        if on_cards:
+            _check_mp_launches(f"{out.name} {mode}", mode_knobs, res, phase)
+        elif any(n for r in res for n in r["kernels"].values()):
+            raise SystemExit(f"phase {phase}: {out.name} {mode}: CPU shards "
+                             f"launched {[r['kernels'] for r in res]}")
         if name == "spill" and (st["n_spills"] < 2 or st["n_remerges"] < 1):
-            raise SystemExit(f"phase 19: mid spill: {st['n_spills']} spills, "
-                             f"{st['n_remerges']} re-merges")
-        rows[mode] = dict(walls=[r["wall_s"] for r in res],
-                          launches=[r["launches"] for r in res])
-        log(f"[phase 19] mid {mode}: {n_procs} processes == one process "
-            f"over 4 card shards ({', '.join(files) or 'no files'}; stats "
-            f"equal); n_total {st.get('n_total')} n_spills "
-            f"{st.get('n_spills')} n_remerges {st.get('n_remerges')}; "
-            f"cross-process exchange launches by rank "
+            raise SystemExit(f"phase {phase}: {out.name} spill: "
+                             f"{st['n_spills']} spills, {st['n_remerges']} "
+                             "re-merges")
+        rows[mode] = (res, st, s_wall)
+        log(f"[phase {phase}] {out.name} {mode}: {n_procs} processes == one "
+            f"process over {len(devices)} {devices[0].split(':')[0]} shards "
+            f"({', '.join(files) or 'no files'}; stats equal); n_total "
+            f"{st.get('n_total')} n_spills {st.get('n_spills')} n_remerges "
+            f"{st.get('n_remerges')}; exchange launches by rank "
             f"{[r['launches'] for r in res]}; walls by rank "
             f"{[round(r['wall_s'], 3) for r in res]} s, one process "
             f"{s_wall:.3f} s")
@@ -3426,6 +3447,56 @@ def phase_mp_mid(fq_mid):
             for q in prefix.parent.glob(prefix.name + ".*"):
                 q.unlink()
     return rows
+
+
+def phase_mp_mid(fq_mid):
+    """Phase 19 at mid size: every mode of the process group against the
+    single-process count over 4 shards on the card."""
+    n_procs, devs = mp_layout()
+    rows = _group_modes(fq_mid, WORK / "mp_mid", n_procs, dict(
+        MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 18,
+        MP_CAPACITY=3 << 19, MP_SHARD_INPUT=0, MP_SPILL_CAPACITY=1 << 19),
+        shard_devices(), dict(batch_positions=1 << 18,
+                              capacity_rows_per_device=3 << 19),
+        MP_MODES_MID, 19)
+    return {mode: dict(walls=[r["wall_s"] for r in res],
+                       launches=[r["launches"] for r in res])
+            for mode, (res, _, _) in rows.items()}
+
+
+def _group_full(full, out: Path, n_procs: int, env: dict, phase: int):
+    """Phase 5's FASTQ and knobs by n_procs workers (env: their MP_*
+    knobs) parsing disjoint byte ranges of it, shards of 2^26 rows: the
+    ranks' stats agree, the DB == phase 5's, n_total and n_super_kmers ==
+    phase 5's, every byte parsed once, each rank's launches.  Returns
+    (each rank's result, the seconds to the last exit)."""
+    fq, n_reads, ref = full
+    wall = run_workers(fq, out, dict(
+        env, MP_K=27, MP_CI=2, MP_BATCH=1 << 22, MP_CAPACITY=1 << 26,
+        MP_MODES="default"), n_procs, phase=phase)
+    res = worker_results(out, "default", n_procs)
+    st = res[0]["stats"]
+    if any({k: v for k, v in r["stats"].items() if k not in MP_LOCAL}
+           != {k: v for k, v in st.items() if k not in MP_LOCAL}
+           for r in res):
+        raise SystemExit(f"phase {phase}: full size: the ranks' stats "
+                         "differ")
+    if st["n_total"] != n_reads * 124 or st["n_reads"] != n_reads:
+        raise SystemExit(f"phase {phase}: full size n_total {st['n_total']}, "
+                         f"n_reads {st['n_reads']}")
+    if st["n_super_kmers"] != ref.n_super_kmers:
+        raise SystemExit(f"phase {phase}: full size n_super_kmers "
+                         f"{st['n_super_kmers']} != phase 5's "
+                         f"{ref.n_super_kmers}")
+    if not _same_db(Path(f"{out}.default"), WORK / "bench_out"):
+        raise SystemExit(f"phase {phase}: full-size DB differs from phase "
+                         "5's")
+    parsed = [r["stats"]["consumed_bytes_local"] for r in res]
+    if sum(parsed) != fq.stat().st_size or min(parsed) <= 0:
+        raise SystemExit(f"phase {phase}: the processes parsed {parsed} "
+                         f"bytes of {fq.stat().st_size}")
+    _check_mp_launches("full", {}, res, phase)
+    return res, wall
 
 
 def phase_mp_full(full):
@@ -3437,29 +3508,8 @@ def phase_mp_full(full):
     fq, n_reads, ref = full
     n_procs, devs = mp_layout()
     out = WORK / "mp_full"
-    wall = run_workers(fq, out, dict(
-        MP_DEVICES=devs, MP_K=27, MP_CI=2, MP_BATCH=1 << 22,
-        MP_CAPACITY=1 << 26, MP_MODES="default"), n_procs)
-    res = worker_results(out, "default", n_procs)
+    res, wall = _group_full(full, out, n_procs, dict(MP_DEVICES=devs), 19)
     st = res[0]["stats"]
-    if any({k: v for k, v in r["stats"].items() if k not in MP_LOCAL}
-           != {k: v for k, v in st.items() if k not in MP_LOCAL}
-           for r in res):
-        raise SystemExit("phase 19: full size: the ranks' stats differ")
-    if st["n_total"] != n_reads * 124 or st["n_reads"] != n_reads:
-        raise SystemExit(f"phase 19: full size n_total {st['n_total']}, "
-                         f"n_reads {st['n_reads']}")
-    if st["n_super_kmers"] != ref.n_super_kmers:
-        raise SystemExit(f"phase 19: full size n_super_kmers "
-                         f"{st['n_super_kmers']} != phase 5's "
-                         f"{ref.n_super_kmers}")
-    if not _same_db(Path(f"{out}.default"), WORK / "bench_out"):
-        raise SystemExit("phase 19: full-size DB differs from phase 5's")
-    parsed = [r["stats"]["consumed_bytes_local"] for r in res]
-    if sum(parsed) != fq.stat().st_size or min(parsed) <= 0:
-        raise SystemExit(f"phase 19: the processes parsed {parsed} bytes of "
-                         f"{fq.stat().st_size}")
-    _check_mp_launches("full", {}, res)
     # the exchange on the card: from the first launching process's launch
     # to the last one's synchronize (one monotonic clock on the machine);
     # what the slowest card's kernel (CUDA events) leaves of that span is
@@ -3516,6 +3566,11 @@ from kmc_tpu_torch.parallel.distributed import init_multihost
 init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     sys.argv[4]
 xp = xk.ragged_all_to_all_processes
+host = None
+if len(sys.argv) > 6:  # emulated nodes: argv[6] lists each rank's
+    import socket
+    host = "node" + sys.argv[6].split(",")[rank]
+    socket.gethostname = lambda: host
 init_multihost(init, n_procs, rank)
 dev = torch.device("cuda", rank if n_procs == 4 else 0)
 D, cap, C, reps = 4, 1 << 24, 2, 10
@@ -3528,14 +3583,14 @@ full = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), generator=gen,
                       dtype=torch.int32, device=dev) for _ in range(D)]
 n_rows = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
 n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, cap, 12345
-ok, ms, spans = True, [], []
+ok, ms, nccl_ms, spans = True, [], [], []
 for rep in range(reps + 1):
     xs = []
     for j in mine:
         buf = xk.send_buffer((D, cap, C), dev, True)
         buf.copy_(full[j])
         xs.append(buf)
-    before = xp.kernel_ms
+    before = xp.kernel_ms, xp.nccl_ms
     outs, recv = xp(xs, n_rows, layout)
     if rep == 0:
         for l, o in enumerate(mine):
@@ -3543,11 +3598,14 @@ for rep in range(reps + 1):
                 m = int(n_rows[j, o])
                 ok &= bool(torch.equal(outs[l][j, :m], full[j][o, :m]))
     else:
-        ms.append(xp.kernel_ms - before)
+        ms.append(xp.kernel_ms - before[0])
+        nccl_ms.append(xp.nccl_ms - before[1])
         spans.append(xp.span)  # None on a rank that leads no card
     del xs, outs
-json.dump({"ok": ok, "ms": ms, "spans": spans, "launches": xp.launches,
-           "bytes": xp.bytes // (reps + 1)}, open(out, "w"))
+json.dump({"ok": ok, "ms": ms, "nccl_ms": nccl_ms, "spans": spans,
+           "launches": xp.launches, "bytes": xp.bytes // (reps + 1),
+           "cross_bytes": xp.cross_node_bytes // (reps + 1),
+           "opens": xp.cross_node_opens, "node": host}, open(out, "w"))
 dist.destroy_process_group()
 """
 
@@ -3742,6 +3800,280 @@ def phase_multiprocess(fq_mid, full, exchange):
     return dict(mid=mid, full=full_row, bench=bench)
 
 
+# -- phase 20: counting across nodes (two emulated nodes) --
+
+MN_NODES = "0,0,1,1"  # MP_NODE: ranks 0-1 on one emulated node, 2-3 on another
+# the CPU emulation of a machine with fewer than four cards: phase 4's
+# first reads, shards that spill at 2^16 rows and re-merge under 30 MB
+MN_CPU_READS = 16000
+MN_CPU_BUDGET = 30_000_000
+MN_CPU_MODES = MP_MODES_MID[:-1] + (
+    (f"spill@{MN_CPU_BUDGET}", dict(capacity_rows_per_device=1 << 16)),)
+
+
+def _check_node_results(label, res, knobs, route):
+    """Each rank recorded its emulated node, opened no handle of the other
+    node, and (store modes) took `route`, the card routes moving rows
+    across nodes on the NCCL leg."""
+    nodes = [r["node"] for r in res]
+    if nodes != [f"node{n}" for n in MN_NODES.split(",")]:
+        raise SystemExit(f"phase 20: {label}: the ranks' nodes {nodes}")
+    opens = [r["exchange_cross_node_opens"] for r in res]
+    if any(opens):
+        raise SystemExit(f"phase 20: {label}: IPC opens of another node's "
+                         f"handles {opens}")
+    if knobs.get("estimate_only") or knobs.get("k", 27) < 14:
+        return
+    got = {r["stats"]["timings"]["exchange_route"] for r in res}
+    if got != {route}:
+        raise SystemExit(f"phase 20: {label}: exchange routes {got}")
+    if route.endswith("+nccl"):
+        crossed = [r["exchange_cross_node_bytes"] for r in res]
+        legs = [r["exchange_nccl_ms"] for r in res]
+        if not sum(crossed) or any(b and not ms
+                                   for b, ms in zip(crossed, legs)):
+            raise SystemExit(f"phase 20: {label}: cross-node bytes {crossed}, "
+                             f"NCCL leg ms {legs}")
+
+
+def phase_nodes_cpu(fq_mid):
+    """Phase 20 on a machine of fewer than four cards: the same two-node
+    emulation (four processes, nodes {0, 1} and {2, 3}) on CPU shards over
+    phase 4's first MN_CPU_READS reads, every mode of phase 19 against one
+    process, and the input split by bytes against it; the NCCL leg needs
+    cards of their own, at least two."""
+    fq = WORK / "mn_head.fastq"
+    _head_fastq(fq_mid, fq, MN_CPU_READS)
+    env = dict(MP_DEVICES="cpu", MP_NODE=MN_NODES, MP_K=27, MP_CI=2,
+               MP_BATCH=1 << 16, MP_CAPACITY=1 << 19, MP_SHARD_INPUT=0,
+               MP_SPILL_CAPACITY=1 << 16)
+    knobs = dict(batch_positions=1 << 16, capacity_rows_per_device=1 << 19)
+    rows = _group_modes(fq, WORK / "mn_cpu", 4, env, ["cpu"] * 4, knobs,
+                        MN_CPU_MODES, 20, on_cards=False)
+    for mode, (res, _, _) in rows.items():
+        _check_node_results(f"cpu {mode}", res, dict(MN_CPU_MODES)[mode],
+                            "plain+p2p")
+    out = WORK / "mn_cpu_sharded"
+    run_workers(fq, out, dict(env, MP_SHARD_INPUT=1, MP_MIN_SHARD=4096,
+                              MP_MODES="default"), 4, phase=20)
+    res = worker_results(out, "default", 4)
+    _check_node_results("cpu sharded input", res, {}, "plain+p2p")
+    single = WORK / "mn_cpu_single"
+    st, _ = run_sharded(fq, single, ["cpu"] * 4, **knobs)
+    parsed = [r["stats"]["consumed_bytes_local"] for r in res]
+    if not _same_db(Path(f"{out}.default"), single) or min(parsed) <= 0 \
+            or sum(parsed) != fq.stat().st_size or any(
+                r["stats"][k] != st[k] for r in res
+                for k in ("n_total", "n_unique", "n_super_kmers")):
+        raise SystemExit("phase 20: cpu sharded input: the DB or stats "
+                         "differ from one process's, or the byte ranges "
+                         f"{parsed} do not cover the input")
+    for q in list(WORK.glob("mn_cpu*")) + [fq]:
+        q.unlink()
+    log(f"[phase 20] two emulated nodes x two processes on CPU shards: "
+        f"{len(rows)} modes and the input split by bytes == one process; "
+        f"the NCCL leg needs cards of their own, at least two "
+        f"({torch.cuda.device_count()} here; phase 20's card run takes "
+        f"four): not run")
+    return dict(cpu_modes=list(rows), nccl=None)
+
+
+def phase_nodes_mid(fq_mid):
+    """Phase 20 at mid size on four cards: every mode of phase 19 by four
+    processes, one card each, in two emulated nodes, against one process
+    over the four cards."""
+    rows = _group_modes(fq_mid, WORK / "mn_mid", 4, dict(
+        MP_DEVICES="cuda:{pid}", MP_NODE=MN_NODES, MP_K=27, MP_CI=2,
+        MP_BATCH=1 << 18, MP_CAPACITY=3 << 19, MP_SHARD_INPUT=0,
+        MP_SPILL_CAPACITY=1 << 19), shard_devices(),
+        dict(batch_positions=1 << 18, capacity_rows_per_device=3 << 19),
+        MP_MODES_MID, 20)
+    for mode, (res, _, _) in rows.items():
+        _check_node_results(f"mid {mode}", res, dict(MP_MODES_MID)[mode],
+                            "ipc_kernel+nccl")
+        log(f"[phase 20] mid {mode}: NCCL leg ms by rank "
+            f"{[round(r['exchange_nccl_ms'], 4) for r in res]} for "
+            f"{[r['exchange_cross_node_bytes'] for r in res]} bytes sent "
+            f"across nodes; kernel ms {[round(r['exchange_ms'], 4) for r in res]}")
+    return {mode: dict(walls=[r["wall_s"] for r in res],
+                       launches=[r["launches"] for r in res],
+                       nccl_ms=[r["exchange_nccl_ms"] for r in res])
+            for mode, (res, _, _) in rows.items()}
+
+
+def _node_spans(res, key="spans"):
+    """Per emulated node, the mean over the exchanges of the span from its
+    first process's launch or send to its last one's synchronize (spans of
+    one node share a clock; those of two nodes do not compose)."""
+    out = {}
+    for node in dict.fromkeys(r["node"] for r in res):
+        mine = [r for r in res if r["node"] == node]
+        per = []
+        for i in range(len(mine[0][key])):
+            sp = [r[key][i] for r in mine if r[key][i]]
+            if sp:
+                per.append((max(b for _, b in sp) - min(a for a, _ in sp))
+                           * 1e3)
+        out[node] = float(np.mean(per)) if per else None
+    return out
+
+
+def phase_nodes_full(full):
+    """Phase 20 at full size on four cards: phase 5's FASTQ split by bytes
+    over four processes in two emulated nodes; DB == phase 5's."""
+    res, wall = _group_full(full, WORK / "mn_full", 4, dict(
+        MP_DEVICES="cuda:{pid}", MP_NODE=MN_NODES), 20)
+    _check_node_results("full", res, {}, "ipc_kernel+nccl")
+    spans = _node_spans([dict(r, spans=[r["exchange_span"]]) for r in res])
+    log(f"[phase 20] full size, 4 processes in 2 emulated nodes: DB == "
+        f"phase 5's byte for byte; all processes {wall:.3f} s; walls by "
+        f"rank {[round(r['wall_s'], 3) for r in res]}; kernel ms by rank "
+        f"{[round(r['exchange_ms'], 4) for r in res]}; NCCL leg ms by rank "
+        f"{[round(r['exchange_nccl_ms'], 4) for r in res]} for "
+        f"{[r['exchange_cross_node_bytes'] for r in res]} bytes sent across "
+        f"nodes; span by node (host clock) "
+        f"{ {n: round(v, 4) for n, v in spans.items() if v} } ms; launches "
+        f"by rank {[r['launches'] for r in res]}; cross-node IPC opens "
+        f"{sum(r['exchange_cross_node_opens'] for r in res)}")
+    for q in WORK.glob("mn_full.*"):
+        q.unlink()
+    return dict(launches=[r["launches"] for r in res],
+                kernel_ms=[r["exchange_ms"] for r in res],
+                nccl_ms=[r["exchange_nccl_ms"] for r in res],
+                spans=spans, walls=[r["wall_s"] for r in res])
+
+
+def _node_bounds(n_rows, nodes, row_bytes):
+    """Bounds of the two legs, one shard a card: the on-node kernel's
+    (each card's own rows over HBM, the rows between cards of a node over
+    NVLink's 450 GB/s each way), the NCCL leg's (the busiest card's
+    cross-node rows in or out over NVLink: these nodes are emulated on one
+    machine, so this is no InfiniBand figure) and both legs' together (they
+    share a card's links here); ms."""
+    nodes = np.asarray(nodes)
+    same = nodes[:, None] == nodes[None, :]
+    eye = np.eye(len(nodes), dtype=bool)
+    on = n_rows * same
+    link = n_rows * (same & ~eye)
+    cross = n_rows * ~same
+    hbm = (on.sum(1) + on.sum(0)) * row_bytes / HBM_BYTES_PER_S
+    k_link = np.maximum(link.sum(1), link.sum(0)) * row_bytes
+    x_link = np.maximum(cross.sum(1), cross.sum(0)) * row_bytes
+    both = np.maximum((link + cross).sum(1), (link + cross).sum(0)) \
+        * row_bytes
+    return (float(max(hbm.max(), k_link.max() / NVLINK_BYTES_PER_S)) * 1e3,
+            float(x_link.max() / NVLINK_BYTES_PER_S) * 1e3,
+            float(max(hbm.max(), both.max() / NVLINK_BYTES_PER_S)) * 1e3)
+
+
+def phase_nodes_exchange(exchange):
+    """The exchange alone at phase 7's shapes (4 senders of [4, 2^24, 2],
+    phase 7's counts), four processes, one card each, in two emulated
+    nodes: bit-exact, the on-node kernel's and the NCCL leg's CUDA events
+    apart, each against its bound, each node's span, no cross-node IPC
+    open (mean of 10 exchanges after one)."""
+    res, rcs, logs = _run_bench(_IPC_BENCH, "mn_bench", 4, str(ROOT),
+                                MN_NODES)
+    for pid, (rc, text) in enumerate(zip(rcs, logs)):
+        if rc:
+            raise SystemExit(f"phase 20: exchange bench process {pid} exited "
+                             f"{rc}:\n{text[-3000:]}")
+    if not all(r["ok"] for r in res):
+        raise SystemExit("phase 20: the two-leg exchange delivered rows that "
+                         "differ from the senders'")
+    if [r["launches"] for r in res] != [11] * 4 or any(
+            r["opens"] for r in res):
+        raise SystemExit(f"phase 20: exchange bench launches "
+                         f"{[r['launches'] for r in res]} (one a card an "
+                         f"exchange: 11), cross-node IPC opens "
+                         f"{[r['opens'] for r in res]}")
+    rng = np.random.default_rng(2)
+    n_rows = rng.integers(0, (1 << 24) + 1, size=(4, 4))
+    n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, 1 << 24, 12345
+    kb, nb, bb = _node_bounds(n_rows, MN_NODES.split(","), 8)
+    kernel = [float(np.mean(r["ms"])) for r in res]
+    nccl = [float(np.mean(r["nccl_ms"])) for r in res]
+    spans = _node_spans(res)
+    cross = sum(r["cross_bytes"] for r in res)
+    x2 = exchange[2]
+    log(f"[phase 20] two-leg exchange, 4 processes in 2 emulated nodes, 4 x "
+        f"[4, 2^24, 2]: bit-exact, one launch a card, 0 cross-node IPC "
+        f"opens; on-node kernel by CUDA events {[round(e, 4) for e in kernel]}"
+        f" ms (bound_ms {kb:.4f}); NCCL leg by its stream's CUDA events "
+        f"{[round(e, 4) for e in nccl]} ms for {cross} bytes sent across "
+        f"nodes (bound_ms {nb:.4f} at NVLink's 450 GB/s, one machine: not "
+        f"an InfiniBand figure); span by node (host clock, mean of 10) "
+        f"{ {n: round(v, 4) for n, v in spans.items()} } ms; both legs' "
+        f"bound_ms {bb:.4f}; one process on one card (phase 7) "
+        f"{x2['ms']:.4f} ms")
+    return dict(kernel_ms=kernel, kernel_bound_ms=kb, nccl_ms=nccl,
+                nccl_bound_ms=nb, bound_ms=bb, spans=spans, cross_bytes=cross)
+
+
+# Whether NCCL point-to-point carries a process whose shards sit on two
+# cards (the layout check_node_layout refuses across nodes): two
+# processes of two cards each, one batch_isend_irecv from both of a
+# process's cards; the outcome, and nothing of the port.
+_NCCL_TWO_CARDS = r"""
+import json, os, sys
+from datetime import timedelta
+import torch
+import torch.distributed as dist
+
+init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
+dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank,
+                        timeout=timedelta(seconds=30))
+cards = [torch.device("cuda", 2 * rank + i) for i in range(2)]
+torch.cuda.set_device(cards[0])
+result = {}
+try:
+    g = dist.new_group(backend="nccl", timeout=timedelta(seconds=30))
+    x = torch.ones(1, device=cards[0])
+    dist.all_reduce(x, group=g)
+    bufs = [torch.full((1 << 20,), 10 * rank + i, dtype=torch.int32,
+                       device=d) for i, d in enumerate(cards)]
+    ops = [dist.P2POp(dist.isend if rank == 0 else dist.irecv, b, 1 - rank,
+                      g) for b in bufs]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    result["ok"] = rank == 0 or all(
+        bool((b == i).all()) for i, b in enumerate(bufs))
+except Exception as e:
+    result = {"ok": False, "error": f"{type(e).__name__}: {e}"[:600]}
+json.dump(result, open(out, "w"))
+"""
+
+
+def phase_nodes_two_cards():
+    res, rcs, logs = _run_bench(_NCCL_TWO_CARDS, "mn_two_cards", 2,
+                                timeout=120)
+    works = all(r and r["ok"] for r in res)
+    why = [r.get("error") if r else f"exit {rc}: {text[-300:]}"
+           for r, rc, text in zip(res, rcs, logs)]
+    log(f"[phase 20] NCCL point-to-point from a process holding two cards "
+        f"(2 processes x 2 cards, one batch): "
+        f"{'delivered' if works else 'refused or failed'}; {why}")
+    return works
+
+
+def phase_nodes(fq_mid, full, exchange):
+    """Phase 20: counting across nodes, emulated as two nodes of two
+    processes on one machine (MP_NODE); on fewer than four cards the same
+    emulation on CPU shards."""
+    if torch.cuda.device_count() < 4:
+        return phase_nodes_cpu(fq_mid)
+    mid = phase_nodes_mid(fq_mid)
+    full_row = phase_nodes_full(full)
+    bench = phase_nodes_exchange(exchange)
+    two_cards = phase_nodes_two_cards()
+    return dict(mid=mid, full=full_row, bench=bench, nccl=True,
+                two_cards_a_process=two_cards)
+
+
 def timed(n, fn, *args):
     """fn(*args), logged with its seconds as phase n."""
     t0 = time.perf_counter()
@@ -3782,6 +4114,7 @@ PHASES = (
     (17, phase_greedy, (4, 5)),
     (18, phase_sharded_modes, (4, 5)),
     (19, phase_multiprocess, (4, 5, 7)),
+    (20, phase_nodes, (4, 5, 7)),
 )
 
 
@@ -3807,6 +4140,8 @@ def main(argv=()) -> int:
     greedy_run = got[17]  # phase 17's deferred full-size run
     modes = got[18]  # phase 18: the sharded modes and the SPMD step
     mp = got[19]  # phase 19: multi-process counting
+    mn = got[20]  # phase 20: counting across (emulated) nodes
+    mn_bench = mn.get("bench", {})
     step18 = modes["step"]["launches"]
     xs18 = modes["step"]["exchange"]
     sharded, (scan_1d, probes) = got[9], got[10]
@@ -3915,7 +4250,21 @@ def main(argv=()) -> int:
          # layout: the note says why)
          "ipc_library_ms": mp["bench"]["nccl_ms"],
          "ipc_library_event_ms": mp["bench"]["nccl_event_ms"],
-         "ipc_library_note": mp["bench"]["nccl_note"]},
+         "ipc_library_note": mp["bench"]["nccl_note"],
+         # phase 20: the exchange across two emulated nodes of two
+         # processes, one card each (null on fewer than four cards: the
+         # NCCL leg needs cards of their own): each rank's launches in the
+         # full-size count; at phase 7's shapes the on-node kernel's and
+         # the NCCL leg's CUDA events by rank, each against its bound
+         # (NVLink's for the NCCL leg: the nodes share one machine), and
+         # each node's span on the host clock
+         "nodes_launches": mn.get("full", {}).get("launches"),
+         "nodes_kernel_ms": mn_bench.get("kernel_ms"),
+         "nodes_kernel_bound_ms": mn_bench.get("kernel_bound_ms"),
+         "nodes_nccl_ms": mn_bench.get("nccl_ms"),
+         "nodes_nccl_bound_ms": mn_bench.get("nccl_bound_ms"),
+         "nodes_span_ms": mn_bench.get("spans"),
+         "nodes_bound_ms": mn_bench.get("bound_ms")},
         {"name": "all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",

@@ -18,14 +18,26 @@ jax.lax.all_to_all under shard_map; one process drives every shard here.
 init_multihost joins a torch.distributed group (gloo), the counterpart of
 jax.distributed's control plane: flags, histograms, scalars and stats
 cross it as CPU tensors or pickled objects, whatever the shards' devices
-are, so several processes may share one card.  Fleet is a process's view
-of that group for the sharded count: its rank, and the global shard list,
-which is the ranks' own device lists concatenated rank-major (the order
-of jax's mesh positions).
+are, so several processes of one node may share one card.  It records
+each rank's node (its host name).  Fleet is a process's view of that
+group for the sharded count: its rank, the ranks' nodes, and the global
+shard list, which is the ranks' own device lists concatenated rank-major
+(the order of jax's mesh positions).
+
+A group across several nodes moves the exchange's rows between nodes by
+NCCL point-to-point (exchange_kernel.py's cross-node leg), and NCCL binds
+a rank to one card: there every process holds its shards on one card of
+its own (check_node_layout), its current device is that card, and the
+ranks share one NCCL group (nccl_group), made once, collectively, with
+the heartbeat's timeout.  CPU shards across nodes need no NCCL: their
+cross-node leg is gloo point-to-point, their on-node leg an all-to-all
+over a gloo group of the node's ranks (node_group).
 """
 from __future__ import annotations
 
+import os
 import socket
+import weakref
 from datetime import timedelta
 
 import numpy as np
@@ -40,28 +52,45 @@ from ..ops.store import _group_reduce
 from .exchange_kernel import all_to_all
 
 
+class _Group:
+    """The live group's nodes, timeout and subgroups (one process group a
+    process: init_multihost sets it anew).  The groups are held by weak
+    references: torch's registry owns them, and destroy_process_group
+    frees them then, not at the interpreter's exit."""
+    world = None  # weak reference to the default group these belong to
+    hosts = None  # each rank's node, in rank order
+    timeout = None
+    node_group = None  # weak reference to the gloo group of this node
+    nccl = None  # weak reference to the NCCL group over every rank
+    nccl_device = None  # and its card
+
+
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None,
-                   heartbeat_timeout_seconds: int | None = None) -> None:
+                   heartbeat_timeout_seconds: int | None = None,
+                   devices=None) -> None:
     """Join the torch.distributed group of a multi-process count (mirrors
     kmc_tpu's init_multihost).  Call once per process, before the count;
     one-process runs may skip it.
 
     coordinator_address: "host:port" (TCP, process 0 listens), or an init
-    URL ("tcp://host:port", "file:///path" for processes of one node that
-    share a file system); None takes torch's environment variables
-    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  The group is gloo: the
-    control plane runs on CPU tensors whatever the shards' devices are,
-    and needs no NCCL.
+    URL ("tcp://host:port"; "file:///path" for processes of one node, or
+    of nodes that share a file system); None takes torch's environment
+    variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, as torchrun
+    sets them).  The group is gloo: the control plane runs on CPU tensors
+    whatever the shards' devices are.
 
     heartbeat_timeout_seconds bounds how long a collective waits for a
     peer (default 100 s, jax's default, which kmc_tpu keeps); a peer that
     dies closes its connections, so the survivors' next collective raises
-    instead of hanging.  The cross-process exchange of card shards reads
-    the other processes' card memory through CUDA IPC, which needs one
-    node: a group whose ranks sit on several hosts raises here when this
-    machine has a card."""
+    instead of hanging.  The NCCL group of a card group across nodes gets
+    the same timeout.
+
+    devices: this process's shards, when known here: a group across
+    several nodes then checks the card layout (check_node_layout) and
+    joins the NCCL group now; otherwise the sharded count does both at its
+    start, on every rank alike."""
     if coordinator_address is None:
         url = "env://"
     elif "://" in coordinator_address:
@@ -73,18 +102,144 @@ def init_multihost(coordinator_address: str | None = None,
         kwargs["world_size"] = int(num_processes)
     if process_id is not None:
         kwargs["rank"] = int(process_id)
-    dist.init_process_group(
-        "gloo", init_method=url,
-        timeout=timedelta(seconds=heartbeat_timeout_seconds or 100),
-        **kwargs)
-    hosts = [None] * dist.get_world_size()
-    dist.all_gather_object(hosts, socket.gethostname())
-    if len(set(hosts)) > 1 and torch.cuda.is_available():
-        raise RuntimeError(
-            f"kmc_tpu_torch: the ranks run on several hosts "
-            f"{sorted(set(hosts))}; the cross-process exchange of card shards "
-            "reads peer processes' card memory through CUDA IPC, which works "
-            "on one node only")
+    timeout = timedelta(seconds=heartbeat_timeout_seconds or 100)
+    dist.init_process_group("gloo", init_method=url, timeout=timeout,
+                            **kwargs)
+    _Group.world, _Group.timeout = None, timeout
+    rank_nodes()
+    if devices is not None:
+        join_cards(resolve_devices(devices))
+
+
+def rank_nodes() -> list:
+    """Each rank's node (its host name), in rank order: recorded by
+    init_multihost, or gathered here (collectively) for a group made
+    elsewhere; [this host] without a group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return [socket.gethostname()]
+    if _Group.world is None or _Group.world() is not dist.group.WORLD:
+        hosts = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, socket.gethostname())
+        _Group.world, _Group.hosts = weakref.ref(dist.group.WORLD), hosts
+        _Group.node_group = _Group.nccl = _Group.nccl_device = None
+        if _Group.timeout is None:
+            _Group.timeout = timedelta(seconds=100)
+    return _Group.hosts
+
+
+def check_node_layout(nodes, cards) -> None:
+    """Raise ValueError, naming the layout, for a card group across nodes
+    that NCCL cannot carry.  nodes[r]: rank r's node; cards[r]: the cards
+    of rank r's shards, by a name unique within its node (empty for CPU
+    shards).  Within one node every layout is taken.  Across nodes each
+    rank holds its shards on one card, and no two ranks share a card
+    (NCCL refuses two ranks on one GPU: "Duplicate GPU detected")."""
+    if len(set(nodes)) < 2:
+        return
+    holders = {}
+    for r, (node, cs) in enumerate(zip(nodes, cards)):
+        if len(set(cs)) > 1:
+            raise ValueError(
+                f"kmc_tpu_torch: rank {r} holds shards on {len(set(cs))} "
+                f"cards {sorted(set(cs))} of node {node!r} in a group across "
+                f"{len(set(nodes))} nodes; the exchange's cross-node leg is "
+                "NCCL, which binds a process to one card: run one process a "
+                "card")
+        for c in set(cs):
+            holders.setdefault((node, c), []).append(r)
+    for (node, c), ranks in holders.items():
+        if len(ranks) > 1:
+            raise ValueError(
+                f"kmc_tpu_torch: ranks {ranks} share card {c} of node "
+                f"{node!r} in a group across {len(set(nodes))} nodes; the "
+                "exchange's cross-node leg is NCCL, which takes one process "
+                "a card (\"Duplicate GPU detected\"): run one process a card, "
+                "or every process on one node")
+
+
+def node_group():
+    """The gloo group of this rank's node (one a node, made collectively
+    by every rank on the first call)."""
+    nodes = rank_nodes()  # forgets the groups of a destroyed world
+    if _Group.node_group is None:
+        for node in dict.fromkeys(nodes):
+            g = dist.new_group([r for r, n in enumerate(nodes) if n == node],
+                               timeout=_Group.timeout, backend="gloo")
+            if node == nodes[dist.get_rank()]:
+                _Group.node_group = weakref.ref(g)
+    return _Group.node_group()
+
+
+def group_timeout() -> float:
+    """Seconds a collective of the live group waits for a peer (the
+    heartbeat)."""
+    rank_nodes()
+    return _Group.timeout.total_seconds()
+
+
+def nccl_group(device: torch.device):
+    """The NCCL group over every rank, for the exchange's cross-node leg,
+    bound to this rank's card `device`: made collectively by every rank on
+    the first call, with the gloo group's timeout, and brought up at once:
+    an all-reduce over every rank (a group's first call must involve them
+    all), then one point-to-point exchange between every pair of ranks.
+    NCCL connects a pair at its first point-to-point operation, on the
+    calling thread, with no timeout (seconds for a group), so every pair
+    is connected here and an exchange's leg finds its connections made.
+    A failed or timed-out NCCL operation tears the process down
+    (TORCH_NCCL_ASYNC_ERROR_HANDLING=1), so a survivor of a dead peer ends
+    in an error within the timeout, never hangs."""
+    device = torch.device(device)
+    rank_nodes()  # forgets the groups of a destroyed world
+    if _Group.nccl is None:
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
+        torch.cuda.set_device(device)
+        g = dist.new_group(backend="nccl", timeout=_Group.timeout)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        probe = torch.ones(1, dtype=torch.int32, device=device)
+        dist.all_reduce(probe, group=g)
+        if int(probe) != world:
+            raise RuntimeError(f"kmc_tpu_torch: the NCCL group's first "
+                               f"all-reduce gave {int(probe)}")
+        got = torch.zeros(world, dtype=torch.int32, device=device)
+        ops = [op for p in range(world) if p != rank for op in (
+            dist.P2POp(dist.isend, probe, p, g),
+            dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
+        for w in dist.batch_isend_irecv(ops) if ops else []:
+            w.wait()
+        if int(got.sum()) != world * (world - 1):
+            raise RuntimeError("kmc_tpu_torch: the NCCL group's pairs "
+                               "delivered wrong values")
+        _Group.nccl, _Group.nccl_device = weakref.ref(g), device
+    elif _Group.nccl_device != device:
+        raise ValueError(f"kmc_tpu_torch: this rank's NCCL group is bound to "
+                         f"{_Group.nccl_device}, not {device}")
+    return _Group.nccl()
+
+
+def join_cards(devices) -> None:
+    """For a group across nodes whose shards are on cards: check every
+    rank's card layout (raising the same error on every rank), then join
+    the NCCL group on this rank's card.  Collective; nothing to do within
+    one node or for CPU shards."""
+    from .. import _build
+    from .exchange_kernel import _card_id
+
+    nodes = rank_nodes()
+    if len(set(nodes)) < 2:
+        return
+    kind = devices[0].type
+    if kind == "cuda":
+        lib = _build.load("ragged_a2a")
+        mine = sorted({_card_id(lib, d.index) for d in devices})
+    got = [None] * len(nodes)
+    dist.all_gather_object(got, (kind, mine if kind == "cuda" else []))
+    if len({k for k, _ in got}) != 1:
+        raise ValueError(f"the ranks' shards mix device types: "
+                         f"{[k for k, _ in got]}")
+    if kind == "cuda":
+        check_node_layout(nodes, [cards for _, cards in got])
+        nccl_group(devices[0])
 
 
 def process_count() -> int:
@@ -102,10 +257,12 @@ def process_index() -> int:
 
 
 class Fleet:
-    """This process's place in the count's process group: rank, world size
-    and the global shard layout (layout[r] lists rank r's global shard
-    positions; the global list is the ranks' device lists concatenated
-    rank-major).  With one process every collective is the identity."""
+    """This process's place in the count's process group: rank, world size,
+    whether the ranks sit on several nodes (multi_node) and the global
+    shard layout (layout[r] lists rank r's global shard positions; the
+    global list is the ranks' device lists concatenated rank-major).  With
+    one process every collective is the identity.  A group across nodes
+    checks its card layout and joins the NCCL group here (join_cards)."""
 
     def __init__(self, devices):
         self.world = process_count()
@@ -124,6 +281,9 @@ class Fleet:
             pos += n
         self.D = pos
         self.positions = self.layout[self.rank]
+        self.multi_node = len(set(rank_nodes())) > 1
+        if self.multi_node:
+            join_cards(devices)
 
     def all_gather_obj(self, obj) -> list:
         """Every rank's obj, in rank order."""
@@ -153,7 +313,7 @@ class Fleet:
         """Elementwise int64 sums over the ranks of a list of ints."""
         v = torch.tensor([int(x) for x in values], dtype=torch.int64)
         if self.multi:
-                dist.all_reduce(v)
+            dist.all_reduce(v)
         return [int(x) for x in v]
 
     def allmax(self, value: int) -> int:

@@ -4,9 +4,11 @@ Kernel: csrc/ragged_a2a.cu, which takes the place of the TPU kernels
 kmc_tpu/parallel/pallas_a2a.py::pallas_ragged_all_to_all and (as the dense
 entry) pallas_all_to_all; see the source for its design and bound.  One
 launch a card (launch_plan) copies the rows of every sender on that card
-to every owner, walking a tile list built here (tile_list): on one card
-as a device copy, to other cards' outputs over peer access (the senders'
-cards push).  Plain versions:
+to every owner of its node, walking a tile list built here (tile_list):
+on one card as a device copy, to other cards' outputs over peer access
+(the senders' cards push).  Between nodes no memory is addressable from a
+kernel: those rows go by NCCL point-to-point (the cross-node leg below),
+which replaces no kernel.  Plain versions:
 ragged_all_to_all_plain and all_to_all_plain below, built from slicing and
 copy_; the wrappers take them for CPU tensors only, and the kernel is held
 against them on the card.
@@ -36,16 +38,41 @@ only its own senders and owners:
 
 On CUDA shards the senders' buffers come from send_buffer (memory the
 kernel library allocates and exports, csrc/ragged_a2a.cu's IPC entries).
-The lowest rank holding a shard on a card launches that card's kernel for
-every process's senders there: it opens the other processes' senders on
-its card and the outputs of the other processes' owners (exported the
-same way), through CUDA IPC handles.  A rank that leads no card launches
-nothing.  CPU shards
-take the plain version, torch.distributed.all_to_all_single of the
-flattened segments over the group.  The route follows the shards' device
-type only: a failed allocation, open or launch raises on every rank.  The
-processes meet before the launches (so the cards' launches run together)
-and again before the senders' buffers are freed and the owners read.
+The exchange runs in two legs.  A card is named by (node, PCI bus id),
+since every node of a cluster repeats the same bus ids.
+
+  on-node leg      the pairs whose sender and owner share a node
+                   (launch_plan).  The lowest rank holding a shard on a
+                   card launches that card's kernel for every process's
+                   senders there: it opens the other processes' senders on
+                   its card and the outputs of the other processes' owners
+                   (exported the same way), through CUDA IPC handles, all
+                   of its own node (a handle of another node means nothing
+                   here: opening one raises, and the cross_node_opens
+                   counter stays 0).  A rank that leads no card launches
+                   nothing.
+  cross-node leg   the pairs whose owner sits on another node
+                   (cross_node_pairs): one torch.distributed
+                   batch_isend_irecv on the NCCL group
+                   (distributed.nccl_group), each sender's xs[l][o, :m]
+                   straight into the owner's outs[l'][j, :m], on a stream
+                   of its own beside the kernel's launches.  NCCL binds a
+                   rank to one card, so across nodes every process holds
+                   its shards on one card of its own
+                   (distributed.check_node_layout raises otherwise).
+
+Within one node the second leg is empty and the first is the whole
+exchange.  CPU shards take the plain version: the on-node leg by
+torch.distributed.all_to_all_single of the flattened segments over the
+node's ranks (a gloo group of them; the whole group on one node), the
+cross-node leg by the same point-to-point operations on the gloo group.
+The route follows the shards' device type only: a failed allocation,
+open, launch, send or receive raises on every rank (a cross-node leg
+that outlasts the group's timeout raises; NCCL tears down a process
+whose operation fails or times out; the others' next collective
+raises).  The processes meet before the launches and sends (so the
+cards' launches run together) and again, once both legs are done, before
+the senders' buffers are freed and the owners read.
 """
 from __future__ import annotations
 
@@ -152,15 +179,19 @@ def tile_list(counts, pairs, C: int) -> np.ndarray:
                      np.minimum(rows, n[pair] - row0)], 1).astype(np.int32)
 
 
-def launch_plan(cards, layout) -> dict:
+def launch_plan(cards, layout, nodes=None) -> dict:
     """Who launches for what.  cards[g]: the card of global shard g (any
-    id that names it alike in every process); layout[p]: process p's
-    global shards.  Returns {card: (leader rank, pairs)} in the order the
-    cards first appear: the lowest rank holding a shard on the card
-    launches one kernel there for the (owner, sender) pairs whose sender
-    is on the card, every owner, the owners alternating (the card pushes
-    its senders' rows to every owner's output)."""
+    id that names it alike in every process; across nodes it holds the
+    node, as bus ids repeat from node to node); layout[p]: process p's
+    global shards; nodes[g]: shard g's node (None: every shard on one
+    node).  Returns {card: (leader rank, pairs)} in the order the cards
+    first appear: the lowest rank holding a shard on the card launches one
+    kernel there for the (owner, sender) pairs whose sender is on the card
+    and whose owner is on the sender's node, the owners alternating (the
+    card pushes its senders' rows to those owners' outputs).  The pairs
+    that cross nodes are cross_node_pairs'."""
     D = len(cards)
+    nodes = [0] * D if nodes is None else list(nodes)
     rank_of = np.empty(D, np.int64)
     for p, pos in enumerate(layout):
         rank_of[list(pos)] = p
@@ -168,8 +199,20 @@ def launch_plan(cards, layout) -> dict:
     for c in dict.fromkeys(cards):
         on = [g for g in range(D) if cards[g] == c]
         plan[c] = (int(rank_of[on].min()),
-                   [(o, s) for s in on for o in range(D)])
+                   [(o, s) for s in on for o in range(D)
+                    if nodes[o] == nodes[s]])
     return plan
+
+
+def cross_node_pairs(counts, nodes) -> np.ndarray:
+    """The exchange's cross-node leg: int64[n, 3] of (sender, owner, rows)
+    for every pair whose sender and owner sit on different nodes (nodes[g]:
+    shard g's node), rows = counts[sender, owner], sender-major.  With
+    launch_plan's pairs it covers every (owner, sender) pair once."""
+    nodes = np.unique(np.asarray(nodes), return_inverse=True)[1].reshape(-1)
+    s, o = np.nonzero(nodes[:, None] != nodes[None, :])
+    counts = np.asarray(counts, np.int64)
+    return np.stack([s, o, counts[s, o]], 1).astype(np.int64).reshape(-1, 3)
 
 
 _tile_cache: dict = {}  # (device, C, pairs, counts) -> tiles on the card
@@ -360,15 +403,61 @@ def send_buffer(shape, device, multi: bool) -> torch.Tensor:
     return t
 
 
-def _plain_processes(xs, counts, layout, rank):
-    """all_to_all_single of the flattened segments: to process q go, owner
+def _shard_nodes(layout, nodes) -> list:
+    """Each global shard's node: nodes[p] for the shards of layout[p]."""
+    out = [None] * sum(map(len, layout))
+    for p, pos in enumerate(layout):
+        for g in pos:
+            out[g] = nodes[p]
+    return out
+
+
+def _cross_ops(xs, outs, cross, layout, rank, group):
+    """This process's operations of the cross-node leg: for every pair of
+    cross_node_pairs with rows, the sender's xs[l][o, :m] goes to the
+    owner's outs[l'][j, :m] by torch.distributed point-to-point on `group`
+    (peers by global rank).  Both sides post a pair of ranks' operations in
+    the pairs' (sender, owner) order, which is how NCCL matches them; the
+    tag names the pair for gloo."""
+    D = sum(map(len, layout))
+    rank_of = {g: p for p, pos in enumerate(layout) for g in pos}
+    idx = {g: l for l, g in enumerate(layout[rank])}
+    ops = []
+    for s, o, m in cross.tolist():
+        if m == 0:
+            continue
+        if s in idx:
+            ops.append(dist.P2POp(dist.isend, xs[idx[s]][o, :m], rank_of[o],
+                                  group, s * D + o))
+        elif o in idx:
+            ops.append(dist.P2POp(dist.irecv, outs[idx[o]][s, :m],
+                                  rank_of[s], group, s * D + o))
+    return ops
+
+
+def _plain_processes(xs, counts, layout, rank, nodes):
+    """The on-node leg by all_to_all_single of the flattened segments over
+    the node's ranks (the whole group on one node): to process q go, owner
     by owner of q's, each local sender's rows for that owner; split sizes
-    from counts, which every process holds."""
+    from counts, which every process holds.  Across nodes the cross-node
+    pairs go by gloo point-to-point on the whole group (_cross_ops),
+    posted before the all-to-all and waited on after it."""
+    from .distributed import node_group
+
     D = counts.shape[0]
     cap, C = xs[0].shape[1], xs[0].shape[2]
     mine = layout[rank]
+    outs = [torch.empty((D, cap, C), dtype=torch.int32) for _ in mine]
+    here = [p for p, node in enumerate(nodes) if node == nodes[rank]]
+    group, works = None, []
+    if len(here) < len(layout):
+        group = node_group()
+        cross = cross_node_pairs(counts, _shard_nodes(layout, nodes))
+        ops = _cross_ops(xs, outs, cross, layout, rank, None)
+        works = dist.batch_isend_irecv(ops) if ops else []
+    near = [layout[p] for p in here]
     parts, in_split = [], []
-    for q_pos in layout:
+    for q_pos in near:
         n = 0
         for o in q_pos:
             for l, j in enumerate(mine):
@@ -377,18 +466,19 @@ def _plain_processes(xs, counts, layout, rank):
                 n += m * C
         in_split.append(n)
     out_split = [sum(int(counts[j, o]) for o in mine for j in p_pos) * C
-                 for p_pos in layout]
+                 for p_pos in near]
     send = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int32)
     recv = torch.empty(sum(out_split), dtype=torch.int32)
-    dist.all_to_all_single(recv, send, out_split, in_split)
-    outs = [torch.empty((D, cap, C), dtype=torch.int32) for _ in mine]
+    dist.all_to_all_single(recv, send, out_split, in_split, group=group)
     at = 0
-    for p_pos in layout:
+    for p_pos in near:
         for l, o in enumerate(mine):
             for j in p_pos:
                 m = int(counts[j, o])
                 outs[l][j, :m] = recv[at:at + m * C].view(m, C)
                 at += m * C
+    for w in works:
+        w.wait()
     return outs
 
 
@@ -406,10 +496,12 @@ def _card_id(lib, index: int) -> str:
     return _card_ids[index]
 
 
-def _kernel_processes(xs, counts, layout, rank):
-    """One launch a card over every process's shards (see the module
-    docstring); returns (outs, launches)."""
+def _kernel_processes(xs, counts, layout, rank, nodes):
+    """One launch a card over the on-node pairs of every process's shards,
+    and the cross-node pairs by NCCL beside it (see the module docstring);
+    returns (outs, launches)."""
     from .. import _build
+    from .distributed import check_node_layout, group_timeout, nccl_group
 
     lib = _build.load("ragged_a2a")
     D = counts.shape[0]
@@ -430,19 +522,30 @@ def _kernel_processes(xs, counts, layout, rank):
     got = [None] * world
     dist.all_gather_object(got, ([b.handle.raw for b in bufs],
                                  [_card_id(lib, d.index) for d in devs]))
+    # a card is (node, PCI bus id): every node repeats the same bus ids
     cards, send_h, rank_of = [None] * D, [None] * D, [0] * D
     for p, pos in enumerate(layout):
         for i, g in enumerate(pos):
-            send_h[g], cards[g], rank_of[g] = got[p][0][i], got[p][1][i], p
-    plan = launch_plan(cards, layout)
-    # an owner's output is exported when another process's launch writes it
-    exported = [False] * D
-    for leader, pairs in plan.values():
-        for o, _ in pairs:
-            exported[o] |= leader != rank_of[o]
-    led = {c: pairs for c, (leader, pairs) in plan.items() if leader == rank}
+            send_h[g], rank_of[g] = got[p][0][i], p
+            cards[g] = (nodes[p], got[p][1][i])
+    node_of = _shard_nodes(layout, nodes)
+    me = nodes[rank]
     opened = {}  # (device, buffer kind, shard) -> pointer opened there
     try:
+        check_node_layout(nodes, [got[p][1] for p in range(world)])
+        plan = launch_plan(cards, layout, node_of)
+        cross = cross_node_pairs(counts, node_of)
+        # the NCCL group (made by every rank at its first cross-node
+        # exchange), on this process's one card
+        nccl = nccl_group(devs[0]) if len(set(nodes)) > 1 else None
+        # an owner's output is exported when another process's launch
+        # writes it
+        exported = [False] * D
+        for leader, pairs in plan.values():
+            for o, _ in pairs:
+                exported[o] |= leader != rank_of[o]
+        led = {c: pairs for c, (leader, pairs) in plan.items()
+               if leader == rank}
         failed = None
         outs, out_bufs = [], []
         try:
@@ -469,7 +572,7 @@ def _kernel_processes(xs, counts, layout, rank):
         for p, pos in enumerate(layout):
             for g, h in zip([g for g in pos if exported[g]], got[p][1]):
                 out_h[g] = h
-        local = {_card_id(lib, d.index): d.index for d in devs}
+        local = {(me, _card_id(lib, d.index)): d.index for d in devs}
         launch_args = {}
         try:
             # each card this process launches for: the pointers as that
@@ -487,6 +590,11 @@ def _kernel_processes(xs, counts, layout, rank):
                                 _enable_peer(lib, dev, t.device.index)
                             ptrs[kind * D + g] = t.data_ptr()
                             continue
+                        if node_of[g] != me:  # a handle means nothing there
+                            ragged_all_to_all_processes.cross_node_opens += 1
+                            raise RuntimeError(
+                                f"opening shard {g}'s handle of node "
+                                f"{node_of[g]!r} on node {me!r}")
                         ptr = ctypes.c_void_p()
                         err = lib.kmc_ipc_open(dev, handles[g],
                                                ctypes.byref(ptr))
@@ -497,15 +605,20 @@ def _kernel_processes(xs, counts, layout, rank):
                         ptrs[kind * D + g] = ptr.value
                 launch_args[dev] = (ptrs, _device_tiles(lib, dev, counts,
                                                         pairs, C))
+            ops = _cross_ops(xs, outs, cross, layout, rank, nccl)
             events = {dev: (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
                       for dev in launch_args}
+            leg = (torch.cuda.Stream(devs[0]),
+                   torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) if ops else None
             for dev in launch_args:
                 torch.cuda.synchronize(dev)  # the tiles are on the card
         except Exception as e:  # noqa: BLE001 - raised after the meeting
             failed = e
-        # the group meets before any launch (so the cards' launches run
-        # together), and no process launches when one could not open
+        # the group meets before any launch or send (so the cards'
+        # launches run together), and no process starts when one could
+        # not open
         ready = [None] * world
         dist.all_gather_object(ready, failed is None)
         if failed is not None:
@@ -515,7 +628,7 @@ def _kernel_processes(xs, counts, layout, rank):
                                "of the exchange")
         launches = 0
         ragged_all_to_all_processes.span = None
-        if launch_args:
+        if launch_args or ops:
             for dev, (start, _) in events.items():
                 start.record(torch.cuda.current_stream(dev))
             t0 = time.monotonic()
@@ -523,11 +636,33 @@ def _kernel_processes(xs, counts, layout, rank):
                 launches += _launch(lib, dev, ptrs, tiles, cap, C)
             for dev, (_, end) in events.items():
                 end.record(torch.cuda.current_stream(dev))
-            for dev in launch_args:
+            if leg:
+                # the cross-node leg on a stream of its own, beside the
+                # launches: NCCL's stream waits on it, and it on NCCL's
+                stream, start, end = leg
+                with torch.cuda.stream(stream):
+                    start.record(stream)
+                    for w in dist.batch_isend_irecv(ops):
+                        w.wait()
+                    end.record(stream)
+                # a peer that died leaves a receive pending on the card:
+                # wait for the leg no longer than the group's timeout
+                deadline = time.monotonic() + group_timeout()
+                while not end.query():
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"the exchange's cross-node leg did not end "
+                            f"within {group_timeout():.0f} s: a peer died "
+                            "or hangs")
+                    time.sleep(1e-5)
+            for dev in {d.index for d in devs} | set(launch_args):
                 torch.cuda.synchronize(dev)  # every peer read and write done
             ragged_all_to_all_processes.span = (t0, time.monotonic())
-            ragged_all_to_all_processes.kernel_ms += max(
-                a.elapsed_time(b) for a, b in events.values())
+            if events:
+                ragged_all_to_all_processes.kernel_ms += max(
+                    a.elapsed_time(b) for a, b in events.values())
+            if leg:
+                ragged_all_to_all_processes.nccl_ms += start.elapsed_time(end)
     finally:
         errs = [lib.kmc_ipc_close(dev, ptr)
                 for (dev, _, _), ptr in opened.items()]
@@ -544,6 +679,8 @@ def ragged_all_to_all_processes(xs, counts, layout):
     """The ragged exchange across the processes of a torch.distributed
     group (see the module docstring).  xs are consumed: on cards their
     memory is freed once every owner has read it."""
+    from .distributed import rank_nodes
+
     rank = dist.get_rank()
     counts = np.asarray(counts, dtype=np.int64)
     D = counts.shape[0]
@@ -561,31 +698,43 @@ def ragged_all_to_all_processes(xs, counts, layout):
             or counts.max(initial=0) > xs[0].shape[1]:
         raise ValueError("counts must be [D, D] within [0, cap]")
     recv_rows = counts[:, mine].T.copy()
+    nodes = rank_nodes()
     if xs[0].device.type == "cpu":
-        return _plain_processes(xs, counts, layout, rank), recv_rows
-    outs, n = _kernel_processes(xs, counts, layout, rank)
-    ragged_all_to_all_processes.launches += n
+        return _plain_processes(xs, counts, layout, rank, nodes), recv_rows
+    outs, n = _kernel_processes(xs, counts, layout, rank, nodes)
+    xp = ragged_all_to_all_processes
+    xp.launches += n
     row = 4 * xs[0].shape[2]
-    ragged_all_to_all_processes.bytes += int(2 * row * counts[:, mine].sum())
-    peers = np.setdiff1d(np.arange(D), mine)
-    ragged_all_to_all_processes.peer_bytes += int(
-        row * counts[np.ix_(peers, mine)].sum())
-    ragged_all_to_all_processes.sent_rows += int(counts[mine].sum())
+    xp.bytes += int(2 * row * counts[:, mine].sum())
+    near = np.array([node == nodes[rank]
+                     for node in _shard_nodes(layout, nodes)])
+    others = np.setdiff1d(np.flatnonzero(near), mine)
+    xp.peer_bytes += int(row * counts[np.ix_(others, mine)].sum())
+    xp.sent_rows += int(counts[np.ix_(mine, np.flatnonzero(near))].sum())
+    xp.cross_node_bytes += int(
+        row * counts[np.ix_(mine, np.flatnonzero(~near))].sum())
     return outs, recv_rows
 
 
-# launches of the kernel by this process (one a card it leads whose senders
-# have a row to send); the device milliseconds of its launches (CUDA
-# events, the slowest card's); the bytes its owners' rows take to read and
-# write and, of them, the bytes read from other processes' senders, and
-# the rows its senders sent, summed over the exchanges; and the last
-# exchange's host monotonic clock (one clock for every process of a
-# machine) from this process's first launch to its cards' synchronize
-# (None when it led no card), so the leaders' spans together bound the
-# whole exchange
+# Counters of this process, summed over the exchanges: launches of the
+# kernel (one a card it leads whose senders have a row for an owner of
+# their node); the kernel's device milliseconds (CUDA events, the slowest
+# card's); the bytes its owners' rows take to read and write (both legs)
+# and, of them, the bytes the kernel read from other processes' senders of
+# this node; the rows its senders sent on the on-node leg; the bytes its
+# senders sent on the cross-node leg, and that leg's device milliseconds
+# (CUDA events on the leg's own stream); the opens of another node's IPC
+# handle (0: the plan never makes one, and one would raise).  span: the
+# last exchange's host monotonic clock from this process's first launch or
+# send to its card's synchronize (None when it did neither); the clock is
+# one for every process of a node, so the spans of a node's processes
+# together bound its exchange, and spans of different nodes do not compose
 ragged_all_to_all_processes.launches = 0
 ragged_all_to_all_processes.kernel_ms = 0.0
 ragged_all_to_all_processes.bytes = 0
 ragged_all_to_all_processes.peer_bytes = 0
 ragged_all_to_all_processes.sent_rows = 0
+ragged_all_to_all_processes.cross_node_bytes = 0
+ragged_all_to_all_processes.nccl_ms = 0.0
+ragged_all_to_all_processes.cross_node_opens = 0
 ragged_all_to_all_processes.span = None

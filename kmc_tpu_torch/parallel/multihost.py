@@ -82,6 +82,20 @@ shards); each owner reduces what it received, and rank 0 gathers the
 records and writes the database.  Every rank returns the same global
 stats.  Small k sums the histograms to rank 0; the sketches of -e and
 --opt-out-size are summed across processes (kmc_tpu's exact COO merge).
+
+Across several nodes (kmc_tpu's hosts) all of the above holds as it is:
+the control plane (flags, maxima, the gathered spills and bin edges, the
+histograms and sketches, the records rank 0 gathers) is gloo over TCP,
+and the carry without shard_input is computed on each host.  The
+exchange runs in two legs: rows whose owner shares the sender's node move
+by the kernel over CUDA IPC as above, the others by NCCL point-to-point
+straight into the owner's output (exchange_route "ipc_kernel+nccl"; CPU
+shards "plain+p2p": an all-to-all over the node's gloo group, gloo
+point-to-point between nodes).  Such a group puts each process's shards
+on one card of its own (two processes on one card, or one process on two
+cards, raise at the count's start on every rank: NCCL binds a rank to one
+card).  Every node reads the input at the same path (with shard_input
+each its byte ranges), and the database is written on rank 0's node.
 """
 from __future__ import annotations
 
@@ -174,7 +188,9 @@ class ShardedKmerStore:
         self._carry = None  # last signature of the latest ingested batch
         self.n_compactions = 0
         self.exchange_bytes = 0  # bytes the exchange read and wrote
-        self.exchange_route = None  # "kernel", "ipc_kernel" or "plain"
+        # "kernel", "ipc_kernel" or "plain"; across nodes "ipc_kernel+nccl"
+        # or "plain+p2p"
+        self.exchange_route = None
         # host-side spilled rows: per spill, each shard's sorted run
         # (uint32 key columns tuple, uint32 counts)
         self.spilled: list[list] = []
@@ -370,6 +386,8 @@ class ShardedKmerStore:
             outs, recv_rows = ragged_all_to_all_processes(
                 send, counts, self.fleet.layout)
             route = "plain" if self.devices[0].type == "cpu" else "ipc_kernel"
+            if self.fleet.multi_node:
+                route += "+p2p" if route == "plain" else "+nccl"
         else:
             outs, recv_rows = ragged_all_to_all(send, counts)
             route = "plain" if self.devices[0].type == "cpu" else "kernel"

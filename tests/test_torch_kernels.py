@@ -605,6 +605,201 @@ def test_two_process_count_on_card_matches_cpu(tmp_path):
                 (tmp_path / f"cpu_{mode}{suf}").read_bytes(), (mode, suf)
 
 
+_NODES_CHILD = r"""
+import json, socket, sys
+import numpy as np, torch
+import torch.distributed as dist
+
+init, n_procs, rank, out, per, cap, C = sys.argv[1:8]
+n_procs, rank, per, cap, C = map(int, (n_procs, rank, per, cap, C))
+# two emulated nodes: the first half of the ranks, and the second
+socket.gethostname = lambda: f"node{rank * 2 // n_procs}"
+from kmc_tpu_torch.parallel.distributed import init_multihost
+from kmc_tpu_torch.parallel.exchange_kernel import (
+    ragged_all_to_all_plain, ragged_all_to_all_processes, send_buffer)
+
+xp = ragged_all_to_all_processes
+init_multihost(init, n_procs, rank)
+D = n_procs * per
+layout = [list(range(p * per, (p + 1) * per)) for p in range(n_procs)]
+counts = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
+counts[0, D - 1], counts[D - 1, 0] = 0, cap
+full = [torch.from_numpy(np.random.default_rng(100 + j).integers(
+    -2**31, 2**31, (D, cap, C)).astype(np.int32)) for j in range(D)]
+want, _ = ragged_all_to_all_plain(full, counts)
+dev = f"cuda:{rank}"
+xs = []
+for j in layout[rank]:
+    buf = send_buffer((D, cap, C), dev, True)
+    buf.copy_(full[j].to(dev))
+    xs.append(buf)
+outs, recv = xp(xs, counts, layout)
+torch.cuda.synchronize()
+ok = all(torch.equal(outs[l][j, :counts[j, o]].cpu(),
+                     want[o][j, :counts[j, o]])
+         for l, o in enumerate(layout[rank]) for j in range(D))
+json.dump({"ok": ok, "recv": recv.tolist(), "launches": xp.launches,
+           "opens": xp.cross_node_opens, "nccl_ms": xp.nccl_ms,
+           "cross_bytes": xp.cross_node_bytes}, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def _need_cards(n):
+    _need_card()
+    have = torch.cuda.device_count()
+    if have < n:
+        pytest.skip(f"needs {n} CUDA cards (NCCL's cross-node leg takes one "
+                    f"process a card), found {have}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_procs,per", [(2, 2), (4, 1)])
+def test_exchange_across_nodes_matches_plain(tmp_path, n_procs, per):
+    """Processes on cards of their own in two emulated nodes: the on-node
+    pairs go through the kernel (over CUDA IPC between a node's two
+    processes), the cross-node pairs through NCCL, and every owner gets
+    what the plain version delivers; no handle of the other node is
+    opened."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _need_cards(n_procs)
+    repo = Path(__file__).resolve().parent.parent
+    init = f"file://{tmp_path / 'pg'}"
+    cap, C = (1 << 16) + 3, 3
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NODES_CHILD, init, str(n_procs), str(r),
+         str(tmp_path / f"r{r}.json"), str(per), str(cap), str(C)],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(n_procs)]
+    logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+            for p in procs]
+    D = n_procs * per
+    counts = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
+    counts[0, D - 1], counts[D - 1, 0] = 0, cap
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, log[-3000:]
+        got = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert got["ok"], got
+        assert got["launches"] == 1 and got["opens"] == 0
+        assert got["nccl_ms"] > 0 and got["cross_bytes"] > 0
+        mine = list(range(r * per, (r + 1) * per))
+        assert got["recv"] == counts[:, mine].T.tolist()
+
+
+def _run_worker_group(tmp_path, n_procs, env_extra, fq, timeout=300):
+    """tests/torch_multiproc_worker.py as n_procs processes; returns each
+    one's (exit code, output)."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, **env_extra)
+    init = f"file://{tmp_path / 'pg'}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_multiproc_worker.py"), init,
+         str(n_procs), str(r), fq, str(tmp_path / "mp")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(n_procs)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0].decode(errors="replace")
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:  # the worker prints its stacks on SIGTERM
+            p.terminate()
+        time.sleep(3)
+        for p in procs:
+            p.kill()
+        logs = [p.communicate()[0].decode(errors="replace")[-3000:]
+                for p in procs]
+        pytest.fail(f"a worker hung past {timeout} s:\n" + "\n".join(logs))
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+@pytest.mark.gpu
+def test_two_node_count_on_cards_matches_cpu(tmp_path):
+    """Two processes, one card each, in two emulated nodes: every row of
+    the exchange crosses between the nodes by NCCL but a sender's own,
+    which the kernel copies; the database and stats equal the count over
+    2 CPU shards."""
+    import json
+
+    _need_cards(2)
+    from kmc_tpu_torch import distributed_count
+
+    fq = _card_fastq(tmp_path / "in.fastq", 20000, 4000, seed=4)
+    ran = _run_worker_group(tmp_path, 2, dict(
+        MP_DEVICES="cuda:{pid}", MP_NODE="0,1", MP_K="27", MP_CI="2",
+        MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
+        MP_SHARD_INPUT="0", MP_MODES="default,kff"), fq)
+    for rc, log in ran:
+        assert rc == 0, log[-3000:]
+    for mode, kw in (("default", {}), ("kff", dict(output_type="kff"))):
+        res = [json.loads((tmp_path / f"mp.{mode}.stats.{r}").read_text())
+               for r in range(2)]
+        st = distributed_count([fq], str(tmp_path / f"cpu_{mode}"),
+                               devices=["cpu"] * 2, k=27, cutoff_min=2,
+                               batch_positions=1 << 14,
+                               capacity_rows_per_device=5 << 13, **kw)
+        for r in res:
+            assert r["launches"] == 1 and r["exchange_cross_node_opens"] == 0
+            assert r["exchange_cross_node_bytes"] > 0
+            assert r["exchange_nccl_ms"] > 0
+            assert r["stats"]["timings"]["exchange_route"] == \
+                "ipc_kernel+nccl"
+            for key in ("n_unique", "n_total", "n_super_kmers", "n_below",
+                        "n_above", "n_compactions", "n_spills",
+                        "exchange_bytes"):
+                assert r["stats"][key] == st[key], (mode, key)
+        for suf in ((".kff",) if mode == "kff" else (".kmc_pre",
+                                                      ".kmc_suf")):
+            assert (tmp_path / f"mp.{mode}{suf}").read_bytes() == \
+                (tmp_path / f"cpu_{mode}{suf}").read_bytes(), (mode, suf)
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_across_nodes_raise(tmp_path):
+    """Four processes on card 0 in two emulated nodes: NCCL would take two
+    ranks on one GPU, so every rank raises at the count's start, naming
+    the layout."""
+    _need_card()
+    fq = _card_fastq(tmp_path / "in.fastq", 5000, 200, seed=5)
+    ran = _run_worker_group(tmp_path, 4, dict(
+        MP_DEVICES="cuda:0", MP_NODE="0,0,1,1", MP_K="27"), fq)
+    for rc, log in ran:
+        assert rc not in (0, None), log[-3000:]
+        assert "ranks [0, 1] share card" in log and "node0" in log, \
+            log[-3000:]
+
+
+@pytest.mark.gpu
+def test_dead_peer_across_nodes_on_cards_fails_survivor(tmp_path):
+    """Process 1 of two on cards of their own in two emulated nodes dies
+    where it would post the NCCL leg; the survivor, whose NCCL receive
+    never completes, ends in an error within the NCCL group's timeout
+    (the heartbeat), never hangs."""
+    import time
+
+    _need_cards(2)
+    fq = _card_fastq(tmp_path / "in.fastq", 20000, 2000, seed=6)
+    t0 = time.monotonic()
+    ran = _run_worker_group(tmp_path, 2, dict(
+        MP_DEVICES="cuda:{pid}", MP_NODE="0,1", MP_K="27",
+        MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
+        MP_HEARTBEAT_SECS="20", MP_CRASH_AT="p2p", MP_CRASH_PID="1"), fq,
+        timeout=240)
+    assert ran[1][0] == 17, ran[1][1][-2000:]
+    assert ran[0][0] not in (0, None), ran[0][1][-2000:]
+    assert time.monotonic() - t0 < 180
+    assert not (tmp_path / "mp.default.kmc_pre").exists()
+
+
 @pytest.mark.gpu
 def test_distributed_count_on_card_matches_cpu(tmp_path):
     _need_card()

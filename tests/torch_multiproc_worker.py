@@ -17,6 +17,16 @@ MP_MIN_SHARD, MP_HEARTBEAT_SECS, MP_CRASH_SECS, MP_CRASH_PID) and two more:
               (--opt-out-size), greedy, spill (the default count on shards
               of MP_SPILL_CAPACITY rows, default 2^11); "<mode>@<bytes>"
               sets the -m plan's spill budget of that count
+  MP_NODE     emulates several nodes on one machine: this process's node
+              name, or a comma-separated list of every process's, indexed
+              by the rank ("0,0,1,1": ranks 0-1 on one node, 2-3 on
+              another).  The worker makes socket.gethostname return
+              "node<name>" before init_multihost, which records it as the
+              rank's node; unset, the real host name stands
+  MP_CRASH_AT "p2p": process MP_CRASH_PID dies (exit 17) where it would
+              post the exchange's cross-node leg, after the NCCL group's
+              own warm-up (the fault-injection tests' dead peer across
+              nodes)
 
 Each mode m counts into <out>.<m> ("@" written "_"); process 0 writes the
 database, and every process writes <out>.<m>.stats.<pid>: JSON of
@@ -24,18 +34,24 @@ database, and every process writes <out>.<m>.stats.<pid>: JSON of
 cross-process launches in that count, "kernels": each kernel's launches,
 "exchange_ms" / "exchange_bytes" / "exchange_peer_bytes" /
 "exchange_sent_rows": the cross-process exchange kernel's device time in
-this process, the bytes its owners read and wrote and of them those read
-from other processes' senders, the rows its senders sent,
-"exchange_span": the host
-monotonic clock around this process's launches of the count's exchange
-(null without one), "wall_s", "peak_bytes": the peak
-device memory of each card (CUDA shards)}, or {"error": "MemoryError",
-"message": ...} when the count raised MemoryError.  Imports neither jax
-nor kmc_tpu.
+this process, the bytes its owners read and wrote and of them those the
+kernel read from other processes' senders of its node, the rows its
+senders sent to owners of their node, "exchange_cross_node_bytes" /
+"exchange_nccl_ms" / "exchange_cross_node_opens": the bytes its senders
+sent to other nodes, that NCCL leg's device time, the IPC opens of another
+node's handles (0), "node": this process's node, "exchange_span": the
+host monotonic clock around this process's launches and sends of the
+count's exchange (null without one; spans compose within a node only),
+"wall_s", "peak_bytes": the peak device memory of each card (CUDA
+shards)}, or {"error": "MemoryError", "message": ...} when the count
+raised MemoryError.  Imports neither jax nor kmc_tpu.
 """
 import dataclasses
+import faulthandler
 import json
 import os
+import signal
+import socket
 import sys
 import time
 
@@ -72,6 +88,8 @@ def _launches():
 
 def main():
     coordinator, n_procs, pid, reads, out = sys.argv[1:6]
+    # SIGTERM prints every thread's stack: where a hung worker waits
+    faulthandler.register(signal.SIGTERM)
     from kmc_tpu_torch import memory
     from kmc_tpu_torch.parallel.distributed import (init_multihost,
                                                     process_count)
@@ -79,6 +97,26 @@ def main():
         ragged_all_to_all_processes
     from kmc_tpu_torch.parallel.multihost import distributed_count
 
+    node = os.environ.get("MP_NODE")
+    if node:
+        names = node.split(",")
+        host = f"node{names[int(pid)] if len(names) > 1 else names[0]}"
+        socket.gethostname = lambda: host
+    if os.environ.get("MP_CRASH_AT") == "p2p" and int(pid) == int(
+            os.environ.get("MP_CRASH_PID", "1")):
+        import torch.distributed as dist
+
+        from kmc_tpu_torch.parallel import distributed as pd
+
+        post = dist.batch_isend_irecv
+
+        def die(ops):
+            if pd._Group.nccl is None and dist.get_backend(
+                    ops[0].group) == "nccl":
+                return post(ops)  # the NCCL group's own pair warm-up
+            os._exit(17)
+
+        dist.batch_isend_irecv = die
     hb = os.environ.get("MP_HEARTBEAT_SECS")
     init_multihost(coordinator_address=coordinator,
                    num_processes=int(n_procs), process_id=int(pid),
@@ -128,7 +166,8 @@ def main():
             for d in cards:
                 torch.cuda.reset_peak_memory_stats(d)
         before = (_launches(), xp.launches, xp.kernel_ms, xp.bytes,
-                  xp.peer_bytes, xp.sent_rows)
+                  xp.peer_bytes, xp.sent_rows, xp.cross_node_bytes,
+                  xp.nccl_ms, xp.cross_node_opens)
         t0 = time.perf_counter()
         try:
             stats = distributed_count([reads], dst, devices=devices, **kw)
@@ -140,6 +179,12 @@ def main():
                 "exchange_bytes": xp.bytes - before[3],
                 "exchange_peer_bytes": xp.peer_bytes - before[4],
                 "exchange_sent_rows": xp.sent_rows - before[5],
+                "exchange_cross_node_bytes":
+                    xp.cross_node_bytes - before[6],
+                "exchange_nccl_ms": xp.nccl_ms - before[7],
+                "exchange_cross_node_opens":
+                    xp.cross_node_opens - before[8],
+                "node": socket.gethostname(),
                 "exchange_span": xp.span if xp.launches > before[1]
                 else None,
                 "wall_s": time.perf_counter() - t0,
