@@ -3561,7 +3561,7 @@ sys.path.insert(0, sys.argv[5])
 import numpy as np, torch
 import torch.distributed as dist
 from kmc_tpu_torch.parallel import exchange_kernel as xk
-from kmc_tpu_torch.parallel.distributed import init_multihost
+from kmc_tpu_torch.parallel.distributed import init_multihost, nccl_group
 
 init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     sys.argv[4]
@@ -3605,7 +3605,9 @@ for rep in range(reps + 1):
 json.dump({"ok": ok, "ms": ms, "nccl_ms": nccl_ms, "spans": spans,
            "launches": xp.launches, "bytes": xp.bytes // (reps + 1),
            "cross_bytes": xp.cross_node_bytes // (reps + 1),
-           "opens": xp.cross_node_opens, "node": host}, open(out, "w"))
+           "opens": xp.cross_node_opens, "node": host,
+           "nccl_init_s": nccl_group.init_s,
+           "nccl_warmup_s": nccl_group.warmup_s}, open(out, "w"))
 dist.destroy_process_group()
 """
 
@@ -3895,6 +3897,12 @@ def phase_nodes_mid(fq_mid):
             f"{[round(r['exchange_nccl_ms'], 4) for r in res]} for "
             f"{[r['exchange_cross_node_bytes'] for r in res]} bytes sent "
             f"across nodes; kernel ms {[round(r['exchange_ms'], 4) for r in res]}")
+    first = rows[MP_MODES_MID[0][0]][0]
+    log(f"[phase 20] mid: the NCCL group, made in the first count "
+        f"({MP_MODES_MID[0][0]}): communicator by rank "
+        f"{[round(r['nccl_init_s'], 4) for r in first]} s, its cross-node "
+        f"pairs' warm-up {[round(r['nccl_warmup_s'], 4) for r in first]} s "
+        f"(host clock), of walls {[round(r['wall_s'], 3) for r in first]} s")
     return {mode: dict(walls=[r["wall_s"] for r in res],
                        launches=[r["launches"] for r in res],
                        nccl_ms=[r["exchange_nccl_ms"] for r in res])
@@ -3993,21 +4001,33 @@ def phase_nodes_exchange(exchange):
     kb, nb, bb = _node_bounds(n_rows, MN_NODES.split(","), 8)
     kernel = [float(np.mean(r["ms"])) for r in res]
     nccl = [float(np.mean(r["nccl_ms"])) for r in res]
+    # a leg's time: its slowest rank's in each exchange (the bounds are
+    # the busiest card's), mean of the exchanges
+    kernel_leg = float(np.mean(np.max([r["ms"] for r in res], axis=0)))
+    nccl_leg = float(np.mean(np.max([r["nccl_ms"] for r in res], axis=0)))
+    init_s = [r["nccl_init_s"] for r in res]
+    warmup_s = [r["nccl_warmup_s"] for r in res]
     spans = _node_spans(res)
     cross = sum(r["cross_bytes"] for r in res)
     x2 = exchange[2]
     log(f"[phase 20] two-leg exchange, 4 processes in 2 emulated nodes, 4 x "
         f"[4, 2^24, 2]: bit-exact, one launch a card, 0 cross-node IPC "
         f"opens; on-node kernel by CUDA events {[round(e, 4) for e in kernel]}"
-        f" ms (bound_ms {kb:.4f}); NCCL leg by its stream's CUDA events "
-        f"{[round(e, 4) for e in nccl]} ms for {cross} bytes sent across "
-        f"nodes (bound_ms {nb:.4f} at NVLink's 450 GB/s, one machine: not "
-        f"an InfiniBand figure); span by node (host clock, mean of 10) "
+        f" ms, the leg (slowest rank) {kernel_leg:.4f} ms (bound_ms "
+        f"{kb:.4f}); NCCL leg by its stream's CUDA events "
+        f"{[round(e, 4) for e in nccl]} ms, the leg (slowest rank) "
+        f"{nccl_leg:.4f} ms for {cross} bytes sent across nodes (bound_ms "
+        f"{nb:.4f} at NVLink's 450 GB/s, one machine: not an InfiniBand "
+        f"figure); span by node (host clock, mean of 10) "
         f"{ {n: round(v, 4) for n, v in spans.items()} } ms; both legs' "
         f"bound_ms {bb:.4f}; one process on one card (phase 7) "
-        f"{x2['ms']:.4f} ms")
-    return dict(kernel_ms=kernel, kernel_bound_ms=kb, nccl_ms=nccl,
-                nccl_bound_ms=nb, bound_ms=bb, spans=spans, cross_bytes=cross)
+        f"{x2['ms']:.4f} ms; the NCCL group's communicator by rank "
+        f"{[round(t, 4) for t in init_s]} s, its cross-node pairs' warm-up "
+        f"{[round(t, 4) for t in warmup_s]} s (host clock, first exchange)")
+    return dict(kernel_ms=kernel, kernel_leg_ms=kernel_leg,
+                kernel_bound_ms=kb, nccl_ms=nccl, nccl_leg_ms=nccl_leg,
+                nccl_bound_ms=nb, bound_ms=bb, spans=spans, cross_bytes=cross,
+                nccl_init_s=init_s, nccl_warmup_s=warmup_s)
 
 
 # Whether NCCL point-to-point carries a process whose shards sit on two
@@ -4255,14 +4275,20 @@ def main(argv=()) -> int:
          # processes, one card each (null on fewer than four cards: the
          # NCCL leg needs cards of their own): each rank's launches in the
          # full-size count; at phase 7's shapes the on-node kernel's and
-         # the NCCL leg's CUDA events by rank, each against its bound
-         # (NVLink's for the NCCL leg: the nodes share one machine), and
-         # each node's span on the host clock
+         # the NCCL leg's time (the slowest rank's CUDA events) each
+         # against its bound (the busiest card's; NVLink's for the NCCL
+         # leg: the nodes share one machine), the same by rank, each
+         # node's span on the host clock, and the NCCL group's
+         # communicator and warm-up seconds by rank
          "nodes_launches": mn.get("full", {}).get("launches"),
-         "nodes_kernel_ms": mn_bench.get("kernel_ms"),
+         "nodes_kernel_ms": mn_bench.get("kernel_leg_ms"),
          "nodes_kernel_bound_ms": mn_bench.get("kernel_bound_ms"),
-         "nodes_nccl_ms": mn_bench.get("nccl_ms"),
+         "nodes_kernel_ms_by_rank": mn_bench.get("kernel_ms"),
+         "nodes_nccl_ms": mn_bench.get("nccl_leg_ms"),
          "nodes_nccl_bound_ms": mn_bench.get("nccl_bound_ms"),
+         "nodes_nccl_ms_by_rank": mn_bench.get("nccl_ms"),
+         "nodes_nccl_init_s": mn_bench.get("nccl_init_s"),
+         "nodes_nccl_warmup_s": mn_bench.get("nccl_warmup_s"),
          "nodes_span_ms": mn_bench.get("spans"),
          "nodes_bound_ms": mn_bench.get("bound_ms")},
         {"name": "all_to_all", "route": "cuda",

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import os
 import socket
+import time
 import weakref
 from datetime import timedelta
 
@@ -68,8 +69,7 @@ class _Group:
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None,
-                   heartbeat_timeout_seconds: int | None = None,
-                   devices=None) -> None:
+                   heartbeat_timeout_seconds: int | None = None) -> None:
     """Join the torch.distributed group of a multi-process count (mirrors
     kmc_tpu's init_multihost).  Call once per process, before the count;
     one-process runs may skip it.
@@ -85,12 +85,9 @@ def init_multihost(coordinator_address: str | None = None,
     peer (default 100 s, jax's default, which kmc_tpu keeps); a peer that
     dies closes its connections, so the survivors' next collective raises
     instead of hanging.  The NCCL group of a card group across nodes gets
-    the same timeout.
-
-    devices: this process's shards, when known here: a group across
-    several nodes then checks the card layout (check_node_layout) and
-    joins the NCCL group now; otherwise the sharded count does both at its
-    start, on every rank alike."""
+    the same timeout.  A group across several nodes checks its card
+    layout and joins that NCCL group at the sharded count's start
+    (Fleet), on every rank alike."""
     if coordinator_address is None:
         url = "env://"
     elif "://" in coordinator_address:
@@ -107,8 +104,6 @@ def init_multihost(coordinator_address: str | None = None,
                             **kwargs)
     _Group.world, _Group.timeout = None, timeout
     rank_nodes()
-    if devices is not None:
-        join_cards(resolve_devices(devices))
 
 
 def rank_nodes() -> list:
@@ -170,30 +165,26 @@ def node_group():
     return _Group.node_group()
 
 
-def group_timeout() -> float:
-    """Seconds a collective of the live group waits for a peer (the
-    heartbeat)."""
-    rank_nodes()
-    return _Group.timeout.total_seconds()
-
-
 def nccl_group(device: torch.device):
     """The NCCL group over every rank, for the exchange's cross-node leg,
     bound to this rank's card `device`: made collectively by every rank on
     the first call, with the gloo group's timeout, and brought up at once:
     an all-reduce over every rank (a group's first call must involve them
-    all), then one point-to-point exchange between every pair of ranks.
-    NCCL connects a pair at its first point-to-point operation, on the
-    calling thread, with no timeout (seconds for a group), so every pair
-    is connected here and an exchange's leg finds its connections made.
-    A failed or timed-out NCCL operation tears the process down
+    all; it makes the communicator), then one point-to-point exchange
+    between every pair of ranks on different nodes, the only pairs the
+    cross-node leg has.  NCCL connects a pair at its first point-to-point
+    operation, on the calling thread, with no timeout, so those pairs are
+    connected here and an exchange's leg finds its connections made.
+    nccl_group.init_s and nccl_group.warmup_s keep the two steps' host
+    seconds.  A failed or timed-out NCCL operation tears the process down
     (TORCH_NCCL_ASYNC_ERROR_HANDLING=1), so a survivor of a dead peer ends
     in an error within the timeout, never hangs."""
     device = torch.device(device)
-    rank_nodes()  # forgets the groups of a destroyed world
+    nodes = rank_nodes()  # forgets the groups of a destroyed world
     if _Group.nccl is None:
         os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
         torch.cuda.set_device(device)
+        t0 = time.perf_counter()
         g = dist.new_group(backend="nccl", timeout=_Group.timeout)
         world, rank = dist.get_world_size(), dist.get_rank()
         probe = torch.ones(1, dtype=torch.int32, device=device)
@@ -201,20 +192,28 @@ def nccl_group(device: torch.device):
         if int(probe) != world:
             raise RuntimeError(f"kmc_tpu_torch: the NCCL group's first "
                                f"all-reduce gave {int(probe)}")
+        t1 = time.perf_counter()
+        peers = [p for p in range(world) if nodes[p] != nodes[rank]]
         got = torch.zeros(world, dtype=torch.int32, device=device)
-        ops = [op for p in range(world) if p != rank for op in (
+        ops = [op for p in peers for op in (
             dist.P2POp(dist.isend, probe, p, g),
             dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
         for w in dist.batch_isend_irecv(ops) if ops else []:
             w.wait()
-        if int(got.sum()) != world * (world - 1):
+        if int(got.sum()) != world * len(peers):
             raise RuntimeError("kmc_tpu_torch: the NCCL group's pairs "
                                "delivered wrong values")
+        nccl_group.init_s, nccl_group.warmup_s = \
+            t1 - t0, time.perf_counter() - t1
         _Group.nccl, _Group.nccl_device = weakref.ref(g), device
     elif _Group.nccl_device != device:
         raise ValueError(f"kmc_tpu_torch: this rank's NCCL group is bound to "
                          f"{_Group.nccl_device}, not {device}")
     return _Group.nccl()
+
+
+nccl_group.init_s = None  # host seconds: the group and its communicator
+nccl_group.warmup_s = None  # host seconds: the cross-node pairs' warm-up
 
 
 def join_cards(devices) -> None:

@@ -58,8 +58,8 @@ since every node of a cluster repeats the same bus ids.
                    straight into the owner's outs[l'][j, :m], on a stream
                    of its own beside the kernel's launches.  NCCL binds a
                    rank to one card, so across nodes every process holds
-                   its shards on one card of its own
-                   (distributed.check_node_layout raises otherwise).
+                   its shards on one card of its own (the count checks
+                   it at its start: distributed.check_node_layout).
 
 Within one node the second leg is empty and the first is the whole
 exchange.  CPU shards take the plain version: the on-node leg by
@@ -67,10 +67,9 @@ torch.distributed.all_to_all_single of the flattened segments over the
 node's ranks (a gloo group of them; the whole group on one node), the
 cross-node leg by the same point-to-point operations on the gloo group.
 The route follows the shards' device type only: a failed allocation,
-open, launch, send or receive raises on every rank (a cross-node leg
-that outlasts the group's timeout raises; NCCL tears down a process
-whose operation fails or times out; the others' next collective
-raises).  The processes meet before the launches and sends (so the
+open, launch, send or receive raises on every rank (NCCL tears down a
+process whose operation fails or outlasts the group's timeout, and the
+others' next collective raises).  The processes meet before the launches and sends (so the
 cards' launches run together) and again, once both legs are done, before
 the senders' buffers are freed and the owners read.
 """
@@ -501,7 +500,7 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
     and the cross-node pairs by NCCL beside it (see the module docstring);
     returns (outs, launches)."""
     from .. import _build
-    from .distributed import check_node_layout, group_timeout, nccl_group
+    from .distributed import nccl_group
 
     lib = _build.load("ragged_a2a")
     D = counts.shape[0]
@@ -532,11 +531,11 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
     me = nodes[rank]
     opened = {}  # (device, buffer kind, shard) -> pointer opened there
     try:
-        check_node_layout(nodes, [got[p][1] for p in range(world)])
         plan = launch_plan(cards, layout, node_of)
         cross = cross_node_pairs(counts, node_of)
-        # the NCCL group (made by every rank at its first cross-node
-        # exchange), on this process's one card
+        # the NCCL group, on this process's one card: made at the count's
+        # start, after its layout check (distributed.Fleet), or by every
+        # rank here at a direct call's first cross-node exchange
         nccl = nccl_group(devs[0]) if len(set(nodes)) > 1 else None
         # an owner's output is exported when another process's launch
         # writes it
@@ -645,16 +644,8 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
                     for w in dist.batch_isend_irecv(ops):
                         w.wait()
                     end.record(stream)
-                # a peer that died leaves a receive pending on the card:
-                # wait for the leg no longer than the group's timeout
-                deadline = time.monotonic() + group_timeout()
-                while not end.query():
-                    if time.monotonic() > deadline:
-                        raise RuntimeError(
-                            f"the exchange's cross-node leg did not end "
-                            f"within {group_timeout():.0f} s: a peer died "
-                            "or hangs")
-                    time.sleep(1e-5)
+            # a peer that died leaves a receive pending on the card: the
+            # NCCL group's watchdog tears this process down at its timeout
             for dev in {d.index for d in devs} | set(launch_args):
                 torch.cuda.synchronize(dev)  # every peer read and write done
             ragged_all_to_all_processes.span = (t0, time.monotonic())
@@ -724,7 +715,10 @@ def ragged_all_to_all_processes(xs, counts, layout):
 # this node; the rows its senders sent on the on-node leg; the bytes its
 # senders sent on the cross-node leg, and that leg's device milliseconds
 # (CUDA events on the leg's own stream); the opens of another node's IPC
-# handle (0: the plan never makes one, and one would raise).  span: the
+# handle that the guard refused, each one raising: launch_plan keeps every
+# such pair out of the kernel's leg, so this stays 0 unless the plan
+# breaks, and the reports print it as the record that no cross-node open
+# was tried.  span: the
 # last exchange's host monotonic clock from this process's first launch or
 # send to its card's synchronize (None when it did neither); the clock is
 # one for every process of a node, so the spans of a node's processes

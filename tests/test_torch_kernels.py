@@ -782,8 +782,9 @@ def test_two_ranks_on_one_card_across_nodes_raise(tmp_path):
 def test_dead_peer_across_nodes_on_cards_fails_survivor(tmp_path):
     """Process 1 of two on cards of their own in two emulated nodes dies
     where it would post the NCCL leg; the survivor, whose NCCL receive
-    never completes, ends in an error within the NCCL group's timeout
-    (the heartbeat), never hangs."""
+    never completes, is torn down by the NCCL group's watchdog at the
+    group's timeout (the heartbeat), never hangs.  The survivor's last
+    lines are printed: they name what ended it."""
     import time
 
     _need_cards(2)
@@ -796,6 +797,7 @@ def test_dead_peer_across_nodes_on_cards_fails_survivor(tmp_path):
         timeout=240)
     assert ran[1][0] == 17, ran[1][1][-2000:]
     assert ran[0][0] not in (0, None), ran[0][1][-2000:]
+    print(f"survivor exited {ran[0][0]}:\n{ran[0][1][-1500:]}")
     assert time.monotonic() - t0 < 180
     assert not (tmp_path / "mp.default.kmc_pre").exists()
 

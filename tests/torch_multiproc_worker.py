@@ -39,7 +39,10 @@ kernel read from other processes' senders of its node, the rows its
 senders sent to owners of their node, "exchange_cross_node_bytes" /
 "exchange_nccl_ms" / "exchange_cross_node_opens": the bytes its senders
 sent to other nodes, that NCCL leg's device time, the IPC opens of another
-node's handles (0), "node": this process's node, "exchange_span": the
+node's handles (0), "node": this process's node, "nccl_init_s" /
+"nccl_warmup_s": the host seconds of the NCCL group's communicator and of
+its cross-node pairs' warm-up (null before a group across nodes on cards
+made one), "exchange_span": the
 host monotonic clock around this process's launches and sends of the
 count's exchange (null without one; spans compose within a node only),
 "wall_s", "peak_bytes": the peak device memory of each card (CUDA
@@ -92,7 +95,7 @@ def main():
     faulthandler.register(signal.SIGTERM)
     from kmc_tpu_torch import memory
     from kmc_tpu_torch.parallel.distributed import (init_multihost,
-                                                    process_count)
+                                                    nccl_group, process_count)
     from kmc_tpu_torch.parallel.exchange_kernel import \
         ragged_all_to_all_processes
     from kmc_tpu_torch.parallel.multihost import distributed_count
@@ -185,6 +188,8 @@ def main():
                 "exchange_cross_node_opens":
                     xp.cross_node_opens - before[8],
                 "node": socket.gethostname(),
+                "nccl_init_s": nccl_group.init_s,
+                "nccl_warmup_s": nccl_group.warmup_s,
                 "exchange_span": xp.span if xp.launches > before[1]
                 else None,
                 "wall_s": time.perf_counter() - t0,
