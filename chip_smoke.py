@@ -177,21 +177,24 @@ Phases (any failure exits non-zero):
      timed beside phase 7's in-process figure, and NCCL's
      all_to_all_single of the same rows as its yardstick (four cards; on
      one card whether NCCL takes two ranks on one GPU);
- 20. counting across nodes, emulated on one machine as two nodes of two
-     processes (tests/torch_multiproc_worker.py's MP_NODE: ranks 0-1 and
-     2-3), one card each on a machine of four or more cards: at mid size
-     every mode of phase 19 == one process over the four cards, files and
-     stats, the exchange in two legs (the kernel over CUDA IPC within a
-     node, NCCL point-to-point between the nodes) with no IPC open of the
-     other node's handles; at full size phase 5's input split by bytes,
-     DB == phase 5's; then the exchange alone at phase 7's shapes,
-     bit-exact, the on-node kernel's and the NCCL leg's device times each
-     against its bound (NVLink's 450 GB/s for the NCCL leg: one machine,
-     no InfiniBand figure), each node's span; then whether NCCL carries
-     a process that holds two cards (the layout the port refuses across
-     nodes).  On fewer than four cards the same emulation on CPU shards
-     over phase 4's first 16,000 reads (every mode, and the input split by
-     bytes, == one process); the NCCL leg is not run there.
+ 20. counting across nodes, emulated on one machine as two nodes
+     (tests/torch_multiproc_worker.py's MP_NODE) on a machine of four or
+     more cards, in two layouts: two processes a node of one card each
+     (ranks 0-1 and 2-3), then kmc_tpu's multi-host layout, one process a
+     node holding two cards (one NCCL group a card slot).  In each, at mid
+     size every mode of phase 19 == one process over the four cards,
+     files and stats, the exchange in two legs (the kernel over CUDA IPC
+     within a node, NCCL point-to-point between the nodes, rows staged
+     onto the card of the owner's slot) with no IPC open of the other
+     node's handles; at full size phase 5's input split by bytes, DB ==
+     phase 5's; then the exchange alone at phase 7's shapes, bit-exact,
+     the on-node kernel's, the staging copies' and each slot's NCCL leg's
+     device times each against its bound (NVLink's 450 GB/s for the NCCL
+     leg: one machine, no InfiniBand figure), each node's span, each
+     slot's group's seconds.  On fewer than four cards both emulations on
+     CPU shards over phase 4's first 16,000 reads (every mode, and for the
+     first the input split by bytes, == one process); the NCCL leg is not
+     run there.
 Then a {"kernels": [...]} line with each kernel's launches on its path
 (phase 9 for the sharded path's kernels, the fused ingest among them; the
 dense all-to-all from phase 18's SPMD step; the 2-D scan entry from
@@ -207,7 +210,7 @@ full-size count) and the times of the exchange across processes there
 and at phase 7's shapes (host clock from the first launching process's
 launch to the last one's synchronize; the launch skew beside them)
 against their bytes' bounds, with NCCL's time for the same rows, and
-phase 20's two legs across emulated nodes.  Every
+phase 20's two legs across emulated nodes in both layouts.  Every
 device-store path must ingest through the fused kernel and never
 through the scan entry.
 Shards sit on distinct cards when the machine has two or more, else all
@@ -3347,25 +3350,33 @@ def mp_leads(n_procs):
     return [1] * n_procs if n_procs == 4 else [1] + [0] * (n_procs - 1)
 
 
-def _check_mp_launches(label, knobs, res, phase=19):
+def _check_mp_launches(label, knobs, res, phase=19, leads=None,
+                       spilled=False):
     """Each rank launched the kernels its mode uses and no other, and the
-    cross-process exchange once for each card it leads whose senders sent
-    a row (a shard may have spilled every row before finalize)."""
+    cross-process exchange once for each card it leads (leads[r]; default
+    mp_leads') whose senders sent a row: a shard may have spilled every row
+    before finalize, so after spills (`spilled`) a rank that leads several
+    cards launches on one to all of them."""
     uses = _mp_uses(knobs)
     sent = [r["exchange_sent_rows"] for r in res]
-    if len(res) != 4:  # every shard on card 0
+    if leads is None and len(res) != 4:  # every shard on card 0
         sent = [sum(sent)] + [0] * (len(res) - 1)
-    leads = [lead * (n > 0) for lead, n in zip(mp_leads(len(res)), sent)]
+    leads = [lead * (n > 0) for lead, n in zip(
+        leads or mp_leads(len(res)), sent)]
     for pid, (r, lead) in enumerate(zip(res, leads)):
         got = r["kernels"]
         xp = "ragged_all_to_all_processes"
+        want = {lead if xp in uses else 0}
+        if spilled and xp in uses and lead > 1:
+            want = set(range(1, lead + 1))
         if any((got[k] > 0) != (k in uses) for k in got if k != xp) or (
-                got[xp] != (lead if xp in uses else 0)):
+                got[xp] not in want):
             raise SystemExit(f"phase {phase}: {label} rank {pid} launched "
                              f"{got}, "
-                             f"it must launch {uses} ({lead} cross-process "
-                             "exchange launches: one a card with rows to "
-                             "send, by its lowest rank) and no other")
+                             f"it must launch {uses} ({sorted(want)} "
+                             "cross-process exchange launches: one a card "
+                             "with rows to send, by its lowest rank) and no "
+                             "other")
 
 
 def _same_stats(label, res, single, phase=19):
@@ -3382,14 +3393,14 @@ def _same_stats(label, res, single, phase=19):
 
 
 def _group_modes(fq, out: Path, n_procs: int, env: dict, devices, knobs,
-                 modes, phase: int, on_cards: bool = True):
+                 modes, phase: int, on_cards: bool = True, leads=None):
     """Every mode of `modes` ((worker mode, the single-process count's
     knobs)) by n_procs workers (env: their MP_* knobs; every process reads
     the whole stream, so the deal, the compactions and the spills are the
     single process's) against the single-process count over `devices`
     with `knobs`: files byte for byte and global stats; on cards each
-    rank's launches.  Returns {mode: (each rank's result, the single
-    count's stats, its wall)}."""
+    rank's launches (leads: as _check_mp_launches takes them).  Returns
+    {mode: (each rank's result, the single count's stats, its wall)}."""
     import dataclasses
 
     from kmc_tpu_torch import memory
@@ -3426,7 +3437,8 @@ def _group_modes(fq, out: Path, n_procs: int, env: dict, devices, knobs,
                 raise SystemExit(f"phase {phase}: {out.name} {mode}: {suf} "
                                  "differs from the single-process count's")
         if on_cards:
-            _check_mp_launches(f"{out.name} {mode}", mode_knobs, res, phase)
+            _check_mp_launches(f"{out.name} {mode}", mode_knobs, res, phase,
+                               leads, spilled=name == "spill")
         elif any(n for r in res for n in r["kernels"].values()):
             raise SystemExit(f"phase {phase}: {out.name} {mode}: CPU shards "
                              f"launched {[r['kernels'] for r in res]}")
@@ -3464,7 +3476,8 @@ def phase_mp_mid(fq_mid):
             for mode, (res, _, _) in rows.items()}
 
 
-def _group_full(full, out: Path, n_procs: int, env: dict, phase: int):
+def _group_full(full, out: Path, n_procs: int, env: dict, phase: int,
+                leads=None):
     """Phase 5's FASTQ and knobs by n_procs workers (env: their MP_*
     knobs) parsing disjoint byte ranges of it, shards of 2^26 rows: the
     ranks' stats agree, the DB == phase 5's, n_total and n_super_kmers ==
@@ -3495,7 +3508,7 @@ def _group_full(full, out: Path, n_procs: int, env: dict, phase: int):
     if sum(parsed) != fq.stat().st_size or min(parsed) <= 0:
         raise SystemExit(f"phase {phase}: the processes parsed {parsed} "
                          f"bytes of {fq.stat().st_size}")
-    _check_mp_launches("full", {}, res, phase)
+    _check_mp_launches("full", {}, res, phase, leads)
     return res, wall
 
 
@@ -3561,53 +3574,64 @@ sys.path.insert(0, sys.argv[5])
 import numpy as np, torch
 import torch.distributed as dist
 from kmc_tpu_torch.parallel import exchange_kernel as xk
-from kmc_tpu_torch.parallel.distributed import init_multihost, nccl_group
+from kmc_tpu_torch.parallel.distributed import init_multihost, nccl_groups
 
 init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     sys.argv[4]
 xp = xk.ragged_all_to_all_processes
 host = None
-if len(sys.argv) > 6:  # emulated nodes: argv[6] lists each rank's
+if len(sys.argv) > 6 and sys.argv[6]:  # emulated nodes: each rank's
     import socket
     host = "node" + sys.argv[6].split(",")[rank]
     socket.gethostname = lambda: host
 init_multihost(init, n_procs, rank)
-dev = torch.device("cuda", rank if n_procs == 4 else 0)
 D, cap, C, reps = 4, 1 << 24, 2, 10
 per = D // n_procs
 layout = [list(range(p * per, (p + 1) * per)) for p in range(n_procs)]
 mine = layout[rank]
+if len(sys.argv) > 7:  # each rank's cards, one a shard: "0,1;2,3"
+    devs = [torch.device("cuda", int(c))
+            for c in sys.argv[7].split(";")[rank].split(",")]
+else:
+    devs = [torch.device("cuda", rank if n_procs == 4 else 0)] * per
 # phase 7's senders and counts, made alike in every process
-gen = torch.Generator(device=dev).manual_seed(C)
+gen = torch.Generator(device=devs[0]).manual_seed(C)
 full = [torch.randint(-2**31, 2**31 - 1, (D, cap, C), generator=gen,
-                      dtype=torch.int32, device=dev) for _ in range(D)]
+                      dtype=torch.int32, device=devs[0]) for _ in range(D)]
 n_rows = np.random.default_rng(C).integers(0, cap + 1, size=(D, D))
 n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, cap, 12345
-ok, ms, nccl_ms, spans = True, [], [], []
+ok, ms, nccl_ms, slot_ms, staging_ms, spans = True, [], [], [], [], []
 for rep in range(reps + 1):
     xs = []
-    for j in mine:
-        buf = xk.send_buffer((D, cap, C), dev, True)
+    for l, j in enumerate(mine):
+        buf = xk.send_buffer((D, cap, C), devs[l], True)
         buf.copy_(full[j])
         xs.append(buf)
-    before = xp.kernel_ms, xp.nccl_ms
+    before = (xp.kernel_ms, xp.nccl_ms, list(xp.slot_nccl_ms),
+              xp.staging_ms)
     outs, recv = xp(xs, n_rows, layout)
     if rep == 0:
         for l, o in enumerate(mine):
             for j in range(D):
                 m = int(n_rows[j, o])
-                ok &= bool(torch.equal(outs[l][j, :m], full[j][o, :m]))
+                ok &= bool(torch.equal(outs[l][j, :m].to(devs[0]),
+                                       full[j][o, :m]))
     else:
         ms.append(xp.kernel_ms - before[0])
         nccl_ms.append(xp.nccl_ms - before[1])
+        slot_ms.append([t - (before[2][k] if k < len(before[2]) else 0.0)
+                        for k, t in enumerate(xp.slot_nccl_ms)])
+        staging_ms.append(xp.staging_ms - before[3])
         spans.append(xp.span)  # None on a rank that leads no card
     del xs, outs
-json.dump({"ok": ok, "ms": ms, "nccl_ms": nccl_ms, "spans": spans,
+json.dump({"ok": ok, "ms": ms, "nccl_ms": nccl_ms, "slot_ms": slot_ms,
+           "staging_ms": staging_ms, "spans": spans,
            "launches": xp.launches, "bytes": xp.bytes // (reps + 1),
            "cross_bytes": xp.cross_node_bytes // (reps + 1),
+           "staged_bytes": xp.staged_bytes // (reps + 1),
            "opens": xp.cross_node_opens, "node": host,
-           "nccl_init_s": nccl_group.init_s,
-           "nccl_warmup_s": nccl_group.warmup_s}, open(out, "w"))
+           "nccl_init_s": nccl_groups.init_s,
+           "nccl_warmup_s": nccl_groups.warmup_s}, open(out, "w"))
 dist.destroy_process_group()
 """
 
@@ -3805,6 +3829,15 @@ def phase_multiprocess(fq_mid, full, exchange):
 # -- phase 20: counting across nodes (two emulated nodes) --
 
 MN_NODES = "0,0,1,1"  # MP_NODE: ranks 0-1 on one emulated node, 2-3 on another
+# phase 20's layouts on four cards, two emulated nodes each: (name,
+# processes, MP_NODE, MP_DEVICES, each rank's cards for the exchange bench,
+# the cards each rank leads in the exchange kernel).  The second is
+# kmc_tpu's multi-host layout: one process a node, holding several cards.
+MN_LAYOUTS = (
+    ("one card a process", 4, MN_NODES, "cuda:{pid}", "0;1;2;3", [1] * 4),
+    ("two cards a process", 2, "0,1", "cuda:0,cuda:1;cuda:2,cuda:3",
+     "0,1;2,3", [2, 2]),
+)
 # the CPU emulation of a machine with fewer than four cards: phase 4's
 # first reads, shards that spill at 2^16 rows and re-merge under 30 MB
 MN_CPU_READS = 16000
@@ -3813,13 +3846,17 @@ MN_CPU_MODES = MP_MODES_MID[:-1] + (
     (f"spill@{MN_CPU_BUDGET}", dict(capacity_rows_per_device=1 << 16)),)
 
 
-def _check_node_results(label, res, knobs, route):
-    """Each rank recorded its emulated node, opened no handle of the other
-    node, and (store modes) took `route`, the card routes moving rows
-    across nodes on the NCCL leg."""
-    nodes = [r["node"] for r in res]
-    if nodes != [f"node{n}" for n in MN_NODES.split(",")]:
-        raise SystemExit(f"phase 20: {label}: the ranks' nodes {nodes}")
+def _check_node_results(label, res, knobs, route, nodes=MN_NODES,
+                        staged=False):
+    """Each rank recorded its emulated node (nodes: MP_NODE), opened no
+    handle of the other node, and (store modes) took `route`, the card
+    routes moving rows across nodes on the NCCL leg, timed on every rank
+    that sent across nodes; with `staged` (processes of several
+    cards or CPU shards) rows were staged onto another slot (after spills
+    a rank may send none across nodes)."""
+    got = [r["node"] for r in res]
+    if got != [f"node{n}" for n in nodes.split(",")]:
+        raise SystemExit(f"phase 20: {label}: the ranks' nodes {got}")
     opens = [r["exchange_cross_node_opens"] for r in res]
     if any(opens):
         raise SystemExit(f"phase 20: {label}: IPC opens of another node's "
@@ -3831,19 +3868,24 @@ def _check_node_results(label, res, knobs, route):
         raise SystemExit(f"phase 20: {label}: exchange routes {got}")
     if route.endswith("+nccl"):
         crossed = [r["exchange_cross_node_bytes"] for r in res]
-        legs = [r["exchange_nccl_ms"] for r in res]
-        if not sum(crossed) or any(b and not ms
+        legs = [r["exchange_slot_nccl_ms"] for r in res]
+        if not sum(crossed) or any(b and not any(ms)
                                    for b, ms in zip(crossed, legs)):
             raise SystemExit(f"phase 20: {label}: cross-node bytes {crossed}, "
-                             f"NCCL leg ms {legs}")
+                             f"NCCL leg ms by slot {legs}")
+    if staged and not sum(r["exchange_staged_bytes"] for r in res):
+        raise SystemExit(f"phase 20: {label}: staged bytes "
+                         f"{[r['exchange_staged_bytes'] for r in res]}")
 
 
 def phase_nodes_cpu(fq_mid):
     """Phase 20 on a machine of fewer than four cards: the same two-node
-    emulation (four processes, nodes {0, 1} and {2, 3}) on CPU shards over
-    phase 4's first MN_CPU_READS reads, every mode of phase 19 against one
-    process, and the input split by bytes against it; the NCCL leg needs
-    cards of their own, at least two."""
+    emulations on CPU shards over phase 4's first MN_CPU_READS reads:
+    four processes of one shard (nodes {0, 1} and {2, 3}), every mode of
+    phase 19 and the input split by bytes, and two processes of two shards
+    (kmc_tpu's multi-host layout, each CPU shard a card slot of its own),
+    every mode, each against one process; the NCCL leg needs cards of
+    their own, at least two."""
     fq = WORK / "mn_head.fastq"
     _head_fastq(fq_mid, fq, MN_CPU_READS)
     env = dict(MP_DEVICES="cpu", MP_NODE=MN_NODES, MP_K=27, MP_CI=2,
@@ -3855,6 +3897,13 @@ def phase_nodes_cpu(fq_mid):
     for mode, (res, _, _) in rows.items():
         _check_node_results(f"cpu {mode}", res, dict(MN_CPU_MODES)[mode],
                             "plain+p2p")
+    two = _group_modes(fq, WORK / "mnc_cpu", 2, dict(
+        env, MP_DEVICES="cpu,cpu", MP_NODE="0,1"), ["cpu"] * 4, knobs,
+        MN_CPU_MODES, 20, on_cards=False)
+    for mode, (res, _, _) in two.items():
+        _check_node_results(f"cpu two shards a process {mode}", res,
+                            dict(MN_CPU_MODES)[mode], "plain+p2p", "0,1",
+                            staged=True)
     out = WORK / "mn_cpu_sharded"
     run_workers(fq, out, dict(env, MP_SHARD_INPUT=1, MP_MIN_SHARD=4096,
                               MP_MODES="default"), 4, phase=20)
@@ -3874,38 +3923,49 @@ def phase_nodes_cpu(fq_mid):
         q.unlink()
     log(f"[phase 20] two emulated nodes x two processes on CPU shards: "
         f"{len(rows)} modes and the input split by bytes == one process; "
-        f"the NCCL leg needs cards of their own, at least two "
+        f"two emulated nodes x one process of two CPU shards: {len(two)} "
+        f"modes == one process, staged bytes by rank "
+        f"{[r['exchange_staged_bytes'] for r in two[MN_CPU_MODES[0][0]][0]]}"
+        f"; the NCCL leg needs cards of their own, at least two "
         f"({torch.cuda.device_count()} here; phase 20's card run takes "
         f"four): not run")
-    return dict(cpu_modes=list(rows), nccl=None)
+    return dict(cpu_modes=list(rows), cpu_two_shard_modes=list(two),
+                nccl=None)
 
 
-def phase_nodes_mid(fq_mid):
-    """Phase 20 at mid size on four cards: every mode of phase 19 by four
-    processes, one card each, in two emulated nodes, against one process
-    over the four cards."""
-    rows = _group_modes(fq_mid, WORK / "mn_mid", 4, dict(
-        MP_DEVICES="cuda:{pid}", MP_NODE=MN_NODES, MP_K=27, MP_CI=2,
+def phase_nodes_mid(fq_mid, lay):
+    """Phase 20 at mid size on four cards, in layout `lay` (MN_LAYOUTS):
+    every mode of phase 19 against one process over the four cards."""
+    name, n_procs, nodes, devs, _, leads = lay
+    rows = _group_modes(fq_mid, WORK / f"mn{n_procs}_mid", n_procs, dict(
+        MP_DEVICES=devs, MP_NODE=nodes, MP_K=27, MP_CI=2,
         MP_BATCH=1 << 18, MP_CAPACITY=3 << 19, MP_SHARD_INPUT=0,
         MP_SPILL_CAPACITY=1 << 19), shard_devices(),
         dict(batch_positions=1 << 18, capacity_rows_per_device=3 << 19),
-        MP_MODES_MID, 20)
+        MP_MODES_MID, 20, leads=leads)
     for mode, (res, _, _) in rows.items():
-        _check_node_results(f"mid {mode}", res, dict(MP_MODES_MID)[mode],
-                            "ipc_kernel+nccl")
-        log(f"[phase 20] mid {mode}: NCCL leg ms by rank "
-            f"{[round(r['exchange_nccl_ms'], 4) for r in res]} for "
+        _check_node_results(f"{name} mid {mode}", res,
+                            dict(MP_MODES_MID)[mode], "ipc_kernel+nccl",
+                            nodes, staged=n_procs < 4)
+        log(f"[phase 20] {name} mid {mode}: NCCL leg ms by rank "
+            f"{[round(r['exchange_nccl_ms'], 4) for r in res]} (by rank and "
+            f"slot {[[round(t, 4) for t in r['exchange_slot_nccl_ms']] for r in res]}) for "
             f"{[r['exchange_cross_node_bytes'] for r in res]} bytes sent "
-            f"across nodes; kernel ms {[round(r['exchange_ms'], 4) for r in res]}")
+            f"across nodes, {[r['exchange_staged_bytes'] for r in res]} "
+            f"staged ({[round(r['exchange_staging_ms'], 4) for r in res]} "
+            f"ms); kernel ms {[round(r['exchange_ms'], 4) for r in res]}")
     first = rows[MP_MODES_MID[0][0]][0]
-    log(f"[phase 20] mid: the NCCL group, made in the first count "
-        f"({MP_MODES_MID[0][0]}): communicator by rank "
-        f"{[round(r['nccl_init_s'], 4) for r in first]} s, its cross-node "
-        f"pairs' warm-up {[round(r['nccl_warmup_s'], 4) for r in first]} s "
+    log(f"[phase 20] {name} mid: the NCCL groups, one a card slot, made in "
+        f"the first count ({MP_MODES_MID[0][0]}): communicator by rank and "
+        f"slot {[[round(t, 4) for t in r['nccl_init_s']] for r in first]} "
+        f"s, cross-node pairs' warm-up "
+        f"{[[round(t, 4) for t in r['nccl_warmup_s']] for r in first]} s "
         f"(host clock), of walls {[round(r['wall_s'], 3) for r in first]} s")
     return {mode: dict(walls=[r["wall_s"] for r in res],
                        launches=[r["launches"] for r in res],
-                       nccl_ms=[r["exchange_nccl_ms"] for r in res])
+                       nccl_ms=[r["exchange_nccl_ms"] for r in res],
+                       slot_nccl_ms=[r["exchange_slot_nccl_ms"]
+                                     for r in res])
             for mode, (res, _, _) in rows.items()}
 
 
@@ -3926,172 +3986,198 @@ def _node_spans(res, key="spans"):
     return out
 
 
-def phase_nodes_full(full):
-    """Phase 20 at full size on four cards: phase 5's FASTQ split by bytes
-    over four processes in two emulated nodes; DB == phase 5's."""
-    res, wall = _group_full(full, WORK / "mn_full", 4, dict(
-        MP_DEVICES="cuda:{pid}", MP_NODE=MN_NODES), 20)
-    _check_node_results("full", res, {}, "ipc_kernel+nccl")
+def phase_nodes_full(full, lay):
+    """Phase 20 at full size on four cards, in layout `lay`: phase 5's
+    FASTQ split by bytes over the processes of two emulated nodes; DB ==
+    phase 5's."""
+    name, n_procs, nodes, devs, _, leads = lay
+    out = WORK / f"mn{n_procs}_full"
+    res, wall = _group_full(full, out, n_procs, dict(
+        MP_DEVICES=devs, MP_NODE=nodes), 20, leads)
+    _check_node_results(f"{name} full", res, {}, "ipc_kernel+nccl", nodes,
+                        staged=n_procs < 4)
     spans = _node_spans([dict(r, spans=[r["exchange_span"]]) for r in res])
-    log(f"[phase 20] full size, 4 processes in 2 emulated nodes: DB == "
-        f"phase 5's byte for byte; all processes {wall:.3f} s; walls by "
-        f"rank {[round(r['wall_s'], 3) for r in res]}; kernel ms by rank "
-        f"{[round(r['exchange_ms'], 4) for r in res]}; NCCL leg ms by rank "
-        f"{[round(r['exchange_nccl_ms'], 4) for r in res]} for "
-        f"{[r['exchange_cross_node_bytes'] for r in res]} bytes sent across "
-        f"nodes; span by node (host clock) "
+    # bounds of the two legs, each rank's bytes spread evenly over its
+    # cards (a lower bound where they are not): the kernel's owners' rows
+    # of their node read and written over HBM, the NCCL leg's rows in or
+    # out over NVLink (one machine: no InfiniBand figure)
+    n_cards = len(devs.split(";")[0].split(","))
+    kernel_bound = max(r["exchange_bytes"] - 2 * r[
+        "exchange_cross_node_in_bytes"] for r in res) / n_cards \
+        / HBM_BYTES_PER_S * 1e3
+    nccl_bound = max(max(r["exchange_cross_node_bytes"],
+                         r["exchange_cross_node_in_bytes"]) for r in res) \
+        / n_cards / NVLINK_BYTES_PER_S * 1e3
+    log(f"[phase 20] {name} full size, {n_procs} processes in 2 emulated "
+        f"nodes: DB == phase 5's byte for byte; all processes {wall:.3f} s; "
+        f"walls by rank {[round(r['wall_s'], 3) for r in res]}; kernel ms "
+        f"by rank {[round(r['exchange_ms'], 4) for r in res]}; NCCL leg ms "
+        f"by rank {[round(r['exchange_nccl_ms'], 4) for r in res]} (by rank "
+        f"and slot {[[round(t, 4) for t in r['exchange_slot_nccl_ms']] for r in res]}) "
+        f"for {[r['exchange_cross_node_bytes'] for r in res]} bytes sent "
+        f"across nodes, {[r['exchange_staged_bytes'] for r in res]} staged "
+        f"({[round(r['exchange_staging_ms'], 4) for r in res]} ms); bound_ms "
+        f"kernel {kernel_bound:.4f}, NCCL leg {nccl_bound:.4f}; span by "
+        f"node (host clock) "
         f"{ {n: round(v, 4) for n, v in spans.items() if v} } ms; launches "
         f"by rank {[r['launches'] for r in res]}; cross-node IPC opens "
         f"{sum(r['exchange_cross_node_opens'] for r in res)}")
-    for q in WORK.glob("mn_full.*"):
+    for q in WORK.glob(out.name + ".*"):
         q.unlink()
     return dict(launches=[r["launches"] for r in res],
                 kernel_ms=[r["exchange_ms"] for r in res],
                 nccl_ms=[r["exchange_nccl_ms"] for r in res],
+                slot_nccl_ms=[r["exchange_slot_nccl_ms"] for r in res],
+                staged_bytes=[r["exchange_staged_bytes"] for r in res],
+                staging_ms=[r["exchange_staging_ms"] for r in res],
+                kernel_bound_ms=kernel_bound, nccl_bound_ms=nccl_bound,
                 spans=spans, walls=[r["wall_s"] for r in res])
 
 
-def _node_bounds(n_rows, nodes, row_bytes):
-    """Bounds of the two legs, one shard a card: the on-node kernel's
-    (each card's own rows over HBM, the rows between cards of a node over
-    NVLink's 450 GB/s each way), the NCCL leg's (the busiest card's
-    cross-node rows in or out over NVLink: these nodes are emulated on one
-    machine, so this is no InfiniBand figure) and both legs' together (they
-    share a card's links here); ms."""
-    nodes = np.asarray(nodes)
-    same = nodes[:, None] == nodes[None, :]
-    eye = np.eye(len(nodes), dtype=bool)
-    on = n_rows * same
-    link = n_rows * (same & ~eye)
-    cross = n_rows * ~same
-    hbm = (on.sum(1) + on.sum(0)) * row_bytes / HBM_BYTES_PER_S
-    k_link = np.maximum(link.sum(1), link.sum(0)) * row_bytes
-    x_link = np.maximum(cross.sum(1), cross.sum(0)) * row_bytes
-    both = np.maximum((link + cross).sum(1), (link + cross).sum(0)) \
-        * row_bytes
-    return (float(max(hbm.max(), k_link.max() / NVLINK_BYTES_PER_S)) * 1e3,
-            float(x_link.max() / NVLINK_BYTES_PER_S) * 1e3,
-            float(max(hbm.max(), both.max() / NVLINK_BYTES_PER_S)) * 1e3)
+def _node_bounds(n_rows, layout, cards, nodes, row_bytes):
+    """Bounds (ms) of an exchange across nodes, one shard a card (cards[g],
+    nodes[g]: shard g's card and node; layout[p]: process p's shards),
+    each the busiest card's: the on-node kernel's (each card's own rows
+    over HBM, the rows between cards of a node over NVLink's 450 GB/s each
+    way); the staging copies' (the rows a card stages onto its process's
+    card of the owner's slot, out or in, over NVLink); each slot's NCCL
+    leg (the rows that cross nodes on the slot's cards, out or in, over
+    NVLink: these nodes are emulated on one machine, so this is no
+    InfiniBand figure) and the NCCL leg's (its slowest slot's); the whole
+    exchange's (every byte through a card's links, or HBM).  The routes
+    are the port's own (cross_node_routes)."""
+    from kmc_tpu_torch.parallel.exchange_kernel import cross_node_routes
+
+    ids = list(zip(nodes, cards))
+    routes = cross_node_routes(ids, layout, nodes, n_rows)
+    rank_of = {g: p for p, pos in enumerate(layout) for g in pos}
+    slot_card = [list(dict.fromkeys(ids[g] for g in pos)) for pos in layout]
+
+    def links():  # card -> [bytes out, bytes in]
+        return {c: [0, 0] for c in ids}
+
+    kernel, stage = links(), links()
+    legs = [links() for _ in range(max(map(len, slot_card)))]
+    hbm = dict.fromkeys(ids, 0)
+    for s, o in np.ndindex(*n_rows.shape):
+        b = int(n_rows[s, o]) * row_bytes
+        if nodes[s] == nodes[o]:
+            hbm[ids[s]] += b
+            hbm[ids[o]] += b
+            if ids[s] != ids[o]:
+                kernel[ids[s]][0] += b
+                kernel[ids[o]][1] += b
+    for s, o, m, k, staged in routes.tolist():
+        b, src = m * row_bytes, ids[s]
+        if staged:
+            via = slot_card[rank_of[s]][k]
+            stage[src][0] += b
+            stage[via][1] += b
+            src = via
+        legs[k][src][0] += b
+        legs[k][ids[o]][1] += b
+
+    def ms(*parts):
+        return max(sum(d[c][i] for d in parts) for c in ids
+                   for i in (0, 1)) / NVLINK_BYTES_PER_S * 1e3
+
+    hbm_ms = max(hbm.values()) / HBM_BYTES_PER_S * 1e3
+    slots = [ms(leg) for leg in legs]
+    return dict(kernel=max(hbm_ms, ms(kernel)), staging=ms(stage),
+                slots=slots, nccl=max(slots),
+                all=max(hbm_ms, ms(kernel, stage, *legs)))
 
 
-def phase_nodes_exchange(exchange):
+def phase_nodes_exchange(exchange, lay):
     """The exchange alone at phase 7's shapes (4 senders of [4, 2^24, 2],
-    phase 7's counts), four processes, one card each, in two emulated
-    nodes: bit-exact, the on-node kernel's and the NCCL leg's CUDA events
-    apart, each against its bound, each node's span, no cross-node IPC
-    open (mean of 10 exchanges after one)."""
-    res, rcs, logs = _run_bench(_IPC_BENCH, "mn_bench", 4, str(ROOT),
-                                MN_NODES)
+    phase 7's counts), one shard a card, in layout `lay` of two emulated
+    nodes: bit-exact, one launch a card, no cross-node IPC open; the
+    on-node kernel's, the staging copies' and each slot's NCCL leg's CUDA
+    events apart, each against its bound, each node's span, each slot's
+    group's seconds (mean of 10 exchanges after one)."""
+    name, n_procs, nodes, _, cards, leads = lay
+    res, rcs, logs = _run_bench(_IPC_BENCH, f"mn{n_procs}_bench", n_procs,
+                                str(ROOT), nodes, cards)
     for pid, (rc, text) in enumerate(zip(rcs, logs)):
         if rc:
-            raise SystemExit(f"phase 20: exchange bench process {pid} exited "
-                             f"{rc}:\n{text[-3000:]}")
+            raise SystemExit(f"phase 20: {name}: exchange bench process "
+                             f"{pid} exited {rc}:\n{text[-3000:]}")
     if not all(r["ok"] for r in res):
-        raise SystemExit("phase 20: the two-leg exchange delivered rows that "
-                         "differ from the senders'")
-    if [r["launches"] for r in res] != [11] * 4 or any(
-            r["opens"] for r in res):
-        raise SystemExit(f"phase 20: exchange bench launches "
+        raise SystemExit(f"phase 20: {name}: the two-leg exchange delivered "
+                         "rows that differ from the senders'")
+    want = [11 * lead for lead in leads]  # one a card an exchange
+    if [r["launches"] for r in res] != want or any(r["opens"] for r in res):
+        raise SystemExit(f"phase 20: {name}: exchange bench launches "
                          f"{[r['launches'] for r in res]} (one a card an "
-                         f"exchange: 11), cross-node IPC opens "
+                         f"exchange: {want}), cross-node IPC opens "
                          f"{[r['opens'] for r in res]}")
     rng = np.random.default_rng(2)
     n_rows = rng.integers(0, (1 << 24) + 1, size=(4, 4))
     n_rows[0, 1], n_rows[1, 2], n_rows[2, 3] = 0, 1 << 24, 12345
-    kb, nb, bb = _node_bounds(n_rows, MN_NODES.split(","), 8)
+    per = 4 // n_procs
+    bounds = _node_bounds(
+        n_rows, [list(range(p * per, (p + 1) * per)) for p in range(n_procs)],
+        [int(c) for c in cards.replace(";", ",").split(",")],
+        [n for n in nodes.split(",") for _ in range(per)], 8)
+
+    def leg(key):  # its slowest rank's in each exchange, mean of them
+        return float(np.mean(np.max([r[key] for r in res], axis=0)))
+
+    n_slots = len(bounds["slots"])
+    slot_legs = [float(np.mean([max(
+        t[k] if k < len(t) else 0.0 for t in (r["slot_ms"][i] for r in res))
+        for i in range(len(res[0]["slot_ms"]))])) for k in range(n_slots)]
     kernel = [float(np.mean(r["ms"])) for r in res]
     nccl = [float(np.mean(r["nccl_ms"])) for r in res]
-    # a leg's time: its slowest rank's in each exchange (the bounds are
-    # the busiest card's), mean of the exchanges
-    kernel_leg = float(np.mean(np.max([r["ms"] for r in res], axis=0)))
-    nccl_leg = float(np.mean(np.max([r["nccl_ms"] for r in res], axis=0)))
-    init_s = [r["nccl_init_s"] for r in res]
-    warmup_s = [r["nccl_warmup_s"] for r in res]
-    spans = _node_spans(res)
-    cross = sum(r["cross_bytes"] for r in res)
-    x2 = exchange[2]
-    log(f"[phase 20] two-leg exchange, 4 processes in 2 emulated nodes, 4 x "
-        f"[4, 2^24, 2]: bit-exact, one launch a card, 0 cross-node IPC "
-        f"opens; on-node kernel by CUDA events {[round(e, 4) for e in kernel]}"
-        f" ms, the leg (slowest rank) {kernel_leg:.4f} ms (bound_ms "
-        f"{kb:.4f}); NCCL leg by its stream's CUDA events "
-        f"{[round(e, 4) for e in nccl]} ms, the leg (slowest rank) "
-        f"{nccl_leg:.4f} ms for {cross} bytes sent across nodes (bound_ms "
-        f"{nb:.4f} at NVLink's 450 GB/s, one machine: not an InfiniBand "
-        f"figure); span by node (host clock, mean of 10) "
-        f"{ {n: round(v, 4) for n, v in spans.items()} } ms; both legs' "
-        f"bound_ms {bb:.4f}; one process on one card (phase 7) "
-        f"{x2['ms']:.4f} ms; the NCCL group's communicator by rank "
-        f"{[round(t, 4) for t in init_s]} s, its cross-node pairs' warm-up "
-        f"{[round(t, 4) for t in warmup_s]} s (host clock, first exchange)")
-    return dict(kernel_ms=kernel, kernel_leg_ms=kernel_leg,
-                kernel_bound_ms=kb, nccl_ms=nccl, nccl_leg_ms=nccl_leg,
-                nccl_bound_ms=nb, bound_ms=bb, spans=spans, cross_bytes=cross,
-                nccl_init_s=init_s, nccl_warmup_s=warmup_s)
-
-
-# Whether NCCL point-to-point carries a process whose shards sit on two
-# cards (the layout check_node_layout refuses across nodes): two
-# processes of two cards each, one batch_isend_irecv from both of a
-# process's cards; the outcome, and nothing of the port.
-_NCCL_TWO_CARDS = r"""
-import json, os, sys
-from datetime import timedelta
-import torch
-import torch.distributed as dist
-
-init, n_procs, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
-    sys.argv[4]
-os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
-dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank,
-                        timeout=timedelta(seconds=30))
-cards = [torch.device("cuda", 2 * rank + i) for i in range(2)]
-torch.cuda.set_device(cards[0])
-result = {}
-try:
-    g = dist.new_group(backend="nccl", timeout=timedelta(seconds=30))
-    x = torch.ones(1, device=cards[0])
-    dist.all_reduce(x, group=g)
-    bufs = [torch.full((1 << 20,), 10 * rank + i, dtype=torch.int32,
-                       device=d) for i, d in enumerate(cards)]
-    ops = [dist.P2POp(dist.isend if rank == 0 else dist.irecv, b, 1 - rank,
-                      g) for b in bufs]
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
-    for d in cards:
-        torch.cuda.synchronize(d)
-    result["ok"] = rank == 0 or all(
-        bool((b == i).all()) for i, b in enumerate(bufs))
-except Exception as e:
-    result = {"ok": False, "error": f"{type(e).__name__}: {e}"[:600]}
-json.dump(result, open(out, "w"))
-"""
-
-
-def phase_nodes_two_cards():
-    res, rcs, logs = _run_bench(_NCCL_TWO_CARDS, "mn_two_cards", 2,
-                                timeout=120)
-    works = all(r and r["ok"] for r in res)
-    why = [r.get("error") if r else f"exit {rc}: {text[-300:]}"
-           for r, rc, text in zip(res, rcs, logs)]
-    log(f"[phase 20] NCCL point-to-point from a process holding two cards "
-        f"(2 processes x 2 cards, one batch): "
-        f"{'delivered' if works else 'refused or failed'}; {why}")
-    return works
+    row = dict(kernel_ms=kernel, kernel_leg_ms=leg("ms"),
+               kernel_bound_ms=bounds["kernel"], nccl_ms=nccl,
+               nccl_leg_ms=leg("nccl_ms"), nccl_bound_ms=bounds["nccl"],
+               slot_leg_ms=slot_legs, slot_bound_ms=bounds["slots"],
+               staging_leg_ms=leg("staging_ms"),
+               staging_bound_ms=bounds["staging"],
+               staged_bytes=sum(r["staged_bytes"] for r in res),
+               bound_ms=bounds["all"], spans=_node_spans(res),
+               cross_bytes=sum(r["cross_bytes"] for r in res),
+               nccl_init_s=[r["nccl_init_s"] for r in res],
+               nccl_warmup_s=[r["nccl_warmup_s"] for r in res])
+    log(f"[phase 20] {name}: two-leg exchange, {n_procs} processes in 2 "
+        f"emulated nodes, 4 x [4, 2^24, 2]: bit-exact, one launch a card, "
+        f"0 cross-node IPC opens; on-node kernel by CUDA events "
+        f"{[round(e, 4) for e in kernel]} ms, the leg (slowest rank) "
+        f"{row['kernel_leg_ms']:.4f} ms (bound_ms {bounds['kernel']:.4f}); "
+        f"staging copies {row['staged_bytes']} bytes in "
+        f"{row['staging_leg_ms']:.4f} ms (slowest rank; bound_ms "
+        f"{bounds['staging']:.4f} over NVLink); NCCL leg by its streams' "
+        f"CUDA events {[round(e, 4) for e in nccl]} ms, the leg (slowest "
+        f"rank and slot) {row['nccl_leg_ms']:.4f} ms for "
+        f"{row['cross_bytes']} bytes sent across nodes (bound_ms "
+        f"{bounds['nccl']:.4f}), by slot "
+        f"{[round(t, 4) for t in slot_legs]} ms (bound_ms "
+        f"{[round(t, 4) for t in bounds['slots']]} at NVLink's 450 GB/s, "
+        f"one machine: not an InfiniBand figure); span by node (host clock, "
+        f"mean of 10) { {n: round(v, 4) for n, v in row['spans'].items()} } "
+        f"ms; the whole exchange's bound_ms {bounds['all']:.4f}; one process "
+        f"on one card (phase 7) {exchange[2]['ms']:.4f} ms; the NCCL groups' "
+        f"communicators by rank and slot "
+        f"{[[round(t, 4) for t in r] for r in row['nccl_init_s']]} s, their "
+        f"cross-node pairs' warm-up "
+        f"{[[round(t, 4) for t in r] for r in row['nccl_warmup_s']]} s (host "
+        f"clock, first exchange)")
+    return row
 
 
 def phase_nodes(fq_mid, full, exchange):
-    """Phase 20: counting across nodes, emulated as two nodes of two
-    processes on one machine (MP_NODE); on fewer than four cards the same
-    emulation on CPU shards."""
+    """Phase 20: counting across nodes, emulated as two nodes on one
+    machine (MP_NODE), in each layout of MN_LAYOUTS: mid size, full size,
+    the exchange alone; on fewer than four cards the same emulations on
+    CPU shards."""
     if torch.cuda.device_count() < 4:
         return phase_nodes_cpu(fq_mid)
-    mid = phase_nodes_mid(fq_mid)
-    full_row = phase_nodes_full(full)
-    bench = phase_nodes_exchange(exchange)
-    two_cards = phase_nodes_two_cards()
-    return dict(mid=mid, full=full_row, bench=bench, nccl=True,
-                two_cards_a_process=two_cards)
+    got = [dict(mid=phase_nodes_mid(fq_mid, lay),
+                full=phase_nodes_full(full, lay),
+                bench=phase_nodes_exchange(exchange, lay))
+           for lay in MN_LAYOUTS]
+    return dict(got[0], nccl=True, two_cards=got[1])
 
 
 def timed(n, fn, *args):
@@ -4162,6 +4248,8 @@ def main(argv=()) -> int:
     mp = got[19]  # phase 19: multi-process counting
     mn = got[20]  # phase 20: counting across (emulated) nodes
     mn_bench = mn.get("bench", {})
+    mc = mn.get("two_cards", {})  # phase 20, two cards a process
+    mc_bench = mc.get("bench", {})
     step18 = modes["step"]["launches"]
     xs18 = modes["step"]["exchange"]
     sharded, (scan_1d, probes) = got[9], got[10]
@@ -4290,7 +4378,30 @@ def main(argv=()) -> int:
          "nodes_nccl_init_s": mn_bench.get("nccl_init_s"),
          "nodes_nccl_warmup_s": mn_bench.get("nccl_warmup_s"),
          "nodes_span_ms": mn_bench.get("spans"),
-         "nodes_bound_ms": mn_bench.get("bound_ms")},
+         "nodes_bound_ms": mn_bench.get("bound_ms"),
+         # phase 20 in kmc_tpu's multi-host layout: two emulated nodes of
+         # one process holding two cards, one NCCL group a card slot (null
+         # on fewer than four cards): each rank's launches in the
+         # full-size count; at phase 7's shapes the on-node kernel's time,
+         # the bytes staged onto a card of the owner's slot and the
+         # staging copies' time, the NCCL leg's time and each slot's (the
+         # slowest rank's CUDA events) each against its bound, each
+         # node's span, and each slot's communicator and warm-up seconds
+         # by rank
+         "nodes_cards_launches": mc.get("full", {}).get("launches"),
+         "nodes_cards_kernel_ms": mc_bench.get("kernel_leg_ms"),
+         "nodes_cards_kernel_bound_ms": mc_bench.get("kernel_bound_ms"),
+         "nodes_cards_staged_bytes": mc_bench.get("staged_bytes"),
+         "nodes_cards_staging_ms": mc_bench.get("staging_leg_ms"),
+         "nodes_cards_staging_bound_ms": mc_bench.get("staging_bound_ms"),
+         "nodes_cards_nccl_ms": mc_bench.get("nccl_leg_ms"),
+         "nodes_cards_nccl_bound_ms": mc_bench.get("nccl_bound_ms"),
+         "nodes_cards_slot_nccl_ms": mc_bench.get("slot_leg_ms"),
+         "nodes_cards_slot_nccl_bound_ms": mc_bench.get("slot_bound_ms"),
+         "nodes_cards_nccl_init_s": mc_bench.get("nccl_init_s"),
+         "nodes_cards_nccl_warmup_s": mc_bench.get("nccl_warmup_s"),
+         "nodes_cards_span_ms": mc_bench.get("spans"),
+         "nodes_cards_bound_ms": mc_bench.get("bound_ms")},
         {"name": "all_to_all", "route": "cuda",
          "source": "kmc_tpu_torch/csrc/ragged_a2a.cu",
          "replaces": "kmc_tpu/parallel/pallas_a2a.py:222",

@@ -26,12 +26,15 @@ shard list, which is the ranks' own device lists concatenated rank-major
 
 A group across several nodes moves the exchange's rows between nodes by
 NCCL point-to-point (exchange_kernel.py's cross-node leg), and NCCL binds
-a rank to one card: there every process holds its shards on one card of
-its own (check_node_layout), its current device is that card, and the
-ranks share one NCCL group (nccl_group), made once, collectively, with
-the heartbeat's timeout.  CPU shards across nodes need no NCCL: their
-cross-node leg is gloo point-to-point, their on-node leg an all-to-all
-over a gloo group of the node's ranks (node_group).
+a communicator to one card: there a process may hold shards on several
+cards, and card slot i (the i-th distinct card of every process, in the
+order of its device list) has an NCCL group of its own over every rank
+(nccl_groups), made once, collectively, in slot order, with the
+heartbeat's timeout.  So every process holds as many cards, and no two
+share one (check_node_layout), as kmc_tpu's hosts each hold as many
+chips.  CPU shards across nodes need no NCCL: their cross-node leg is
+gloo point-to-point, their on-node leg an all-to-all over a gloo group of
+the node's ranks (node_group).
 """
 from __future__ import annotations
 
@@ -62,8 +65,8 @@ class _Group:
     hosts = None  # each rank's node, in rank order
     timeout = None
     node_group = None  # weak reference to the gloo group of this node
-    nccl = None  # weak reference to the NCCL group over every rank
-    nccl_device = None  # and its card
+    nccl = None  # weak references to the NCCL groups, one a card slot
+    nccl_devices = None  # and their cards, in slot order
 
 
 def init_multihost(coordinator_address: str | None = None,
@@ -84,9 +87,9 @@ def init_multihost(coordinator_address: str | None = None,
     heartbeat_timeout_seconds bounds how long a collective waits for a
     peer (default 100 s, jax's default, which kmc_tpu keeps); a peer that
     dies closes its connections, so the survivors' next collective raises
-    instead of hanging.  The NCCL group of a card group across nodes gets
+    instead of hanging.  The NCCL groups of a card group across nodes get
     the same timeout.  A group across several nodes checks its card
-    layout and joins that NCCL group at the sharded count's start
+    layout and joins those NCCL groups at the sharded count's start
     (Fleet), on every rank alike."""
     if coordinator_address is None:
         url = "env://"
@@ -116,7 +119,7 @@ def rank_nodes() -> list:
         hosts = [None] * dist.get_world_size()
         dist.all_gather_object(hosts, socket.gethostname())
         _Group.world, _Group.hosts = weakref.ref(dist.group.WORLD), hosts
-        _Group.node_group = _Group.nccl = _Group.nccl_device = None
+        _Group.node_group = _Group.nccl = _Group.nccl_devices = None
         if _Group.timeout is None:
             _Group.timeout = timedelta(seconds=100)
     return _Group.hosts
@@ -124,23 +127,17 @@ def rank_nodes() -> list:
 
 def check_node_layout(nodes, cards) -> None:
     """Raise ValueError, naming the layout, for a card group across nodes
-    that NCCL cannot carry.  nodes[r]: rank r's node; cards[r]: the cards
-    of rank r's shards, by a name unique within its node (empty for CPU
-    shards).  Within one node every layout is taken.  Across nodes each
-    rank holds its shards on one card, and no two ranks share a card
-    (NCCL refuses two ranks on one GPU: "Duplicate GPU detected")."""
+    that the cross-node leg cannot carry.  nodes[r]: rank r's node;
+    cards[r]: the cards of rank r's shards, by a name unique within its
+    node (empty for CPU shards).  Within one node every layout is taken.
+    Across nodes no two ranks share a card (NCCL refuses two ranks on one
+    GPU: "Duplicate GPU detected"), and every rank holds as many cards:
+    card slot i's NCCL group binds every rank to its i-th card."""
     if len(set(nodes)) < 2:
         return
     holders = {}
     for r, (node, cs) in enumerate(zip(nodes, cards)):
-        if len(set(cs)) > 1:
-            raise ValueError(
-                f"kmc_tpu_torch: rank {r} holds shards on {len(set(cs))} "
-                f"cards {sorted(set(cs))} of node {node!r} in a group across "
-                f"{len(set(nodes))} nodes; the exchange's cross-node leg is "
-                "NCCL, which binds a process to one card: run one process a "
-                "card")
-        for c in set(cs):
+        for c in dict.fromkeys(cs):
             holders.setdefault((node, c), []).append(r)
     for (node, c), ranks in holders.items():
         if len(ranks) > 1:
@@ -150,6 +147,13 @@ def check_node_layout(nodes, cards) -> None:
                 "exchange's cross-node leg is NCCL, which takes one process "
                 "a card (\"Duplicate GPU detected\"): run one process a card, "
                 "or every process on one node")
+    held = [len(set(cs)) for cs in cards]
+    if len(set(held)) > 1:
+        raise ValueError(
+            f"kmc_tpu_torch: the ranks hold {held} cards in a group across "
+            f"{len(set(nodes))} nodes; the exchange's cross-node leg is one "
+            "NCCL group a card slot (slot i: every rank's i-th card), which "
+            "needs every process to hold as many cards")
 
 
 def node_group():
@@ -165,62 +169,76 @@ def node_group():
     return _Group.node_group()
 
 
-def nccl_group(device: torch.device):
-    """The NCCL group over every rank, for the exchange's cross-node leg,
-    bound to this rank's card `device`: made collectively by every rank on
-    the first call, with the gloo group's timeout, and brought up at once:
-    an all-reduce over every rank (a group's first call must involve them
-    all; it makes the communicator), then one point-to-point exchange
-    between every pair of ranks on different nodes, the only pairs the
-    cross-node leg has.  NCCL connects a pair at its first point-to-point
-    operation, on the calling thread, with no timeout, so those pairs are
-    connected here and an exchange's leg finds its connections made.
-    nccl_group.init_s and nccl_group.warmup_s keep the two steps' host
-    seconds.  A failed or timed-out NCCL operation tears the process down
+def nccl_groups(devices) -> list:
+    """The NCCL groups over every rank for the exchange's cross-node leg,
+    one a card slot: slot i's group is bound on this rank to the i-th
+    distinct card of `devices` (in the list's order).  Made collectively
+    by every rank on the first call, slot by slot, each with the gloo
+    group's timeout, and brought up at once: an all-reduce over every rank
+    on the slot's card (a group's first call must involve them all; it
+    makes the communicator), then one point-to-point exchange between
+    every pair of ranks on different nodes, the only pairs the cross-node
+    leg has.  NCCL connects a pair at its first point-to-point operation,
+    on the calling thread, with no timeout, so those pairs are connected
+    here and an exchange's leg finds its connections made.
+    nccl_groups.init_s and nccl_groups.warmup_s keep each slot's two
+    steps' host seconds.  The current device stays as it was when it is
+    one of these cards, else it becomes the first of them.  A failed
+    or timed-out NCCL operation tears the process down
     (TORCH_NCCL_ASYNC_ERROR_HANDLING=1), so a survivor of a dead peer ends
     in an error within the timeout, never hangs."""
-    device = torch.device(device)
+    slots = list(dict.fromkeys(torch.device(d) for d in devices))
     nodes = rank_nodes()  # forgets the groups of a destroyed world
     if _Group.nccl is None:
         os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
-        torch.cuda.set_device(device)
-        t0 = time.perf_counter()
-        g = dist.new_group(backend="nccl", timeout=_Group.timeout)
         world, rank = dist.get_world_size(), dist.get_rank()
-        probe = torch.ones(1, dtype=torch.int32, device=device)
-        dist.all_reduce(probe, group=g)
-        if int(probe) != world:
-            raise RuntimeError(f"kmc_tpu_torch: the NCCL group's first "
-                               f"all-reduce gave {int(probe)}")
-        t1 = time.perf_counter()
         peers = [p for p in range(world) if nodes[p] != nodes[rank]]
-        got = torch.zeros(world, dtype=torch.int32, device=device)
-        ops = [op for p in peers for op in (
-            dist.P2POp(dist.isend, probe, p, g),
-            dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
-        for w in dist.batch_isend_irecv(ops) if ops else []:
-            w.wait()
-        if int(got.sum()) != world * len(peers):
-            raise RuntimeError("kmc_tpu_torch: the NCCL group's pairs "
-                               "delivered wrong values")
-        nccl_group.init_s, nccl_group.warmup_s = \
-            t1 - t0, time.perf_counter() - t1
-        _Group.nccl, _Group.nccl_device = weakref.ref(g), device
-    elif _Group.nccl_device != device:
-        raise ValueError(f"kmc_tpu_torch: this rank's NCCL group is bound to "
-                         f"{_Group.nccl_device}, not {device}")
-    return _Group.nccl()
+        groups, init_s, warmup_s = [], [], []
+        for dev in slots:
+            with torch.cuda.device(dev):
+                t0 = time.perf_counter()
+                g = dist.new_group(backend="nccl", timeout=_Group.timeout,
+                                   device_id=dev)
+                probe = torch.ones(1, dtype=torch.int32, device=dev)
+                dist.all_reduce(probe, group=g)
+                if int(probe) != world:
+                    raise RuntimeError(f"kmc_tpu_torch: the NCCL group of "
+                                       f"{dev}'s slot gave {int(probe)} in "
+                                       "its first all-reduce")
+                t1 = time.perf_counter()
+                got = torch.zeros(world, dtype=torch.int32, device=dev)
+                ops = [op for p in peers for op in (
+                    dist.P2POp(dist.isend, probe, p, g),
+                    dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
+                for w in dist.batch_isend_irecv(ops) if ops else []:
+                    w.wait()
+                if int(got.sum()) != world * len(peers):
+                    raise RuntimeError(f"kmc_tpu_torch: the pairs of the NCCL "
+                                       f"group of {dev}'s slot delivered "
+                                       "wrong values")
+                groups.append(g)
+                init_s.append(t1 - t0)
+                warmup_s.append(time.perf_counter() - t1)
+        if torch.cuda.current_device() not in {d.index for d in slots}:
+            torch.cuda.set_device(slots[0])  # no context on a card not ours
+        nccl_groups.init_s, nccl_groups.warmup_s = init_s, warmup_s
+        _Group.nccl = [weakref.ref(g) for g in groups]
+        _Group.nccl_devices = slots
+    elif _Group.nccl_devices != slots:
+        raise ValueError(f"kmc_tpu_torch: this rank's NCCL groups are bound "
+                         f"to {_Group.nccl_devices}, not {slots}")
+    return [g() for g in _Group.nccl]
 
 
-nccl_group.init_s = None  # host seconds: the group and its communicator
-nccl_group.warmup_s = None  # host seconds: the cross-node pairs' warm-up
+nccl_groups.init_s = None  # host seconds a slot: the group, its communicator
+nccl_groups.warmup_s = None  # host seconds a slot: the cross-node pairs
 
 
 def join_cards(devices) -> None:
     """For a group across nodes whose shards are on cards: check every
     rank's card layout (raising the same error on every rank), then join
-    the NCCL group on this rank's card.  Collective; nothing to do within
-    one node or for CPU shards."""
+    the NCCL groups, one for each of this rank's cards.  Collective;
+    nothing to do within one node or for CPU shards."""
     from .. import _build
     from .exchange_kernel import _card_id
 
@@ -230,7 +248,7 @@ def join_cards(devices) -> None:
     kind = devices[0].type
     if kind == "cuda":
         lib = _build.load("ragged_a2a")
-        mine = sorted({_card_id(lib, d.index) for d in devices})
+        mine = [_card_id(lib, d.index) for d in dict.fromkeys(devices)]
     got = [None] * len(nodes)
     dist.all_gather_object(got, (kind, mine if kind == "cuda" else []))
     if len({k for k, _ in got}) != 1:
@@ -238,7 +256,7 @@ def join_cards(devices) -> None:
                          f"{[k for k, _ in got]}")
     if kind == "cuda":
         check_node_layout(nodes, [cards for _, cards in got])
-        nccl_group(devices[0])
+        nccl_groups(devices)
 
 
 def process_count() -> int:
@@ -261,7 +279,7 @@ class Fleet:
     shard layout (layout[r] lists rank r's global shard positions; the
     global list is the ranks' device lists concatenated rank-major).  With
     one process every collective is the identity.  A group across nodes
-    checks its card layout and joins the NCCL group here (join_cards)."""
+    checks its card layout and joins the NCCL groups here (join_cards)."""
 
     def __init__(self, devices):
         self.world = process_count()

@@ -52,20 +52,28 @@ since every node of a cluster repeats the same bus ids.
                    counter stays 0).  A rank that leads no card launches
                    nothing.
   cross-node leg   the pairs whose owner sits on another node
-                   (cross_node_pairs): one torch.distributed
-                   batch_isend_irecv on the NCCL group
-                   (distributed.nccl_group), each sender's xs[l][o, :m]
-                   straight into the owner's outs[l'][j, :m], on a stream
-                   of its own beside the kernel's launches.  NCCL binds a
-                   rank to one card, so across nodes every process holds
-                   its shards on one card of its own (the count checks
-                   it at its start: distributed.check_node_layout).
+                   (cross_node_routes): torch.distributed
+                   batch_isend_irecv on the NCCL groups, one a card slot
+                   (distributed.nccl_groups: slot i is every process's
+                   i-th distinct card), each pair on its owner's slot's
+                   group, the sender's xs[l][o, :m] straight into the
+                   owner's outs[l'][j, :m].  A sender whose card is of
+                   another slot first stages those rows onto its
+                   process's card of the owner's slot (a device-to-device
+                   copy_); receives land where they belong.  Each slot's
+                   batch runs on a stream of its own beside the kernel's
+                   launches, posted in slot order by every process.
+                   Across nodes every process holds as many cards and no
+                   two share one (the count checks it at its start:
+                   distributed.check_node_layout).
 
 Within one node the second leg is empty and the first is the whole
 exchange.  CPU shards take the plain version: the on-node leg by
 torch.distributed.all_to_all_single of the flattened segments over the
 node's ranks (a gloo group of them; the whole group on one node), the
-cross-node leg by the same point-to-point operations on the gloo group.
+cross-node leg by the same routes, each CPU shard standing as a card of
+its own (its rows staged by a copy where a card's would be), on the gloo
+group.
 The route follows the shards' device type only: a failed allocation,
 open, launch, send or receive raises on every rank (NCCL tears down a
 process whose operation fails or outlasts the group's timeout, and the
@@ -212,6 +220,33 @@ def cross_node_pairs(counts, nodes) -> np.ndarray:
     s, o = np.nonzero(nodes[:, None] != nodes[None, :])
     counts = np.asarray(counts, np.int64)
     return np.stack([s, o, counts[s, o]], 1).astype(np.int64).reshape(-1, 3)
+
+
+def card_slots(cards, layout) -> np.ndarray:
+    """Each global shard's card slot: the index of its card (cards[g], as
+    launch_plan takes them) among its process's distinct cards, in the
+    order of the process's shards (layout[p])."""
+    slot = np.zeros(len(cards), np.int64)
+    for pos in layout:
+        seen = {}
+        for g in pos:
+            slot[g] = seen.setdefault(cards[g], len(seen))
+    return slot
+
+
+def cross_node_routes(cards, layout, nodes, counts) -> np.ndarray:
+    """The routes of the cross-node leg: int64[n, 5] of (sender, owner,
+    rows, slot, staged), one for each pair of cross_node_pairs, in its
+    order.  slot is the owner's card slot (card_slots): the pair goes on
+    that slot's NCCL group, from the sender's process's card of the slot
+    straight into the owner's output.  staged is 1 when the sender's card
+    is of another slot: its rows are first copied onto its process's card
+    of the owner's slot."""
+    cross = cross_node_pairs(counts, nodes)
+    slot = card_slots(cards, layout)
+    s, o = cross[:, 0], cross[:, 1]
+    return np.concatenate([cross, slot[o][:, None],
+                           (slot[s] != slot[o])[:, None]], 1).astype(np.int64)
 
 
 _tile_cache: dict = {}  # (device, C, pairs, counts) -> tiles on the card
@@ -411,27 +446,42 @@ def _shard_nodes(layout, nodes) -> list:
     return out
 
 
-def _cross_ops(xs, outs, cross, layout, rank, group):
-    """This process's operations of the cross-node leg: for every pair of
-    cross_node_pairs with rows, the sender's xs[l][o, :m] goes to the
-    owner's outs[l'][j, :m] by torch.distributed point-to-point on `group`
-    (peers by global rank).  Both sides post a pair of ranks' operations in
-    the pairs' (sender, owner) order, which is how NCCL matches them; the
-    tag names the pair for gloo."""
+def _stage_plan(routes, mine) -> dict:
+    """{slot: [(sender, owner, rows)]}: the routes whose rows this
+    process's senders (global positions `mine`) stage onto their
+    process's card of the slot, in the routes' order."""
+    plan = {}
+    for s, o, m, k, staged in routes.tolist():
+        if m and staged and s in mine:
+            plan.setdefault(k, []).append((s, o, m))
+    return plan
+
+
+def _cross_ops(xs, outs, routes, layout, rank, groups, staged):
+    """This process's operations of the cross-node leg, by slot: for every
+    route with rows, the sender's rows (xs[l][o, :m], or their staged copy
+    staged[(sender, owner)]) go to the owner's outs[l'][j, :m] by
+    torch.distributed point-to-point on the slot's group groups[slot]
+    (peers by global rank).  Both sides post a pair of ranks' operations
+    on a group in the routes' (sender, owner) order, which is how NCCL
+    matches them; the tag names the pair for gloo.  Returns {slot: ops},
+    slots in order."""
     D = sum(map(len, layout))
     rank_of = {g: p for p, pos in enumerate(layout) for g in pos}
     idx = {g: l for l, g in enumerate(layout[rank])}
-    ops = []
-    for s, o, m in cross.tolist():
+    ops = {}
+    for s, o, m, k, _ in routes.tolist():
         if m == 0:
             continue
         if s in idx:
-            ops.append(dist.P2POp(dist.isend, xs[idx[s]][o, :m], rank_of[o],
-                                  group, s * D + o))
+            src = staged[(s, o)] if (s, o) in staged else xs[idx[s]][o, :m]
+            ops.setdefault(k, []).append(dist.P2POp(
+                dist.isend, src, rank_of[o], groups[k], s * D + o))
         elif o in idx:
-            ops.append(dist.P2POp(dist.irecv, outs[idx[o]][s, :m],
-                                  rank_of[s], group, s * D + o))
-    return ops
+            ops.setdefault(k, []).append(dist.P2POp(
+                dist.irecv, outs[idx[o]][s, :m], rank_of[s], groups[k],
+                s * D + o))
+    return dict(sorted(ops.items()))
 
 
 def _plain_processes(xs, counts, layout, rank, nodes):
@@ -439,8 +489,10 @@ def _plain_processes(xs, counts, layout, rank, nodes):
     the node's ranks (the whole group on one node): to process q go, owner
     by owner of q's, each local sender's rows for that owner; split sizes
     from counts, which every process holds.  Across nodes the cross-node
-    pairs go by gloo point-to-point on the whole group (_cross_ops),
-    posted before the all-to-all and waited on after it."""
+    routes go by gloo point-to-point on the whole group (_cross_ops), each
+    CPU shard a card slot of its own and the rows a route stages copied
+    first, the slots' batches posted in slot order before the all-to-all
+    and waited on after it.  Returns (outs, staged bytes)."""
     from .distributed import node_group
 
     D = counts.shape[0]
@@ -448,12 +500,18 @@ def _plain_processes(xs, counts, layout, rank, nodes):
     mine = layout[rank]
     outs = [torch.empty((D, cap, C), dtype=torch.int32) for _ in mine]
     here = [p for p, node in enumerate(nodes) if node == nodes[rank]]
-    group, works = None, []
+    group, works, staged = None, [], {}
     if len(here) < len(layout):
         group = node_group()
-        cross = cross_node_pairs(counts, _shard_nodes(layout, nodes))
-        ops = _cross_ops(xs, outs, cross, layout, rank, None)
-        works = dist.batch_isend_irecv(ops) if ops else []
+        routes = cross_node_routes(range(D), layout,
+                                   _shard_nodes(layout, nodes), counts)
+        for batch in _stage_plan(routes, mine).values():
+            for s, o, m in batch:
+                staged[(s, o)] = xs[mine.index(s)][o, :m].clone()
+        ops = _cross_ops(xs, outs, routes, layout, rank,
+                         [None] * max(map(len, layout)), staged)
+        for batch in ops.values():
+            works += dist.batch_isend_irecv(batch)
     near = [layout[p] for p in here]
     parts, in_split = [], []
     for q_pos in near:
@@ -478,7 +536,7 @@ def _plain_processes(xs, counts, layout, rank, nodes):
                 at += m * C
     for w in works:
         w.wait()
-    return outs
+    return outs, 4 * sum(t.numel() for t in staged.values())
 
 
 _card_ids: dict = {}  # device index -> PCI bus id
@@ -497,10 +555,11 @@ def _card_id(lib, index: int) -> str:
 
 def _kernel_processes(xs, counts, layout, rank, nodes):
     """One launch a card over the on-node pairs of every process's shards,
-    and the cross-node pairs by NCCL beside it (see the module docstring);
-    returns (outs, launches)."""
+    and the cross-node routes by NCCL beside it, a slot's batch on a
+    stream of its own after its staging copies (see the module
+    docstring); returns (outs, launches, staged bytes)."""
     from .. import _build
-    from .distributed import nccl_group
+    from .distributed import check_node_layout, nccl_groups
 
     lib = _build.load("ragged_a2a")
     D = counts.shape[0]
@@ -530,13 +589,20 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
     node_of = _shard_nodes(layout, nodes)
     me = nodes[rank]
     opened = {}  # (device, buffer kind, shard) -> pointer opened there
+    staged = {}  # (sender, owner) -> its rows' copy on the owner's slot's card
     try:
+        if len(set(nodes)) > 1:  # as the count's start checks it (Fleet)
+            check_node_layout(nodes, [list(dict.fromkeys(ids))
+                                      for _, ids in got])
         plan = launch_plan(cards, layout, node_of)
-        cross = cross_node_pairs(counts, node_of)
-        # the NCCL group, on this process's one card: made at the count's
-        # start, after its layout check (distributed.Fleet), or by every
-        # rank here at a direct call's first cross-node exchange
-        nccl = nccl_group(devs[0]) if len(set(nodes)) > 1 else None
+        routes = cross_node_routes(cards, layout, node_of, counts)
+        # the NCCL groups, one for each of this process's cards: made at
+        # the count's start, after its layout check (distributed.Fleet),
+        # or by every rank here at a direct call's first cross-node
+        # exchange
+        slots = list(dict.fromkeys(devs))
+        groups = nccl_groups(devs) if len(set(nodes)) > 1 else None
+        stage = _stage_plan(routes, mine)
         # an owner's output is exported when another process's launch
         # writes it
         exported = [False] * D
@@ -604,13 +670,26 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
                         ptrs[kind * D + g] = ptr.value
                 launch_args[dev] = (ptrs, _device_tiles(lib, dev, counts,
                                                         pairs, C))
-            ops = _cross_ops(xs, outs, cross, layout, rank, nccl)
+            for k, batch in stage.items():
+                buf = torch.empty((sum(m for _, _, m in batch), C),
+                                  dtype=torch.int32, device=slots[k])
+                at = 0
+                for s, o, m in batch:
+                    staged[(s, o)] = buf[at:at + m]
+                    at += m
+            ops = _cross_ops(xs, outs, routes, layout, rank, groups, staged)
             events = {dev: (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
                       for dev in launch_args}
-            leg = (torch.cuda.Stream(devs[0]),
-                   torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True)) if ops else None
+            # each slot's leg: its stream and events (start, staged, end)
+            # on the slot's card; a staging copy runs on a stream of the
+            # sender's card
+            legs = {k: (torch.cuda.Stream(slots[k]),
+                        *(torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))) for k in ops}
+            copiers = {d: torch.cuda.Stream(d) for d in {
+                xs[mine.index(s)].device for batch in stage.values()
+                for s, _, _ in batch}}
             for dev in launch_args:
                 torch.cuda.synchronize(dev)  # the tiles are on the card
         except Exception as e:  # noqa: BLE001 - raised after the meeting
@@ -627,7 +706,7 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
                                "of the exchange")
         launches = 0
         ragged_all_to_all_processes.span = None
-        if launch_args or ops:
+        if launch_args or legs:
             for dev, (start, _) in events.items():
                 start.record(torch.cuda.current_stream(dev))
             t0 = time.monotonic()
@@ -635,13 +714,20 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
                 launches += _launch(lib, dev, ptrs, tiles, cap, C)
             for dev, (_, end) in events.items():
                 end.record(torch.cuda.current_stream(dev))
-            if leg:
-                # the cross-node leg on a stream of its own, beside the
-                # launches: NCCL's stream waits on it, and it on NCCL's
-                stream, start, end = leg
+            for k, batch in ops.items():
+                # slot k's leg on a stream of its own, beside the launches:
+                # the staging copies (the slot's card waits on them), then
+                # the batch (NCCL's stream waits on the slot's, and it on
+                # NCCL's); every process posts the slots in order
+                stream, start, mid, end = legs[k]
                 with torch.cuda.stream(stream):
                     start.record(stream)
-                    for w in dist.batch_isend_irecv(ops):
+                    for s, o, m in stage.get(k, ()):
+                        src = xs[mine.index(s)][o, :m]
+                        with torch.cuda.stream(copiers[src.device]):
+                            staged[(s, o)].copy_(src)
+                    mid.record(stream)
+                    for w in dist.batch_isend_irecv(batch):
                         w.wait()
                     end.record(stream)
             # a peer that died leaves a receive pending on the card: the
@@ -652,18 +738,28 @@ def _kernel_processes(xs, counts, layout, rank, nodes):
             if events:
                 ragged_all_to_all_processes.kernel_ms += max(
                     a.elapsed_time(b) for a, b in events.values())
-            if leg:
-                ragged_all_to_all_processes.nccl_ms += start.elapsed_time(end)
+            if legs:
+                xp = ragged_all_to_all_processes
+                nccl = {k: mid.elapsed_time(end)
+                        for k, (_, _, mid, end) in legs.items()}
+                xp.nccl_ms += max(nccl.values())
+                xp.staging_ms += max(a.elapsed_time(b)
+                                     for _, a, b, _ in legs.values())
+                for k, ms in nccl.items():
+                    xp.slot_nccl_ms += [0.0] * (k + 1 - len(xp.slot_nccl_ms))
+                    xp.slot_nccl_ms[k] += ms
     finally:
         errs = [lib.kmc_ipc_close(dev, ptr)
                 for (dev, _, _), ptr in opened.items()]
         dist.barrier()  # no process touches another's buffers any more
+        n_staged = 4 * sum(t.numel() for t in staged.values())
+        staged = ops = None  # the staging buffers go
         for b in bufs:
             _ipc_buffers.pop(b.ptr, None)
             b.free()
     for err in errs:
         _build.check(lib, err, "closing a peer's buffer")
-    return outs, launches
+    return outs, launches, n_staged
 
 
 def ragged_all_to_all_processes(xs, counts, layout):
@@ -690,11 +786,14 @@ def ragged_all_to_all_processes(xs, counts, layout):
         raise ValueError("counts must be [D, D] within [0, cap]")
     recv_rows = counts[:, mine].T.copy()
     nodes = rank_nodes()
-    if xs[0].device.type == "cpu":
-        return _plain_processes(xs, counts, layout, rank, nodes), recv_rows
-    outs, n = _kernel_processes(xs, counts, layout, rank, nodes)
     xp = ragged_all_to_all_processes
+    if xs[0].device.type == "cpu":
+        outs, n_staged = _plain_processes(xs, counts, layout, rank, nodes)
+        xp.staged_bytes += n_staged
+        return outs, recv_rows
+    outs, n, n_staged = _kernel_processes(xs, counts, layout, rank, nodes)
     xp.launches += n
+    xp.staged_bytes += n_staged
     row = 4 * xs[0].shape[2]
     xp.bytes += int(2 * row * counts[:, mine].sum())
     near = np.array([node == nodes[rank]
@@ -704,6 +803,8 @@ def ragged_all_to_all_processes(xs, counts, layout):
     xp.sent_rows += int(counts[np.ix_(mine, np.flatnonzero(near))].sum())
     xp.cross_node_bytes += int(
         row * counts[np.ix_(mine, np.flatnonzero(~near))].sum())
+    xp.cross_node_in_bytes += int(
+        row * counts[np.ix_(np.flatnonzero(~near), mine)].sum())
     return outs, recv_rows
 
 
@@ -713,22 +814,30 @@ def ragged_all_to_all_processes(xs, counts, layout):
 # card's); the bytes its owners' rows take to read and write (both legs)
 # and, of them, the bytes the kernel read from other processes' senders of
 # this node; the rows its senders sent on the on-node leg; the bytes its
-# senders sent on the cross-node leg, and that leg's device milliseconds
-# (CUDA events on the leg's own stream); the opens of another node's IPC
-# handle that the guard refused, each one raising: launch_plan keeps every
-# such pair out of the kernel's leg, so this stays 0 unless the plan
+# senders sent on the cross-node leg and its owners received on it; that
+# leg's device milliseconds (CUDA events on each slot's stream from its
+# staging copies' end to its batch's end: the slowest slot's, and each
+# slot's by slot); the bytes its senders staged onto a card of another
+# slot (CPU shards too, each a slot of its own) and the staging copies'
+# device milliseconds (the slowest slot's); the opens of another node's
+# IPC handle that the guard refused, each one raising: launch_plan keeps
+# every such pair out of the kernel's leg, so this stays 0 unless the plan
 # breaks, and the reports print it as the record that no cross-node open
-# was tried.  span: the
-# last exchange's host monotonic clock from this process's first launch or
-# send to its card's synchronize (None when it did neither); the clock is
-# one for every process of a node, so the spans of a node's processes
-# together bound its exchange, and spans of different nodes do not compose
+# was tried.  span: the last exchange's host monotonic clock from this
+# process's first launch or send to its card's synchronize (None when it
+# did neither); the clock is one for every process of a node, so the
+# spans of a node's processes together bound its exchange, and spans of
+# different nodes do not compose
 ragged_all_to_all_processes.launches = 0
 ragged_all_to_all_processes.kernel_ms = 0.0
 ragged_all_to_all_processes.bytes = 0
 ragged_all_to_all_processes.peer_bytes = 0
 ragged_all_to_all_processes.sent_rows = 0
 ragged_all_to_all_processes.cross_node_bytes = 0
+ragged_all_to_all_processes.cross_node_in_bytes = 0
 ragged_all_to_all_processes.nccl_ms = 0.0
+ragged_all_to_all_processes.slot_nccl_ms = []
+ragged_all_to_all_processes.staged_bytes = 0
+ragged_all_to_all_processes.staging_ms = 0.0
 ragged_all_to_all_processes.cross_node_opens = 0
 ragged_all_to_all_processes.span = None

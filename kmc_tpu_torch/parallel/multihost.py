@@ -91,11 +91,13 @@ exchange runs in two legs: rows whose owner shares the sender's node move
 by the kernel over CUDA IPC as above, the others by NCCL point-to-point
 straight into the owner's output (exchange_route "ipc_kernel+nccl"; CPU
 shards "plain+p2p": an all-to-all over the node's gloo group, gloo
-point-to-point between nodes).  Such a group puts each process's shards
-on one card of its own (two processes on one card, or one process on two
-cards, raise at the count's start on every rank: NCCL binds a rank to one
-card).  Every node reads the input at the same path (with shard_input
-each its byte ranges), and the database is written on rank 0's node.
+point-to-point between nodes).  The NCCL leg runs one NCCL group a card
+slot (slot i: every process's i-th card), so a process may hold shards on
+several cards, as a kmc_tpu host holds several chips, when every process
+holds as many and no two share one (two processes on one card, or
+unequal card counts, raise at the count's start on every rank).  Every
+node reads the input at the same path (with shard_input each its byte
+ranges), and the database is written on rank 0's node.
 """
 from __future__ import annotations
 

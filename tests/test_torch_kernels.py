@@ -610,8 +610,9 @@ import json, socket, sys
 import numpy as np, torch
 import torch.distributed as dist
 
-init, n_procs, rank, out, per, cap, C = sys.argv[1:8]
-n_procs, rank, per, cap, C = map(int, (n_procs, rank, per, cap, C))
+init, n_procs, rank, out, per, cap, C, cards = sys.argv[1:9]
+n_procs, rank, per, cap, C, cards = map(int, (n_procs, rank, per, cap, C,
+                                              cards))
 # two emulated nodes: the first half of the ranks, and the second
 socket.gethostname = lambda: f"node{rank * 2 // n_procs}"
 from kmc_tpu_torch.parallel.distributed import init_multihost
@@ -627,19 +628,22 @@ counts[0, D - 1], counts[D - 1, 0] = 0, cap
 full = [torch.from_numpy(np.random.default_rng(100 + j).integers(
     -2**31, 2**31, (D, cap, C)).astype(np.int32)) for j in range(D)]
 want, _ = ragged_all_to_all_plain(full, counts)
-dev = f"cuda:{rank}"
+# this rank's cards: its shards take them in turn
+devs = [f"cuda:{rank * cards + l % cards}" for l in range(per)]
 xs = []
-for j in layout[rank]:
-    buf = send_buffer((D, cap, C), dev, True)
-    buf.copy_(full[j].to(dev))
+for l, j in enumerate(layout[rank]):
+    buf = send_buffer((D, cap, C), devs[l], True)
+    buf.copy_(full[j].to(devs[l]))
     xs.append(buf)
 outs, recv = xp(xs, counts, layout)
-torch.cuda.synchronize()
+for d in set(devs):
+    torch.cuda.synchronize(d)
 ok = all(torch.equal(outs[l][j, :counts[j, o]].cpu(),
                      want[o][j, :counts[j, o]])
          for l, o in enumerate(layout[rank]) for j in range(D))
 json.dump({"ok": ok, "recv": recv.tolist(), "launches": xp.launches,
            "opens": xp.cross_node_opens, "nccl_ms": xp.nccl_ms,
+           "slot_nccl_ms": xp.slot_nccl_ms, "staged": xp.staged_bytes,
            "cross_bytes": xp.cross_node_bytes}, open(out, "w"))
 dist.destroy_process_group()
 """
@@ -654,25 +658,30 @@ def _need_cards(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_procs,per", [(2, 2), (4, 1)])
-def test_exchange_across_nodes_matches_plain(tmp_path, n_procs, per):
-    """Processes on cards of their own in two emulated nodes: the on-node
-    pairs go through the kernel (over CUDA IPC between a node's two
-    processes), the cross-node pairs through NCCL, and every owner gets
-    what the plain version delivers; no handle of the other node is
-    opened."""
+@pytest.mark.parametrize("n_procs,per,cards", [(2, 2, 1), (4, 1, 1),
+                                               (2, 2, 2)],
+                         ids=["2-2", "4-1", "2-2-two_cards"])
+def test_exchange_across_nodes_matches_plain(tmp_path, n_procs, per, cards):
+    """Processes on cards of their own in two emulated nodes (`cards`
+    cards a process, one NCCL group a card slot): the on-node pairs go
+    through the kernel (over CUDA IPC between a node's two processes, or
+    between a process's two cards), the cross-node pairs through NCCL on
+    the owner's slot, staged onto the sender's card of that slot where
+    its own is of another, and every owner gets what the plain version
+    delivers; no handle of the other node is opened."""
     import json
     import subprocess
     import sys
     from pathlib import Path
 
-    _need_cards(n_procs)
+    _need_cards(n_procs * cards)
     repo = Path(__file__).resolve().parent.parent
     init = f"file://{tmp_path / 'pg'}"
     cap, C = (1 << 16) + 3, 3
     procs = [subprocess.Popen(
         [sys.executable, "-c", _NODES_CHILD, init, str(n_procs), str(r),
-         str(tmp_path / f"r{r}.json"), str(per), str(cap), str(C)],
+         str(tmp_path / f"r{r}.json"), str(per), str(cap), str(C),
+         str(cards)],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(n_procs)]
     logs = [p.communicate(timeout=300)[0].decode(errors="replace")
@@ -684,8 +693,11 @@ def test_exchange_across_nodes_matches_plain(tmp_path, n_procs, per):
         assert p.returncode == 0, log[-3000:]
         got = json.loads((tmp_path / f"r{r}.json").read_text())
         assert got["ok"], got
-        assert got["launches"] == 1 and got["opens"] == 0
+        assert got["launches"] == cards and got["opens"] == 0
         assert got["nccl_ms"] > 0 and got["cross_bytes"] > 0
+        assert len(got["slot_nccl_ms"]) == cards
+        assert all(ms > 0 for ms in got["slot_nccl_ms"])
+        assert (got["staged"] > 0) == (cards > 1)
         mine = list(range(r * per, (r + 1) * per))
         assert got["recv"] == counts[:, mine].T.tolist()
 
@@ -763,6 +775,54 @@ def test_two_node_count_on_cards_matches_cpu(tmp_path):
                 (tmp_path / f"cpu_{mode}{suf}").read_bytes(), (mode, suf)
 
 
+_TWO_CARDS = "cuda:0,cuda:1;cuda:2,cuda:3"  # two processes of two cards
+
+
+@pytest.mark.gpu
+def test_two_node_count_two_cards_a_process_matches_cpu(tmp_path):
+    """kmc_tpu's multi-host layout: two emulated nodes of one process
+    holding two cards, one NCCL group a card slot.  Each process launches
+    the exchange kernel once on each of its cards, stages rows onto its
+    card of the owner's slot, and sends on every slot's group; the
+    database and stats equal the count over 4 CPU shards."""
+    import json
+
+    _need_cards(4)
+    from kmc_tpu_torch import distributed_count
+
+    fq = _card_fastq(tmp_path / "in.fastq", 20000, 4000, seed=7)
+    ran = _run_worker_group(tmp_path, 2, dict(
+        MP_DEVICES=_TWO_CARDS, MP_NODE="0,1", MP_K="27", MP_CI="2",
+        MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
+        MP_SHARD_INPUT="0", MP_MODES="default,kff"), fq)
+    for rc, log in ran:
+        assert rc == 0, log[-3000:]
+    for mode, kw in (("default", {}), ("kff", dict(output_type="kff"))):
+        res = [json.loads((tmp_path / f"mp.{mode}.stats.{r}").read_text())
+               for r in range(2)]
+        st = distributed_count([fq], str(tmp_path / f"cpu_{mode}"),
+                               devices=["cpu"] * 4, k=27, cutoff_min=2,
+                               batch_positions=1 << 14,
+                               capacity_rows_per_device=5 << 13, **kw)
+        for r in res:
+            assert r["launches"] == 2 and r["exchange_cross_node_opens"] == 0
+            assert r["exchange_cross_node_bytes"] > 0
+            assert r["exchange_staged_bytes"] > 0
+            assert len(r["exchange_slot_nccl_ms"]) == 2
+            assert all(ms > 0 for ms in r["exchange_slot_nccl_ms"])
+            assert len(r["nccl_init_s"]) == len(r["nccl_warmup_s"]) == 2
+            assert r["stats"]["timings"]["exchange_route"] == \
+                "ipc_kernel+nccl"
+            for key in ("n_unique", "n_total", "n_super_kmers", "n_below",
+                        "n_above", "n_compactions", "n_spills",
+                        "exchange_bytes"):
+                assert r["stats"][key] == st[key], (mode, key)
+        for suf in ((".kff",) if mode == "kff" else (".kmc_pre",
+                                                      ".kmc_suf")):
+            assert (tmp_path / f"mp.{mode}{suf}").read_bytes() == \
+                (tmp_path / f"cpu_{mode}{suf}").read_bytes(), (mode, suf)
+
+
 @pytest.mark.gpu
 def test_two_ranks_on_one_card_across_nodes_raise(tmp_path):
     """Four processes on card 0 in two emulated nodes: NCCL would take two
@@ -792,6 +852,30 @@ def test_dead_peer_across_nodes_on_cards_fails_survivor(tmp_path):
     t0 = time.monotonic()
     ran = _run_worker_group(tmp_path, 2, dict(
         MP_DEVICES="cuda:{pid}", MP_NODE="0,1", MP_K="27",
+        MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
+        MP_HEARTBEAT_SECS="20", MP_CRASH_AT="p2p", MP_CRASH_PID="1"), fq,
+        timeout=240)
+    assert ran[1][0] == 17, ran[1][1][-2000:]
+    assert ran[0][0] not in (0, None), ran[0][1][-2000:]
+    print(f"survivor exited {ran[0][0]}:\n{ran[0][1][-1500:]}")
+    assert time.monotonic() - t0 < 180
+    assert not (tmp_path / "mp.default.kmc_pre").exists()
+
+
+@pytest.mark.gpu
+def test_dead_peer_two_cards_a_process_fails_survivor(tmp_path):
+    """The dead-peer test in kmc_tpu's multi-host layout: process 1 of two
+    emulated nodes, each one process of two cards, dies where it would
+    post the NCCL leg; the survivor, whose receives on a slot's group
+    never complete, is torn down by that group's watchdog at its timeout,
+    never hangs."""
+    import time
+
+    _need_cards(4)
+    fq = _card_fastq(tmp_path / "in.fastq", 20000, 2000, seed=8)
+    t0 = time.monotonic()
+    ran = _run_worker_group(tmp_path, 2, dict(
+        MP_DEVICES=_TWO_CARDS, MP_NODE="0,1", MP_K="27",
         MP_BATCH=str(1 << 14), MP_CAPACITY=str(5 << 13),
         MP_HEARTBEAT_SECS="20", MP_CRASH_AT="p2p", MP_CRASH_PID="1"), fq,
         timeout=240)

@@ -11,7 +11,9 @@ MP_MIN_SHARD, MP_HEARTBEAT_SECS, MP_CRASH_SECS, MP_CRASH_PID) and two more:
 
   MP_DEVICES  this process's shards, comma-separated (default "cpu,cpu");
               "{pid}" in an entry stands for the rank, so "cuda:{pid}"
-              gives each process its own card
+              gives each process its own card; lists separated by ";"
+              are each rank's own, indexed by the rank
+              ("cuda:0,cuda:1;cuda:2,cuda:3": two processes of two cards)
   MP_MODES    the counts to run one after the other, comma-separated
               (default "default"): default, k13, kff, e (-e), opt
               (--opt-out-size), greedy, spill (the default count on shards
@@ -24,7 +26,7 @@ MP_MIN_SHARD, MP_HEARTBEAT_SECS, MP_CRASH_SECS, MP_CRASH_PID) and two more:
               "node<name>" before init_multihost, which records it as the
               rank's node; unset, the real host name stands
   MP_CRASH_AT "p2p": process MP_CRASH_PID dies (exit 17) where it would
-              post the exchange's cross-node leg, after the NCCL group's
+              post the exchange's cross-node leg, after the NCCL groups'
               own warm-up (the fault-injection tests' dead peer across
               nodes)
 
@@ -37,18 +39,24 @@ cross-process launches in that count, "kernels": each kernel's launches,
 this process, the bytes its owners read and wrote and of them those the
 kernel read from other processes' senders of its node, the rows its
 senders sent to owners of their node, "exchange_cross_node_bytes" /
-"exchange_nccl_ms" / "exchange_cross_node_opens": the bytes its senders
-sent to other nodes, that NCCL leg's device time, the IPC opens of another
-node's handles (0), "node": this process's node, "nccl_init_s" /
-"nccl_warmup_s": the host seconds of the NCCL group's communicator and of
-its cross-node pairs' warm-up (null before a group across nodes on cards
-made one), "exchange_span": the
+"exchange_cross_node_in_bytes" / "exchange_nccl_ms" /
+"exchange_cross_node_opens": the bytes its senders sent to other nodes
+and its owners received from them, that NCCL leg's device time (its
+slowest slot's), the IPC opens of another node's handles (0),
+"exchange_slot_nccl_ms": each card slot's NCCL time,
+"exchange_staged_bytes" / "exchange_staging_ms": the bytes its senders
+staged onto a card of another slot for the NCCL leg (CPU shards: each a
+slot of its own) and the staging copies' device time, "node": this
+process's node, "nccl_init_s" / "nccl_warmup_s": each slot's host seconds
+of its NCCL group's communicator and of its cross-node pairs' warm-up
+(null before a group across nodes on cards made them), "exchange_span": the
 host monotonic clock around this process's launches and sends of the
 count's exchange (null without one; spans compose within a node only),
 "wall_s", "peak_bytes": the peak device memory of each card (CUDA
 shards)}, or {"error": "MemoryError", "message": ...} when the count
 raised MemoryError.  Imports neither jax nor kmc_tpu.
 """
+import copy
 import dataclasses
 import faulthandler
 import json
@@ -59,6 +67,20 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+# the result's name of each counter of the cross-process exchange
+# (exchange_kernel.py's ragged_all_to_all_processes)
+XP_COUNTERS = (
+    ("launches", "launches"), ("exchange_ms", "kernel_ms"),
+    ("exchange_bytes", "bytes"), ("exchange_peer_bytes", "peer_bytes"),
+    ("exchange_sent_rows", "sent_rows"),
+    ("exchange_cross_node_bytes", "cross_node_bytes"),
+    ("exchange_cross_node_in_bytes", "cross_node_in_bytes"),
+    ("exchange_nccl_ms", "nccl_ms"),
+    ("exchange_slot_nccl_ms", "slot_nccl_ms"),
+    ("exchange_staged_bytes", "staged_bytes"),
+    ("exchange_staging_ms", "staging_ms"),
+    ("exchange_cross_node_opens", "cross_node_opens"))
 
 MODES = {
     "default": {},
@@ -95,7 +117,7 @@ def main():
     faulthandler.register(signal.SIGTERM)
     from kmc_tpu_torch import memory
     from kmc_tpu_torch.parallel.distributed import (init_multihost,
-                                                    nccl_group, process_count)
+                                                    nccl_groups, process_count)
     from kmc_tpu_torch.parallel.exchange_kernel import \
         ragged_all_to_all_processes
     from kmc_tpu_torch.parallel.multihost import distributed_count
@@ -139,8 +161,9 @@ def main():
     import torch
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(n_procs)))
+    lists = os.environ.get("MP_DEVICES", "cpu,cpu").split(";")
     devices = [d.replace("{pid}", pid) for d in
-               os.environ.get("MP_DEVICES", "cpu,cpu").split(",")]
+               lists[int(pid) if len(lists) > 1 else 0].split(",")]
     knobs = dict(
         k=int(os.environ.get("MP_K", 25)),
         batch_positions=int(os.environ.get("MP_BATCH", 1 << 10)),
@@ -168,33 +191,28 @@ def main():
         if cards:
             for d in cards:
                 torch.cuda.reset_peak_memory_stats(d)
-        before = (_launches(), xp.launches, xp.kernel_ms, xp.bytes,
-                  xp.peer_bytes, xp.sent_rows, xp.cross_node_bytes,
-                  xp.nccl_ms, xp.cross_node_opens)
+        kernels = _launches()
+        before = {k: copy.copy(getattr(xp, c)) for k, c in XP_COUNTERS}
         t0 = time.perf_counter()
         try:
             stats = distributed_count([reads], dst, devices=devices, **kw)
             after = _launches()
             result = {
-                "stats": stats, "launches": xp.launches - before[1],
-                "kernels": {n: after[n] - before[0][n] for n in after},
-                "exchange_ms": xp.kernel_ms - before[2],
-                "exchange_bytes": xp.bytes - before[3],
-                "exchange_peer_bytes": xp.peer_bytes - before[4],
-                "exchange_sent_rows": xp.sent_rows - before[5],
-                "exchange_cross_node_bytes":
-                    xp.cross_node_bytes - before[6],
-                "exchange_nccl_ms": xp.nccl_ms - before[7],
-                "exchange_cross_node_opens":
-                    xp.cross_node_opens - before[8],
+                "stats": stats,
+                "kernels": {n: after[n] - kernels[n] for n in after},
                 "node": socket.gethostname(),
-                "nccl_init_s": nccl_group.init_s,
-                "nccl_warmup_s": nccl_group.warmup_s,
-                "exchange_span": xp.span if xp.launches > before[1]
+                "nccl_init_s": nccl_groups.init_s,
+                "nccl_warmup_s": nccl_groups.warmup_s,
+                "exchange_span": xp.span if xp.launches > before["launches"]
                 else None,
                 "wall_s": time.perf_counter() - t0,
                 "peak_bytes": {str(d): torch.cuda.max_memory_allocated(d)
                                for d in cards}}
+            for k, c in XP_COUNTERS:  # this count's share of each counter
+                now = getattr(xp, c)
+                result[k] = [t - (before[k][i] if i < len(before[k]) else 0)
+                             for i, t in enumerate(now)] \
+                    if isinstance(now, list) else now - before[k]
         except MemoryError as e:
             result = {"error": "MemoryError", "message": str(e)}
         with open(f"{dst}.stats.{pid}", "w") as f:
