@@ -1,0 +1,36 @@
+"""The benchmark's command on a card: a short run of each cell, traced
+and not, correct, with its metrics (marked gpu: skips without a card)."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from kmcbench import harness
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("traced", [0, 1])
+def test_short_run_on_the_card(traced):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the benchmark's runs need one")
+    cell = "isolate_k27.fastq100x"
+    out = subprocess.run(
+        [sys.executable, "kmcbench/run.py", "--workload", cell, "--seed",
+         str(2**33 + traced), "--seconds", "2", "--trace", str(traced)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["correct"] and res["device"]["platform"] == "gpu"
+    c = harness.load_cell(cell)
+    want = c.per_layer if traced else c.end_to_end
+    names = {m["name"] for m in want} - {"spill_s"}
+    assert names <= set(res["metrics"])
+    if traced:
+        assert res["device"]["busy_s"] > 0
+        assert 0 < res["metrics"]["ingest_roofline_pct"]["value"] <= 100
