@@ -23,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import trace
+
 PRE_MARKER = b"KMCP"
 SUF_MARKER = b"KMCS"
 KMC2_VER = 0x200
@@ -207,6 +209,7 @@ class Kmc2DbWriter:
         while self._next_bin < info.n_bins:
             self._put_one(self._next_bin, None, None)
         self._suf.write(SUF_MARKER)
+        suf_bytes = self._suf.tell()
         self._suf.close()
         pre = self._pre
         pre.write(struct.pack("<Q", self._n_recs))
@@ -229,6 +232,7 @@ class Kmc2DbWriter:
         pre.write(header)
         pre.write(struct.pack("<I", len(header)))  # header_offset = 68
         pre.write(PRE_MARKER)
+        trace.add("bytes", suf_bytes + pre.tell())
         pre.close()
 
 

@@ -19,6 +19,7 @@ from typing import Iterator
 
 import numpy as np
 
+from .. import trace
 from ..defs import CODE_INVALID
 
 # byte -> code translation: ACGTacgt -> 0..3, everything else -> 4
@@ -76,14 +77,20 @@ def file_code_stream(paths, fmt: str, state: ParseState | None = None,
         try:
             ended_with_newline = True
             while True:
-                if gz:
-                    n = reader.read_into(buf)
-                else:
-                    n = reader.readinto(memoryview(buf))
+                # the consumer waits on the read and the parse inline
+                with trace.span("kmc.parse_wait"):
+                    if gz:
+                        n = reader.read_into(buf)
+                    else:
+                        n = reader.readinto(memoryview(buf))
+                    if n:
+                        chunk = parser.parse(buf[:n])
+                        trace.add("chunks")
+                        trace.add("bytes", n)
                 if not n:
                     break
                 ended_with_newline = buf[n - 1] == 10
-                yield parser.parse(buf[:n])
+                yield chunk
                 consumed += n
                 own_state.consumed_bytes += n
                 if max_bytes is not None and consumed >= max_bytes:
@@ -428,10 +435,12 @@ def parallel_code_stream(paths, fmt: str, state: ParseState | None = None,
     own_state = state or ParseState()
 
     shards = []  # (path, start, end, last_of_file)
-    for path in paths:
-        ranges = _file_shards(path, fmt, n_threads)
-        for i, (a, b) in enumerate(ranges):
-            shards.append((path, a, b, i == len(ranges) - 1))
+    with trace.span("kmc.split"):
+        for path in paths:
+            ranges = _file_shards(path, fmt, n_threads)
+            for i, (a, b) in enumerate(ranges):
+                shards.append((path, a, b, i == len(ranges) - 1))
+        trace.add("shards", len(shards))
     return _parallel_chunks(shards, fmt, own_state, n_threads)
 
 
@@ -447,6 +456,7 @@ def _parallel_chunks(shards, fmt, own_state, n_threads):
     lock = threading.Lock()
     errors: list = []
     stop = threading.Event()  # consumer gone: producers must bail out
+    started_by = trace.current()
 
     def _put(q, item) -> bool:
         while not stop.is_set():
@@ -481,14 +491,19 @@ def _parallel_chunks(shards, fmt, own_state, n_threads):
                     CHUNK_BYTES, remaining)
                 if want == 0:
                     break
-                if gz:
-                    n = reader.read_into(buf)
-                else:
-                    n = reader.readinto(memoryview(buf)[:want])
+                with trace.span("kmc.read", usage=True):
+                    if gz:
+                        n = reader.read_into(buf)
+                    else:
+                        n = reader.readinto(memoryview(buf)[:want])
+                    trace.add("bytes", n)
                 if not n:
                     break
                 ended_with_newline = buf[n - 1] == 10
-                if not _put(q, ("c", parser.parse(buf[:n]).copy(), n)):
+                with trace.span("kmc.parse", usage=True):
+                    codes = parser.parse(buf[:n]).copy()
+                    trace.add("bytes", n)
+                if not _put(q, ("c", codes, n)):
                     return
                 consumed += n
                 if remaining is not None:
@@ -512,6 +527,10 @@ def _parallel_chunks(shards, fmt, own_state, n_threads):
             reader.close()
 
     def worker():
+        with trace.span("kmc.reader", parent=started_by, usage=True):
+            claim_and_run()
+
+    def claim_and_run():
         while True:
             # acquire the in-flight permit BEFORE claiming a shard index:
             # claiming first allowed permits to land on LATER shards while
@@ -536,13 +555,18 @@ def _parallel_chunks(shards, fmt, own_state, n_threads):
     threads = [threading.Thread(target=worker, name=f"kmc-read{i}",
                                 daemon=True)
                for i in range(min(n_threads, len(shards)))]
-    for t in threads:
-        t.start()
+    with trace.span("kmc.reader_start"):
+        for t in threads:
+            t.start()
     try:
         for si in range(len(shards)):
             q = qs[si]
             while True:
-                kind, payload, nbytes = q.get()
+                with trace.span("kmc.parse_wait"):
+                    kind, payload, nbytes = q.get()
+                    if kind == "c":
+                        trace.add("chunks")
+                        trace.add("bytes", nbytes)
                 if kind == "err":
                     raise errors[0]
                 if kind == "done":
@@ -619,18 +643,23 @@ class BatchStream:
             parts.append(chunk)
             size += len(chunk)
             if size >= L:
-                buf = np.concatenate(parts)
+                with trace.span("kmc.assemble"):
+                    buf = np.concatenate(parts)
+                    trace.add("batches", (len(buf) - L) // s + 1)
                 pos = 0
                 while pos + L <= len(buf):
                     yield buf[pos : pos + L]
                     pos += s
                 parts = [buf[pos:]]
                 size = len(parts[0])
-        tail = np.concatenate(parts)
+        with trace.span("kmc.assemble"):
+            tail = np.concatenate(parts)
         while len(tail) > 0:
             if len(tail) < L:
-                padded = np.full(L, CODE_INVALID, dtype=np.uint8)
-                padded[: len(tail)] = tail
+                with trace.span("kmc.assemble"):
+                    padded = np.full(L, CODE_INVALID, dtype=np.uint8)
+                    padded[: len(tail)] = tail
+                    trace.add("batches")
                 yield padded
                 # batch_len pads L past s + k - 1, so a tail of length in
                 # (s + k - 1, L) still holds valid window STARTS at >= s —

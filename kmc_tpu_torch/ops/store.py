@@ -66,11 +66,11 @@ output bytes are identical to kmc_tpu's, and so are checkpoints
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from .extract import i32_to_u32, sig_of_word_cols, u32_to_i32
 from .ingest_kernel import ingest
@@ -368,6 +368,7 @@ def merge_runs(runs, n_keys: int, device, emit, *, max_bytes=None, lo=None,
             for dst, src in zip(cols, [*run_cols, run_counts]):
                 part = src[a:b]
                 if isinstance(part, np.ndarray):
+                    trace.add("h2d_bytes", part.nbytes)
                     part = torch.from_numpy(part.view(np.int32))
                 dst[off:off + b - a].copy_(part)
             off += b - a
@@ -387,6 +388,7 @@ def merge_runs_to_host(runs, n_keys: int, device, *, max_bytes=None):
     def emit(reps, totals):
         parts.append(([_host_u32(c) for c in reps],
                       totals.cpu().numpy().view(np.uint64)))
+        trace.add("d2h_bytes", 4 * len(reps) * len(totals) + 8 * len(totals))
 
     n_dead = merge_runs(runs, n_keys, device, emit, max_bytes=max_bytes)
     if not parts:
@@ -434,9 +436,6 @@ class DeviceKmerStore:
     docstring), updated in place: ingest writes its rows into preallocated
     columns and compaction writes the merged rows back over the front of
     the same columns, so the store never holds two copies of itself."""
-
-    t_finalize_exec = 0.0
-    t_finalize_d2h = 0.0
 
     def __init__(self, capacity_rows: int, *, k: int, sig_len: int,
                  both_strands: bool, n_bins: int, map_mode: str = "prefix",
@@ -510,10 +509,7 @@ class DeviceKmerStore:
         self.spill_budget_bytes = spill_budget_bytes
         self.n_spills = 0
         self.spill_bytes = 0  # bytes every spill copied to the host
-        self.t_spill_d2h = 0.0
         self.n_remerges = 0
-        self.t_remerge = 0.0
-        self.t_host_merge = 0.0
         self.merge_launches = 0  # grouping-sort launches of the merges
         self.collect_launches = 0  # grouping-sort launches of the collect
         self.finalize_route = None  # "device", "replay" or "host"
@@ -595,12 +591,17 @@ class DeviceKmerStore:
         while the store compacts."""
         self._make_room(s)
         eager = self.map_mode == "greedy" and not self._g_defer
-        self.prev_sig = ingest(
-            self._to_device(buf), tail_start, self.key_cols, self.counts,
-            self.n_used, self.occ_acc, self.skm_acc, self.prev_sig, s=s,
-            k=self.k, sig_len=self.sig_len, both_strands=self.both_strands,
-            prefix_bits=self._ing_prefix_bits, fuse=self._ing_fuse,
-            sig_map=self._sig_map if eager else None, hist=hist)
+        with trace.span("kmc.h2d"):
+            feed = self._to_device(buf)
+            trace.add("bytes", feed.nbytes)
+        with trace.span("kmc.ingest_launch"):
+            self.prev_sig = ingest(
+                feed, tail_start, self.key_cols, self.counts, self.n_used,
+                self.occ_acc, self.skm_acc, self.prev_sig, s=s, k=self.k,
+                sig_len=self.sig_len, both_strands=self.both_strands,
+                prefix_bits=self._ing_prefix_bits, fuse=self._ing_fuse,
+                sig_map=self._sig_map if eager else None, hist=hist)
+            trace.add("positions", s)
         self.n_used += s
         self.total_appended_rows += s
         self._since_compact += s
@@ -623,6 +624,7 @@ class DeviceKmerStore:
         self.total_appended_rows += n
         self._make_room(n)
         self._materialize_counts()
+        trace.add("h2d_bytes", 4 * n * (len(cols) + 1))
         cnt = self._u32_to_device(counts)
         dead = cnt == 0
         lo, hi = self.n_used, self.n_used + n
@@ -653,45 +655,56 @@ class DeviceKmerStore:
         count 0, and one dead row follows the groups whenever the store
         held a dead row, so n_used and every spilled run match kmc_tpu's
         row for row."""
-        cols, counts = self._live_rows()
-        n_live = cols[0].shape[0]
-        reps, totals = _group_reduce(cols, counts, self.n_cols,
-                                     drop_zero=False)
-        del cols, counts
-        zero = totals == 0
-        g = totals.shape[0]
-        if self.counts is None:
-            self.counts = torch.zeros(self.capacity, dtype=torch.int32,
-                                      device=self.device)
-        for dst, src in zip(self.key_cols, reps):
-            dst[:g] = torch.where(zero, _DEAD, src)
-        self.counts[:g] = u32_to_i32(totals)
-        if n_live < self.capacity:  # the group of the dead rows
-            for dst in self.key_cols:
-                dst[g] = _DEAD
-            self.counts[g] = 0
-            g += 1
-        self.n_used = g
-        self.n_compactions += 1
-        self._since_compact = 0
+        with trace.span("kmc.compact"):
+            launches = radix_sort_columns.launches
+            cols, counts = self._live_rows()
+            n_live = cols[0].shape[0]
+            reps, totals = _group_reduce(cols, counts, self.n_cols,
+                                         drop_zero=False)
+            del cols, counts
+            zero = totals == 0
+            g = totals.shape[0]
+            if self.counts is None:
+                self.counts = torch.zeros(self.capacity, dtype=torch.int32,
+                                          device=self.device)
+            for dst, src in zip(self.key_cols, reps):
+                dst[:g] = torch.where(zero, _DEAD, src)
+            self.counts[:g] = u32_to_i32(totals)
+            if n_live < self.capacity:  # the group of the dead rows
+                for dst in self.key_cols:
+                    dst[g] = _DEAD
+                self.counts[g] = 0
+                g += 1
+            self.n_used = g
+            self.n_compactions += 1
+            self._since_compact = 0
+            trace.add("rows", n_live)
+            trace.add("sort_launches", radix_sort_columns.launches - launches)
 
     # -- spill to host RAM under the -m budget --
 
     def spill(self):
         """Move the compacted store to host RAM as one sorted run (mirrors
         kmc_tpu's spill) and start empty; then hold the runs to the
-        budget."""
-        self.compact()
-        n = self.n_used
-        t0 = time.perf_counter()
-        run = (tuple(_host_u32(c[:n]) for c in self.key_cols),
-               _host_u32(self.counts[:n]))
-        self.t_spill_d2h += time.perf_counter() - t0
-        self.spilled.append(run)
-        self.n_spills += 1
-        self.spill_bytes += sum(c.nbytes for c in run[0]) + run[1].nbytes
-        self.n_used = 0
-        self._since_compact = 0
+        budget: the compaction's queued device work is waited for
+        (kmc.spill_wait) before the copy (kmc.spill_d2h)."""
+        with trace.span("kmc.spill"):
+            self.compact()
+            n = self.n_used
+            with trace.span("kmc.spill_wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with trace.span("kmc.spill_d2h"):
+                run = (tuple(_host_u32(c[:n]) for c in self.key_cols),
+                       _host_u32(self.counts[:n]))
+                nbytes = sum(c.nbytes for c in run[0]) + run[1].nbytes
+                trace.add("bytes", nbytes)
+            trace.add("rows", n)
+            self.spilled.append(run)
+            self.n_spills += 1
+            self.spill_bytes += nbytes
+            self.n_used = 0
+            self._since_compact = 0
         self._enforce_spill_budget()
 
     def _spilled_bytes(self) -> int:
@@ -717,12 +730,15 @@ class DeviceKmerStore:
         """Collapse every spilled run into one sorted unique run, merged on
         the store's device; totals clamp at 0xFFFFFFFF (kmc_tpu's
         _remerge_spilled)."""
-        t0 = time.perf_counter()
-        launches = radix_sort_columns.launches
-        self.spilled = [remerge_runs(self.spilled, self.n_cols, self.device)]
-        self.merge_launches += radix_sort_columns.launches - launches
-        self.n_remerges += 1
-        self.t_remerge += time.perf_counter() - t0
+        with trace.span("kmc.remerge"):
+            trace.add("rows", sum(len(c) for _, c in self.spilled))
+            launches = radix_sort_columns.launches
+            self.spilled = [remerge_runs(self.spilled, self.n_cols,
+                                         self.device)]
+            launches = radix_sort_columns.launches - launches
+            self.merge_launches += launches
+            trace.add("sort_launches", launches)
+            self.n_remerges += 1
 
     def _replay_spills(self):
         """Append the spilled runs back into the store, compacting as it
@@ -731,25 +747,28 @@ class DeviceKmerStore:
         store has no room left."""
         if not self.spilled:
             return
-        self._materialize_counts()
-        while self.spilled:
-            cols, counts = self.spilled[0]
-            pos = 0
-            while pos < len(counts):
-                room = self.capacity - self.n_used
-                if room <= 0:
-                    self.compact()
+        with trace.span("kmc.replay"):
+            self._materialize_counts()
+            while self.spilled:
+                cols, counts = self.spilled[0]
+                pos = 0
+                while pos < len(counts):
                     room = self.capacity - self.n_used
-                if room <= 0:
-                    # the host merge must see every remaining row once
-                    self.spilled[0] = (tuple(c[pos:] for c in cols),
-                                       counts[pos:])
-                    raise _SpillOverflow()
-                take = min(room, len(counts) - pos)
-                self.append(tuple(c[pos:pos + take] for c in cols),
-                            counts[pos:pos + take], count_occurrences=False)
-                pos += take
-            self.spilled.pop(0)
+                    if room <= 0:
+                        self.compact()
+                        room = self.capacity - self.n_used
+                    if room <= 0:
+                        # the host merge must see every remaining row once
+                        self.spilled[0] = (tuple(c[pos:] for c in cols),
+                                           counts[pos:])
+                        raise _SpillOverflow()
+                    take = min(room, len(counts) - pos)
+                    self.append(tuple(c[pos:pos + take] for c in cols),
+                                counts[pos:pos + take],
+                                count_occurrences=False)
+                    trace.add("rows", take)
+                    pos += take
+                self.spilled.pop(0)
 
     def _host_merge(self):
         """Merge the spilled runs and the compacted store by (bin, k-mer)
@@ -760,42 +779,61 @@ class DeviceKmerStore:
         the groups re-sorted there (kmc_tpu's host mirror of its collect;
         this route exists because they do not fit the device).  The store
         is consumed."""
-        self.compact()
-        n = self.n_used
-        runs = self.spilled + [([c[:n] for c in self.key_cols],
-                                self.counts[:n])]
-        self.spilled = []
-        self.key_cols = self.counts = None
-        launches = radix_sort_columns.launches
-        cols, totals, _ = merge_runs_to_host(runs, self.n_cols, self.device)
-        self.merge_launches += radix_sort_columns.launches - launches
-        del runs
-        if self._ing_fuse:
-            bins = cols[0] >> np.uint32(2 * self.r0)
-            lanes = [cols[0] & np.uint32((1 << (2 * self.r0)) - 1)] + cols[1:]
-        else:
-            bins, lanes = cols[0], cols[1:]
-        valid = (bins < self._ing_n_bins) & (totals > 0)
-        lanes = np.stack([x[valid] for x in lanes], axis=1)
-        bins, totals = bins[valid].astype(np.uint32), totals[valid]
-        if self._g_defer:
-            from ..signatures import sig_of_lanes_numpy
+        with trace.span("kmc.host_merge"):
+            self.compact()
+            n = self.n_used
+            runs = self.spilled + [([c[:n] for c in self.key_cols],
+                                    self.counts[:n])]
+            self.spilled = []
+            self.key_cols = self.counts = None
+            launches = radix_sort_columns.launches
+            cols, totals, _ = merge_runs_to_host(runs, self.n_cols,
+                                                 self.device)
+            launches = radix_sort_columns.launches - launches
+            self.merge_launches += launches
+            trace.add("sort_launches", launches)
+            del runs
+            if self._ing_fuse:
+                bins = cols[0] >> np.uint32(2 * self.r0)
+                lanes = ([cols[0] & np.uint32((1 << (2 * self.r0)) - 1)]
+                         + cols[1:])
+            else:
+                bins, lanes = cols[0], cols[1:]
+            valid = (bins < self._ing_n_bins) & (totals > 0)
+            lanes = np.stack([x[valid] for x in lanes], axis=1)
+            bins, totals = bins[valid].astype(np.uint32), totals[valid]
+            if self._g_defer:
+                from ..signatures import sig_of_lanes_numpy
 
-            sm = self._sig_map.cpu().numpy()
-            sig = sig_of_lanes_numpy(lanes, self.k, self.sig_len)
-            bins = sm[np.minimum(sig, np.uint32(len(sm) - 1))].astype(
-                np.uint32)
-            order = np.lexsort(tuple(lanes[:, ::-1].T) + (bins,))
-            bins, lanes, totals = bins[order], lanes[order], totals[order]
-        return bins, lanes, totals
+                sm = self._sig_map.cpu().numpy()
+                sig = sig_of_lanes_numpy(lanes, self.k, self.sig_len)
+                bins = sm[np.minimum(sig, np.uint32(len(sm) - 1))].astype(
+                    np.uint32)
+                order = np.lexsort(tuple(lanes[:, ::-1].T) + (bins,))
+                bins, lanes, totals = bins[order], lanes[order], totals[order]
+            trace.add("rows", len(bins))
+            return bins, lanes, totals
 
     def _finalize_records_host(self, *, cutoff_min, cutoff_max, counter_max,
                                lut_prefix_len, counter_size):
         """Host completer over the host merge (kmc_tpu's
-        _finalize_records_host; same contract as finalize_records)."""
-        t0 = time.perf_counter()
-        bins, lanes, totals = self._host_merge()
-        self.t_host_merge = time.perf_counter() - t0
+        _finalize_records_host; same contract as finalize_records): the
+        host merge (kmc.host_merge), then the NumPy completer
+        (kmc.host_completer)."""
+        with trace.span("kmc.host_route"):
+            bins, lanes, totals = self._host_merge()
+            with trace.span("kmc.host_completer"):
+                out = self._host_completer(
+                    bins, lanes, totals, cutoff_min=cutoff_min,
+                    cutoff_max=cutoff_max, counter_max=counter_max,
+                    lut_prefix_len=lut_prefix_len, counter_size=counter_size)
+                trace.add("rows", len(out[0]))
+        return out
+
+    def _host_completer(self, bins, lanes, totals, *, cutoff_min, cutoff_max,
+                        counter_max, lut_prefix_len, counter_size):
+        """The NumPy completer over the host merge's groups: the record
+        bytes, the LUT and (n_unique, n_below, n_above)."""
         below = totals < cutoff_min
         above = totals > cutoff_max
         keep = ~below & ~above
@@ -830,8 +868,6 @@ class DeviceKmerStore:
             | prefix
         lut = np.bincount(keys.astype(np.int64),
                           minlength=self.n_used_bins << (2 * lut_prefix_len))
-        self.t_finalize_exec = time.perf_counter() - t0
-        self.t_finalize_d2h = 0.0
         return rec, lut.astype(np.uint64), stats
 
     def total_occurrences(self) -> int:
@@ -892,9 +928,14 @@ class DeviceKmerStore:
         del sig, slot
         g_cols = _fused_cols(gbins, wr, fuse=self.fuse, r0=self.r0)
         del gbins, wr
-        launches = radix_sort_columns.launches
-        out = radix_sort_columns(g_cols + [u32_to_i32(totals)], len(g_cols))
-        self.collect_launches += radix_sort_columns.launches - launches
+        with trace.span("kmc.collect"):
+            launches = radix_sort_columns.launches
+            out = radix_sort_columns(g_cols + [u32_to_i32(totals)],
+                                     len(g_cols))
+            launches = radix_sort_columns.launches - launches
+            self.collect_launches += launches
+            trace.add("sort_launches", launches)
+            trace.add("rows", len(totals))
         return out[:-1], i32_to_u32(out[-1])
 
     def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
@@ -905,34 +946,36 @@ class DeviceKmerStore:
         n_below, n_above)).  Spilled runs are replayed into the store
         first; when they do not fit, the host merge and the host completer
         take over (kmc_tpu's route).  The store is consumed."""
-        self._require_sig_map()
-        replayed = bool(self.spilled)
-        try:
-            self._replay_spills()
-        except _SpillOverflow:
-            self.finalize_route = "host"
-            return self._finalize_records_host(
-                cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                counter_max=counter_max, lut_prefix_len=lut_prefix_len,
-                counter_size=counter_size)
-        self.finalize_route = "replay" if replayed else "device"
-        t0 = time.perf_counter()
-        reps, totals = self._reduce_live()
-        bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-        rec, lut, stats = _completer(
-            bins, wr, totals, cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-            counter_max=counter_max, k=self.k, lut_prefix_len=lut_prefix_len,
-            counter_size=counter_size, n_bins=self.n_used_bins)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.t_finalize_exec = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rec_h = rec.cpu().numpy()
-        lut_h = lut.cpu().numpy().astype(np.uint64)
-        stats_h = tuple(int(x) for x in torch.stack(stats).cpu())
-        self.t_finalize_d2h = time.perf_counter() - t0
-        self.key_cols = self.counts = None
-        return rec_h, lut_h, stats_h
+        with trace.span("kmc.finalize"):
+            self._require_sig_map()
+            replayed = bool(self.spilled)
+            try:
+                self._replay_spills()
+            except _SpillOverflow:
+                self.finalize_route = "host"
+                return self._finalize_records_host(
+                    cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                    counter_max=counter_max, lut_prefix_len=lut_prefix_len,
+                    counter_size=counter_size)
+            self.finalize_route = "replay" if replayed else "device"
+            with trace.span("kmc.finalize_exec"):  # ends with the device
+                reps, totals = self._reduce_live()
+                bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
+                rec, lut, stats = _completer(
+                    bins, wr, totals, cutoff_min=cutoff_min,
+                    cutoff_max=cutoff_max, counter_max=counter_max, k=self.k,
+                    lut_prefix_len=lut_prefix_len, counter_size=counter_size,
+                    n_bins=self.n_used_bins)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with trace.span("kmc.finalize_d2h"):
+                rec_h = rec.cpu().numpy()
+                lut_h = lut.cpu().numpy().astype(np.uint64)
+                stats_h = tuple(int(x) for x in torch.stack(stats).cpu())
+                trace.add("rows", len(rec_h))
+                trace.add("bytes", rec_h.nbytes + lut_h.nbytes)
+            self.key_cols = self.counts = None
+            return rec_h, lut_h, stats_h
 
     def finalize(self, *, cutoff_min: int, cutoff_max: int,
                  counter_max: int):
@@ -943,40 +986,47 @@ class DeviceKmerStore:
         count arithmetics as finalize_records: the device and replay
         routes take u32 group totals (a group that wraps to 0 is dropped),
         the host route u64 totals.  The store is consumed."""
-        self._require_sig_map()
-        replayed = bool(self.spilled)
-        try:
-            self._replay_spills()
-        except _SpillOverflow:
-            self.finalize_route = "host"
-            t0 = time.perf_counter()
-            bins, lanes, totals = self._host_merge()
-            self.t_host_merge = time.perf_counter() - t0
-            below = totals < cutoff_min
-            above = totals > cutoff_max
-            keep = ~below & ~above
-            cnt = np.minimum(totals[keep], np.uint64(counter_max))
-            return (bins[keep].astype(np.int32), lanes[keep],
-                    cnt.astype(np.uint32),
-                    (len(bins), int(below.sum()), int(above.sum())))
-        self.finalize_route = "replay" if replayed else "device"
-        t0 = time.perf_counter()
-        reps, totals = self._reduce_live()
-        bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-        keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
-                               cutoff_max=cutoff_max, n_bins=self.n_used_bins)
-        out_bins = bins[keep].to(torch.int32)
-        words = torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1)
-        cnt = u32_to_i32(torch.clamp(totals[keep], max=counter_max))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.t_finalize_exec = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = (out_bins.cpu().numpy(), _host_u32(words), _host_u32(cnt),
-               tuple(int(x) for x in torch.stack(stats).cpu()))
-        self.t_finalize_d2h = time.perf_counter() - t0
-        self.key_cols = self.counts = None
-        return out
+        with trace.span("kmc.finalize"):
+            self._require_sig_map()
+            replayed = bool(self.spilled)
+            try:
+                self._replay_spills()
+            except _SpillOverflow:
+                self.finalize_route = "host"
+                with trace.span("kmc.host_route"):
+                    bins, lanes, totals = self._host_merge()
+                    with trace.span("kmc.host_completer"):
+                        below = totals < cutoff_min
+                        above = totals > cutoff_max
+                        keep = ~below & ~above
+                        cnt = np.minimum(totals[keep], np.uint64(counter_max))
+                        out = (bins[keep].astype(np.int32), lanes[keep],
+                               cnt.astype(np.uint32),
+                               (len(bins), int(below.sum()),
+                                int(above.sum())))
+                        trace.add("rows", len(cnt))
+                return out
+            self.finalize_route = "replay" if replayed else "device"
+            with trace.span("kmc.finalize_exec"):  # ends with the device
+                reps, totals = self._reduce_live()
+                bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
+                keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
+                                       cutoff_max=cutoff_max,
+                                       n_bins=self.n_used_bins)
+                out_bins = bins[keep].to(torch.int32)
+                words = torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1)
+                cnt = u32_to_i32(torch.clamp(totals[keep], max=counter_max))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with trace.span("kmc.finalize_d2h"):
+                out = (out_bins.cpu().numpy(), _host_u32(words),
+                       _host_u32(cnt),
+                       tuple(int(x) for x in torch.stack(stats).cpu()))
+                trace.add("rows", len(out[0]))
+                trace.add("bytes", out[0].nbytes + out[1].nbytes
+                          + out[2].nbytes)
+            self.key_cols = self.counts = None
+            return out
 
     # -- stage-1 checkpoints, in kmc_tpu's file format --
 

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import os
 import socket
-import time
 import weakref
 from datetime import timedelta
 
@@ -48,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..device import resolve_device
 from ..ops.extract import i32_to_u32, u32_to_i32
 from ..ops.sort_kernel import radix_sort_columns
@@ -196,29 +196,29 @@ def nccl_groups(devices) -> list:
         groups, init_s, warmup_s = [], [], []
         for dev in slots:
             with torch.cuda.device(dev):
-                t0 = time.perf_counter()
-                g = dist.new_group(backend="nccl", timeout=_Group.timeout,
-                                   device_id=dev)
-                probe = torch.ones(1, dtype=torch.int32, device=dev)
-                dist.all_reduce(probe, group=g)
-                if int(probe) != world:
-                    raise RuntimeError(f"kmc_tpu_torch: the NCCL group of "
-                                       f"{dev}'s slot gave {int(probe)} in "
-                                       "its first all-reduce")
-                t1 = time.perf_counter()
-                got = torch.zeros(world, dtype=torch.int32, device=dev)
-                ops = [op for p in peers for op in (
-                    dist.P2POp(dist.isend, probe, p, g),
-                    dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
-                for w in dist.batch_isend_irecv(ops) if ops else []:
-                    w.wait()
-                if int(got.sum()) != world * len(peers):
-                    raise RuntimeError(f"kmc_tpu_torch: the pairs of the NCCL "
-                                       f"group of {dev}'s slot delivered "
-                                       "wrong values")
+                with trace.span("kmc.nccl_init") as init_span:
+                    g = dist.new_group(backend="nccl",
+                                       timeout=_Group.timeout, device_id=dev)
+                    probe = torch.ones(1, dtype=torch.int32, device=dev)
+                    dist.all_reduce(probe, group=g)
+                    if int(probe) != world:
+                        raise RuntimeError(
+                            f"kmc_tpu_torch: the NCCL group of {dev}'s slot "
+                            f"gave {int(probe)} in its first all-reduce")
+                with trace.span("kmc.nccl_warmup") as warmup_span:
+                    got = torch.zeros(world, dtype=torch.int32, device=dev)
+                    ops = [op for p in peers for op in (
+                        dist.P2POp(dist.isend, probe, p, g),
+                        dist.P2POp(dist.irecv, got[p:p + 1], p, g))]
+                    for w in dist.batch_isend_irecv(ops) if ops else []:
+                        w.wait()
+                    if int(got.sum()) != world * len(peers):
+                        raise RuntimeError(
+                            f"kmc_tpu_torch: the pairs of the NCCL group of "
+                            f"{dev}'s slot delivered wrong values")
                 groups.append(g)
-                init_s.append(t1 - t0)
-                warmup_s.append(time.perf_counter() - t1)
+                init_s.append(init_span.seconds)
+                warmup_s.append(warmup_span.seconds)
         if torch.cuda.current_device() not in {d.index for d in slots}:
             torch.cuda.set_device(slots[0])  # no context on a card not ours
         nccl_groups.init_s, nccl_groups.warmup_s = init_s, warmup_s

@@ -103,11 +103,11 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..defs import MAX_K, STATS_SAMPLE_BYTES, calc_counter_size
 from ..io.readers import homopolymer_compress_stream
 from ..ops.extract import i32_to_u32, u32_to_i32
@@ -201,7 +201,22 @@ class ShardedKmerStore:
         self.n_remerges = 0
         self.merge_launches = 0  # grouping-sort launches of the merges
         self._owner_merge_launches = 0  # of them, this process's owners'
-        self.timings: dict[str, float] = dict(spill_s=0.0, remerge_s=0.0)
+        # the totals its spans add to: the count's it is made in
+        self._count = trace.current_count() or trace.Count()
+
+    @property
+    def timings(self) -> dict:
+        """Seconds of the spills, re-merges, the exchange's owner plan,
+        the exchange and the owners' grouping sort, the owners' merges and
+        the copies to the host, from the store's spans."""
+        c = self._count
+        return dict(spill_s=c.seconds("kmc.spill"),
+                    remerge_s=c.seconds("kmc.remerge"),
+                    owner_hist_s=c.seconds("kmc.owner_hist"),
+                    exchange_groupsort_s=c.seconds("kmc.exchange",
+                                                   "kmc.owner_sort"),
+                    finalize_exec_s=c.seconds("kmc.finalize_exec"),
+                    finalize_d2h_s=c.seconds("kmc.finalize_d2h"))
 
     # -- ingest --
 
@@ -247,20 +262,20 @@ class ShardedKmerStore:
         every process are gathered to every process in global shard order
         (kmc_tpu's _pull_rows all-gathers them), so the spilled set, its
         budget and its re-merges are the same on every rank."""
-        t0 = time.perf_counter()
-        runs = []
-        for shard in self.shards:
-            shard._materialize_counts()
-            cols, counts = shard._live_rows()
-            rows = radix_sort_columns(cols + [counts], self.n_cols)
-            runs.append((tuple(_host_u32(c) for c in rows[:-1]),
-                         _host_u32(rows[-1])))
-            shard.n_used = 0
-            shard._since_compact = 0
-        if self.fleet.multi:
-            runs = [run for part in self.fleet.all_gather_obj(runs)
-                    for run in part]
-        self.timings["spill_s"] += time.perf_counter() - t0
+        with trace.span("kmc.spill", count=self._count):
+            runs = []
+            for shard in self.shards:
+                shard._materialize_counts()
+                cols, counts = shard._live_rows()
+                rows = radix_sort_columns(cols + [counts], self.n_cols)
+                runs.append((tuple(_host_u32(c) for c in rows[:-1]),
+                             _host_u32(rows[-1])))
+                trace.add("bytes", 4 * len(rows) * len(rows[-1]))
+                shard.n_used = 0
+                shard._since_compact = 0
+            if self.fleet.multi:
+                runs = [run for part in self.fleet.all_gather_obj(runs)
+                        for run in part]
         self.spilled.append(runs)
         self.n_spills += 1
         self._rows_per_device = 0
@@ -289,13 +304,15 @@ class ShardedKmerStore:
         """Collapse every spilled run into one sorted unique run, merged on
         the first shard's device; totals clamp at 0xFFFFFFFF (kmc_tpu's
         _remerge_spilled)."""
-        t0 = time.perf_counter()
-        launches = radix_sort_columns.launches
-        runs = [run for spill in self.spilled for run in spill]
-        self.spilled = [[remerge_runs(runs, self.n_cols, self.devices[0])]]
-        self.merge_launches += radix_sort_columns.launches - launches
-        self.n_remerges += 1
-        self.timings["remerge_s"] += time.perf_counter() - t0
+        with trace.span("kmc.remerge", count=self._count):
+            launches = radix_sort_columns.launches
+            runs = [run for spill in self.spilled for run in spill]
+            self.spilled = [[remerge_runs(runs, self.n_cols,
+                                          self.devices[0])]]
+            launches = radix_sort_columns.launches - launches
+            self.merge_launches += launches
+            trace.add("sort_launches", launches)
+            self.n_remerges += 1
 
     def total_occurrences(self) -> int:
         """This process's shards' occurrences."""
@@ -341,69 +358,67 @@ class ShardedKmerStore:
         owners' bin bounds, None for one owner)."""
         D = self.D
         multi = self.fleet.multi
-        t0 = time.perf_counter()
-        senders = [sh._live_rows() for sh in self.shards]
-        for sh in self.shards:  # the store is consumed
-            sh.key_cols = sh.counts = None
-        has_counts = senders[0][1] is not None
-        if D == 1:  # single owner = self: no sort, no exchange
-            self.timings["owner_hist_s"] = time.perf_counter() - t0
-            self.timings["exchange_groupsort_s"] = 0.0
-            return senders, None
-        nh = self.n_used_bins + 1
-        sorted_rows, edges = [], []
-        for (cols, counts), dev in zip(senders, self.devices):
-            # rows in key-column-0 order are in bin order, hence in owner
-            # order: each owner's rows are one slice
-            rows = radix_sort_columns(
-                cols + ([counts] if has_counts else []), 1)
-            sorted_rows.append(rows)
-            edges.append(torch.searchsorted(
-                self._bins(rows[0]), torch.arange(nh + 1, device=dev)))
-        del senders
-        # edges[j, b]: sender j's first row of bin b or a later one, for
-        # every sender of the group (each process plans the same owners)
-        local_edges = np.stack([e.cpu().numpy() for e in edges])
-        edges = self.fleet.all_rows(local_edges)
-        cap, bounds = self._owner_plan(np.diff(edges, axis=1))
-        self.timings["owner_hist_s"] = time.perf_counter() - t0
+        with trace.span("kmc.owner_hist", count=self._count):
+            senders = [sh._live_rows() for sh in self.shards]
+            for sh in self.shards:  # the store is consumed
+                sh.key_cols = sh.counts = None
+            has_counts = senders[0][1] is not None
+            if D == 1:  # single owner = self: no sort, no exchange
+                return senders, None
+            nh = self.n_used_bins + 1
+            sorted_rows, edges = [], []
+            for (cols, counts), dev in zip(senders, self.devices):
+                # rows in key-column-0 order are in bin order, hence in
+                # owner order: each owner's rows are one slice
+                rows = radix_sort_columns(
+                    cols + ([counts] if has_counts else []), 1)
+                sorted_rows.append(rows)
+                edges.append(torch.searchsorted(
+                    self._bins(rows[0]), torch.arange(nh + 1, device=dev)))
+            del senders
+            # edges[j, b]: sender j's first row of bin b or a later one, for
+            # every sender of the group (each process plans the same owners)
+            local_edges = np.stack([e.cpu().numpy() for e in edges])
+            edges = self.fleet.all_rows(local_edges)
+            cap, bounds = self._owner_plan(np.diff(edges, axis=1))
 
-        t0 = time.perf_counter()
-        C = self.n_cols + int(has_counts)
-        counts = np.diff(edges[:, bounds], axis=1)  # n[j][o], every sender
-        if int(np.maximum(counts - cap, 0).sum()):
-            raise MemoryError("all_to_all capacity exceeded: the owner "
-                              "plan's segments disagree with the rows")
-        send = []
-        for rows, starts, dev in zip(sorted_rows, local_edges[:, bounds],
-                                     self.devices):
-            buf = send_buffer((D, cap, C), dev, multi)
-            for o in range(D):
-                lo, n = int(starts[o]), int(starts[o + 1] - starts[o])
-                for c, col in enumerate(rows):
-                    buf[o, :n, c] = col[lo:lo + n]
-            send.append(buf)
-        del sorted_rows
-        if multi:
-            outs, recv_rows = ragged_all_to_all_processes(
-                send, counts, self.fleet.layout)
-            route = "plain" if self.devices[0].type == "cpu" else "ipc_kernel"
-            if self.fleet.multi_node:
-                route += "+p2p" if route == "plain" else "+nccl"
-        else:
-            outs, recv_rows = ragged_all_to_all(send, counts)
-            route = "plain" if self.devices[0].type == "cpu" else "kernel"
-        del send
-        self.exchange_route = route
-        self.exchange_bytes = int(2 * 4 * C * counts.sum())
-        received = []
-        for r, out in enumerate(outs):
-            rows = torch.cat([out[j, :int(recv_rows[r, j])]
-                              for j in range(D)])
-            cols = [rows[:, c].contiguous() for c in range(C)]
-            received.append((cols[:self.n_cols],
-                             cols[self.n_cols] if has_counts else None))
-        self.timings["exchange_groupsort_s"] = time.perf_counter() - t0
+        with trace.span("kmc.exchange", count=self._count):
+            C = self.n_cols + int(has_counts)
+            counts = np.diff(edges[:, bounds], axis=1)  # n[j][o], every sender
+            if int(np.maximum(counts - cap, 0).sum()):
+                raise MemoryError("all_to_all capacity exceeded: the owner "
+                                  "plan's segments disagree with the rows")
+            send = []
+            for rows, starts, dev in zip(sorted_rows, local_edges[:, bounds],
+                                         self.devices):
+                buf = send_buffer((D, cap, C), dev, multi)
+                for o in range(D):
+                    lo, n = int(starts[o]), int(starts[o + 1] - starts[o])
+                    for c, col in enumerate(rows):
+                        buf[o, :n, c] = col[lo:lo + n]
+                send.append(buf)
+            del sorted_rows
+            if multi:
+                outs, recv_rows = ragged_all_to_all_processes(
+                    send, counts, self.fleet.layout)
+                route = ("plain" if self.devices[0].type == "cpu"
+                         else "ipc_kernel")
+                if self.fleet.multi_node:
+                    route += "+p2p" if route == "plain" else "+nccl"
+            else:
+                outs, recv_rows = ragged_all_to_all(send, counts)
+                route = "plain" if self.devices[0].type == "cpu" else "kernel"
+            del send
+            self.exchange_route = route
+            self.exchange_bytes = int(2 * 4 * C * counts.sum())
+            trace.add("bytes", self.exchange_bytes)
+            received = []
+            for r, out in enumerate(outs):
+                rows = torch.cat([out[j, :int(recv_rows[r, j])]
+                                  for j in range(D)])
+                cols = [rows[:, c].contiguous() for c in range(C)]
+                received.append((cols[:self.n_cols],
+                                 cols[self.n_cols] if has_counts else None))
         return received, bounds
 
     def _owner_keys(self, bounds, o: int):
@@ -428,33 +443,33 @@ class ShardedKmerStore:
         n_total = self.total_occurrences()
         n_skm = self.total_super_kmers()
         received, bounds = self._received_rows()
-        t0 = time.perf_counter()
-        grouped = [_group_reduce(cols, counts, self.n_cols)
-                   for cols, counts in received]
-        del received
-        _sync(self.devices)
-        self.timings["exchange_groupsort_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        spilled = [run for spill in self.spilled for run in spill]
-        self.spilled = []
-        launches = radix_sort_columns.launches
-        for l, o in enumerate(self.positions):
-            reps, totals = grouped[l]
-            grouped[l] = None
-            if not spilled:
-                emit(reps, totals)
-                continue
-            lo, hi = self._owner_keys(bounds, o)
-            merge_runs([(reps, u32_to_i32(totals))] + spilled, self.n_cols,
-                       self.devices[l],
-                       lambda r, t: emit(r, t.clamp_(max=0xFFFFFFFF)),
-                       lo=lo, hi=hi)
-            del reps, totals
-        del spilled
-        _sync(self.devices)
-        self._owner_merge_launches = radix_sort_columns.launches - launches
-        self.merge_launches += self._owner_merge_launches
-        self.timings["finalize_exec_s"] = time.perf_counter() - t0
+        with trace.span("kmc.owner_sort", count=self._count):
+            grouped = [_group_reduce(cols, counts, self.n_cols)
+                       for cols, counts in received]
+            del received
+            _sync(self.devices)
+        with trace.span("kmc.finalize_exec", count=self._count):
+            spilled = [run for spill in self.spilled for run in spill]
+            self.spilled = []
+            launches = radix_sort_columns.launches
+            for l, o in enumerate(self.positions):
+                reps, totals = grouped[l]
+                grouped[l] = None
+                if not spilled:
+                    emit(reps, totals)
+                    continue
+                lo, hi = self._owner_keys(bounds, o)
+                merge_runs([(reps, u32_to_i32(totals))] + spilled,
+                           self.n_cols, self.devices[l],
+                           lambda r, t: emit(r, t.clamp_(max=0xFFFFFFFF)),
+                           lo=lo, hi=hi)
+                del reps, totals
+            del spilled
+            _sync(self.devices)
+            self._owner_merge_launches = (radix_sort_columns.launches
+                                          - launches)
+            self.merge_launches += self._owner_merge_launches
+            trace.add("sort_launches", self._owner_merge_launches)
         return n_total, n_skm
 
     def _global(self, n_total, n_skm, stats):
@@ -485,26 +500,27 @@ class ShardedKmerStore:
                 n_bins=self.n_used_bins))
 
         n_total, n_skm = self._owner_groups(complete)
-        t0 = time.perf_counter()
-        recs, lut, stats = [], None, np.zeros(3, np.int64)
-        for rec, lut_o, stats_o in parts:
-            recs.append(rec.cpu().numpy())
-            lut_h = lut_o.cpu().numpy().astype(np.uint64)
-            lut = lut_h if lut is None else lut + lut_h
-            stats += torch.stack(stats_o).cpu().numpy()
-        del parts
-        n_total, n_skm, stats = self._global(n_total, n_skm, stats)
-        if self.fleet.multi:
-            # the owners are rank-major: rank 0 concatenates in rank order
-            got = self.fleet.gather_obj((recs, lut))
-            if got is None:
-                recs, lut = [None], None
-            else:
-                # an owner whose bins hold no row emits nothing
-                recs = [r for part, _ in got for r in part]
-                luts = [lut_p for _, lut_p in got if lut_p is not None]
-                lut = sum(luts[1:], luts[0]) if luts else None
-        self.timings["finalize_d2h_s"] = time.perf_counter() - t0
+        with trace.span("kmc.finalize_d2h", count=self._count):
+            recs, lut, stats = [], None, np.zeros(3, np.int64)
+            for rec, lut_o, stats_o in parts:
+                recs.append(rec.cpu().numpy())
+                lut_h = lut_o.cpu().numpy().astype(np.uint64)
+                lut = lut_h if lut is None else lut + lut_h
+                stats += torch.stack(stats_o).cpu().numpy()
+                trace.add("bytes", recs[-1].nbytes + lut_h.nbytes)
+            del parts
+            n_total, n_skm, stats = self._global(n_total, n_skm, stats)
+            if self.fleet.multi:
+                # the owners are rank-major: rank 0 concatenates in rank
+                # order
+                got = self.fleet.gather_obj((recs, lut))
+                if got is None:
+                    recs, lut = [None], None
+                else:
+                    # an owner whose bins hold no row emits nothing
+                    recs = [r for part, _ in got for r in part]
+                    luts = [lut_p for _, lut_p in got if lut_p is not None]
+                    lut = sum(luts[1:], luts[0]) if luts else None
         rec = np.concatenate(recs) if len(recs) > 1 else recs[0]
         return (rec, lut, stats, n_total, n_skm)
 
@@ -532,25 +548,26 @@ class ShardedKmerStore:
                 torch.stack(stats)))
 
         n_total, n_skm = self._owner_groups(collect)
-        t0 = time.perf_counter()
-        bins = [np.zeros(0, np.int32)]
-        words = [np.zeros((0, self.W), np.uint32)]
-        counts = [np.zeros(0, np.uint32)]
-        stats = np.zeros(3, np.int64)
-        for b, w, c, st in parts:
-            bins.append(b.cpu().numpy())
-            words.append(_host_u32(w))
-            counts.append(_host_u32(c))
-            stats += st.cpu().numpy()
-        del parts
-        n_total, n_skm, stats = self._global(n_total, n_skm, stats)
-        out = [np.concatenate(bins), np.concatenate(words),
-               np.concatenate(counts)]
-        if self.fleet.multi:
-            got = self.fleet.gather_obj(out)
-            out = [None] * 3 if got is None else [
-                np.concatenate(cols) for cols in zip(*got)]
-        self.timings["finalize_d2h_s"] = time.perf_counter() - t0
+        with trace.span("kmc.finalize_d2h", count=self._count):
+            bins = [np.zeros(0, np.int32)]
+            words = [np.zeros((0, self.W), np.uint32)]
+            counts = [np.zeros(0, np.uint32)]
+            stats = np.zeros(3, np.int64)
+            for b, w, c, st in parts:
+                bins.append(b.cpu().numpy())
+                words.append(_host_u32(w))
+                counts.append(_host_u32(c))
+                stats += st.cpu().numpy()
+                trace.add("bytes", bins[-1].nbytes + words[-1].nbytes
+                          + counts[-1].nbytes)
+            del parts
+            n_total, n_skm, stats = self._global(n_total, n_skm, stats)
+            out = [np.concatenate(bins), np.concatenate(words),
+                   np.concatenate(counts)]
+            if self.fleet.multi:
+                got = self.fleet.gather_obj(out)
+                out = [None] * 3 if got is None else [
+                    np.concatenate(cols) for cols in zip(*got)]
         return (*out, stats, n_total, n_skm)
 
 
@@ -730,8 +747,9 @@ def _prefetch_groups(gen, depth: int = 2):
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list = []
     stop = threading.Event()
+    started_by = trace.current()
 
-    def run():
+    def feed():
         try:
             for item in gen:
                 while not stop.is_set():
@@ -754,11 +772,16 @@ def _prefetch_groups(gen, depth: int = 2):
                 except queue.Full:
                     continue
 
+    def run():
+        with trace.span("kmc.ingest_feed", parent=started_by, usage=True):
+            feed()
+
     t = threading.Thread(target=run, daemon=True, name="kmc-ingest-feed")
     t.start()
     try:
         while True:
-            item = q.get()
+            with trace.span("kmc.queue_get"):
+                item = q.get()
             if item is None:
                 if err:
                     raise err[0]
@@ -829,21 +852,22 @@ def _stage0_greedy_map(input_files, fmt, *, k, sig_len, n_bins,
     from ..ops.sortcount import stage0_accum
     from ..signatures import build_signature_map, map_size
 
-    t0 = time.perf_counter()
     s = batch_positions
-    hist = torch.zeros(map_size(sig_len), dtype=torch.int64, device=device)
-    gen = file_code_stream(input_files, fmt, ParseState(),
-                           max_bytes=STATS_SAMPLE_BYTES)
-    if homopolymer_compressed:
-        gen = homopolymer_compress_stream(gen)
-    for batch in BatchStream(s, k).batches(gen):
-        stage0_accum(torch.from_numpy(batch).to(device), hist, s=s, k=k,
-                     sig_len=sig_len)
-    hist = hist.cpu().numpy().astype(np.uint64)
-    t1 = time.perf_counter()
-    sig_map = build_signature_map(hist, sig_len, n_bins)
-    timings["stage0_s"] = t1 - t0
-    timings["map_build_s"] = time.perf_counter() - t1
+    with trace.span("kmc.stage0") as hist_span:
+        hist = torch.zeros(map_size(sig_len), dtype=torch.int64,
+                           device=device)
+        gen = file_code_stream(input_files, fmt, ParseState(),
+                               max_bytes=STATS_SAMPLE_BYTES)
+        if homopolymer_compressed:
+            gen = homopolymer_compress_stream(gen)
+        for batch in BatchStream(s, k).batches(gen):
+            stage0_accum(torch.from_numpy(batch).to(device), hist, s=s, k=k,
+                         sig_len=sig_len)
+        hist = hist.cpu().numpy().astype(np.uint64)
+    with trace.span("kmc.map_build") as map_span:
+        sig_map = build_signature_map(hist, sig_len, n_bins)
+    timings["stage0_s"] = hist_span.seconds
+    timings["map_build_s"] = map_span.seconds
     return sig_map
 
 
@@ -1045,116 +1069,125 @@ def distributed_count(
             "n_processes": fleet.world,
         }
 
+    count = trace.Count()
     timings = {}
-    sig_map = None
-    if signature_map_policy == "greedy":
-        # every process samples the same start of the serial stream, so
-        # every process builds the same map
-        sig_map = _stage0_greedy_map(
-            input_files, input_file_type, k=k, sig_len=sig_len,
-            n_bins=n_bins, batch_positions=s,
-            homopolymer_compressed=homopolymer_compressed,
-            device=devices[0], timings=timings)
+    with trace.span("kmc.stage1", count=count, usage=True):
+        sig_map = None
+        if signature_map_policy == "greedy":
+            # every process samples the same start of the serial stream, so
+            # every process builds the same map
+            sig_map = _stage0_greedy_map(
+                input_files, input_file_type, k=k, sig_len=sig_len,
+                n_bins=n_bins, batch_positions=s,
+                homopolymer_compressed=homopolymer_compressed,
+                device=devices[0], timings=timings)
+        with trace.span("kmc.store_setup"):
+            # the -m carve sizes the shards and the spill budget; as in
+            # kmc_tpu, the parse keeps the chunk size in force (the sketch
+            # of --opt-out-size depends on it)
+            plan = plan_memory(max_ram_gb, k=k, batch_positions=s,
+                               n_threads=n_parse_threads or n_cpus(),
+                               strict_memory=strict_memory_mode,
+                               requested_rows=capacity_rows_per_device)
+            capacity = max(plan.device_store_rows, 2 * s)
+            # a card holds each shard whole from the start; on the CPU
+            # (tests) the shards start small and grow
+            on_card = all(d.type == "cuda" for d in devices)
+            store = ShardedKmerStore(
+                devices, capacity, k=k, sig_len=sig_len,
+                both_strands=both_strands, n_bins=n_bins,
+                initial_rows=None if on_card else 2 * s,
+                map_mode=signature_map_policy, sig_map=sig_map,
+                spill_budget_bytes=plan.spill_budget_bytes, fleet=fleet)
+            trace.add("rows", capacity * len(devices))
+        bs = BatchStream(s, k)
+        with trace.span("kmc.ingest"):
+            gen = _code_chunks(input_files, input_file_type, state,
+                               fleet=fleet, **stream)
+            if est is not None:
+                gen = _estimator_wrap(gen, est)
+            batches = bs.batches(gen)
+            if not fleet.multi:
+                groups = ((items, None) for items in _prefetch_groups(
+                    _groups(batches, D)))
+            elif shard_input:
+                groups = ((items, None) for items in _lockstep_groups(
+                    _prefetch_groups(_local_groups(batches, len(devices))),
+                    fleet, len(devices), bs.batch_bytes))
+            else:
+                groups = _prefetch_groups(_serial_deal(
+                    batches, fleet, _pack_batch, lambda batch: _last_signature(
+                        batch, s=s, k=k, sig_len=sig_len,
+                        both_strands=both_strands)))
+            for items, carry in groups:
+                store.ingest_group(items, s=s, carry=carry)
+            _sync(devices)
+            n_reads = _n_reads(state, fleet, shard_input)
 
-    # the -m carve sizes the shards and the spill budget; as in kmc_tpu,
-    # the parse keeps the chunk size in force (the sketch of
-    # --opt-out-size depends on it)
-    plan = plan_memory(max_ram_gb, k=k, batch_positions=s,
-                       n_threads=n_parse_threads or n_cpus(),
-                       strict_memory=strict_memory_mode,
-                       requested_rows=capacity_rows_per_device)
-    capacity = max(plan.device_store_rows, 2 * s)
-    # a card holds each shard whole from the start; on the CPU (tests) the
-    # shards start small and grow
-    on_card = all(d.type == "cuda" for d in devices)
-    store = ShardedKmerStore(devices, capacity, k=k, sig_len=sig_len,
-                             both_strands=both_strands, n_bins=n_bins,
-                             initial_rows=None if on_card else 2 * s,
-                             map_mode=signature_map_policy, sig_map=sig_map,
-                             spill_budget_bytes=plan.spill_budget_bytes,
-                             fleet=fleet)
-    bs = BatchStream(s, k)
+    with trace.span("kmc.stage2", count=count, usage=True):
+        with trace.span("kmc.finalize"):
+            n_used_bins = store.n_used_bins
+            counter_size = calc_counter_size(cutoff_max, counter_max)
+            # the LUT width is picked before finalize from the single-device
+            # runner's inputs: the estimated unique k-mers within the
+            # cutoffs under -e / --opt-out-size (kmc.h:1436-1447), else 4 x
+            # n_reads, so the database is the same bytes
+            estimated_histogram = None
+            if est is not None:
+                _merge_estimator_multihost(est, est_fleet)
+                estimated_histogram = est.estimate_histogram()
+                del est
+                end = min(cutoff_max + 1, len(estimated_histogram))
+                n_est_unique = sum(estimated_histogram[cutoff_min:end])
+            else:
+                n_est_unique = 4 * n_reads
+            lut_prefix_len = pick_lut_prefix_len(k, n_used_bins,
+                                                 max(n_est_unique, 1))
+            if output_type == "kff":
+                (bins, words, counts, (n_unique, n_below, n_above), n_total,
+                 n_skm) = store.finalize(
+                    cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                    counter_max=counter_max)
+            else:
+                rec, lut, (n_unique, n_below, n_above), n_total, n_skm = (
+                    store.finalize_records(
+                        cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                        counter_max=counter_max,
+                        lut_prefix_len=lut_prefix_len,
+                        counter_size=counter_size))
+        timings.update(store.timings)
+        timings["ingest_wall_s"] = count.seconds("kmc.ingest")
+        timings["finalize_wall_s"] = count.seconds("kmc.finalize")
+        if store.exchange_route is not None:
+            timings["exchange_route"] = store.exchange_route
 
-    t_ingest0 = time.perf_counter()
-    gen = _code_chunks(input_files, input_file_type, state, fleet=fleet,
-                       **stream)
-    if est is not None:
-        gen = _estimator_wrap(gen, est)
-    batches = bs.batches(gen)
-    if not fleet.multi:
-        groups = ((items, None) for items in _prefetch_groups(
-            _groups(batches, D)))
-    elif shard_input:
-        groups = ((items, None) for items in _lockstep_groups(
-            _prefetch_groups(_local_groups(batches, len(devices))), fleet,
-            len(devices), bs.batch_bytes))
-    else:
-        groups = _prefetch_groups(_serial_deal(
-            batches, fleet, _pack_batch, lambda batch: _last_signature(
-                batch, s=s, k=k, sig_len=sig_len,
-                both_strands=both_strands)))
-    for items, carry in groups:
-        store.ingest_group(items, s=s, carry=carry)
-    _sync(devices)
-    n_reads = _n_reads(state, fleet, shard_input)
-    t_finalize0 = time.perf_counter()
+        with trace.span("kmc.write"):
+            if fleet.rank != 0:
+                pass  # rank 0 writes the database
+            elif output_type == "kff":
+                from ..formats.kff import KffWriter
+                from ..runner import write_kff_sections
 
-    n_used_bins = store.n_used_bins
-    counter_size = calc_counter_size(cutoff_max, counter_max)
-    # the LUT width is picked before finalize from the single-device
-    # runner's inputs: the estimated unique k-mers within the cutoffs
-    # under -e / --opt-out-size (kmc.h:1436-1447), else 4 x n_reads, so the
-    # database is the same bytes
-    estimated_histogram = None
-    if est is not None:
-        _merge_estimator_multihost(est, est_fleet)
-        estimated_histogram = est.estimate_histogram()
-        del est
-        end = min(cutoff_max + 1, len(estimated_histogram))
-        n_est_unique = sum(estimated_histogram[cutoff_min:end])
-    else:
-        n_est_unique = 4 * n_reads
-    lut_prefix_len = pick_lut_prefix_len(k, n_used_bins,
-                                         max(n_est_unique, 1))
-    if output_type == "kff":
-        bins, words, counts, (n_unique, n_below, n_above), n_total, n_skm = (
-            store.finalize(cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                           counter_max=counter_max))
-    else:
-        rec, lut, (n_unique, n_below, n_above), n_total, n_skm = (
-            store.finalize_records(
-                cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                counter_max=counter_max, lut_prefix_len=lut_prefix_len,
-                counter_size=counter_size))
-    timings.update(store.timings)
-    timings["ingest_wall_s"] = t_finalize0 - t_ingest0
-    timings["finalize_wall_s"] = time.perf_counter() - t_finalize0
-    if store.exchange_route is not None:
-        timings["exchange_route"] = store.exchange_route
-
-    if fleet.rank != 0:
-        pass  # rank 0 writes the database
-    elif output_type == "kff":
-        from ..formats.kff import KffWriter
-        from ..runner import write_kff_sections
-
-        write_kff_sections(
-            KffWriter(output_file_name + ".kff", canonical=both_strands, k=k,
-                      counter_size=counter_size, min_count=cutoff_min,
-                      max_count=cutoff_max),
-            bins, words, counts, k=k, n_bins=n_used_bins)
-    else:
-        info = DbInfo(kmer_len=k, counter_size=counter_size,
-                      lut_prefix_len=lut_prefix_len, signature_len=sig_len,
-                      cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                      both_strands=both_strands, n_bins=n_used_bins)
-        writer = Kmc2DbWriter(output_file_name, info, store.host_sig_map())
-        writer.n_unique = n_unique
-        writer.n_below_min = n_below
-        writer.n_above_max = n_above
-        writer.n_total = n_total
-        writer.write_all_records(rec, lut)
-        writer.close()
+                write_kff_sections(
+                    KffWriter(output_file_name + ".kff",
+                              canonical=both_strands, k=k,
+                              counter_size=counter_size,
+                              min_count=cutoff_min, max_count=cutoff_max),
+                    bins, words, counts, k=k, n_bins=n_used_bins)
+            else:
+                info = DbInfo(kmer_len=k, counter_size=counter_size,
+                              lut_prefix_len=lut_prefix_len,
+                              signature_len=sig_len, cutoff_min=cutoff_min,
+                              cutoff_max=cutoff_max,
+                              both_strands=both_strands, n_bins=n_used_bins)
+                writer = Kmc2DbWriter(output_file_name, info,
+                                      store.host_sig_map())
+                writer.n_unique = n_unique
+                writer.n_below_min = n_below
+                writer.n_above_max = n_above
+                writer.n_total = n_total
+                writer.write_all_records(rec, lut)
+                writer.close()
     out = {
         "n_unique": n_unique,
         "n_below": n_below,

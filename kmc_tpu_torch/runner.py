@@ -44,7 +44,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 from enum import Enum
 from pathlib import Path
@@ -53,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import defs
+from . import defs, trace
 from .defs import calc_counter_size
 from .device import device_name, resolve_device
 from .formats.kmc_db import (DbInfo, Kmc2DbWriter, pick_lut_prefix_len,
@@ -226,13 +225,21 @@ class Runner:
         # spills, re-merges and the finalize route of the last count, with
         # their bytes and times (set by stage 1, completed by stage 2)
         self.spill_stats: dict = {}
+        # the totals of the spans of the last run_stage1 / run_stage2 pair
+        self._count = trace.Count()
 
     # ---------------- stage 1 ----------------
     def run_stage1(self, params: Stage1Params) -> Stage1Results:
         params.validate()
         self._s1 = params
-        t0 = time.perf_counter()
+        self._count = trace.Count()
         results = Stage1Results()
+        with trace.span("kmc.stage1", count=self._count, usage=True):
+            self._stage1(params, results)
+        results.time = self._count.seconds("kmc.stage1")
+        return results
+
+    def _stage1(self, params: Stage1Params, results: Stage1Results):
         k = params.kmer_len
         self._small_k = k < MIN_DEVICE_K
         self._estimator = None
@@ -270,8 +277,6 @@ class Runner:
             self._estimator = None  # frees the counters
         results.n_sequences = self._n_reads
         results.was_small_k_opt_used = self._small_k
-        results.time = time.perf_counter() - t0
-        return results
 
     def _memory_plan(self, params: Stage1Params):
         """The -m carve for this run; also sizes the parse chunks.  As in
@@ -335,20 +340,23 @@ class Runner:
         _run_stage0) -> the greedy signature -> bin map."""
         from .ops.sortcount import stage0_accum
 
-        t0 = time.perf_counter()
         m = params.signature_len
-        hist = torch.zeros(map_size(m), dtype=torch.int64, device=self.device)
-        for batch in self._batches(params, max_bytes=defs.STATS_SAMPLE_BYTES):
-            stage0_accum(self._codes_on_device(batch), hist,
-                         s=params.batch_positions, k=params.kmer_len,
-                         sig_len=m)
-        t1 = time.perf_counter()
-        self._sig_map = build_signature_map(
-            hist.cpu().numpy().astype(np.uint64), m, params.n_bins)
-        self._n_used_bins = n_used_bins(self._sig_map)
+        with trace.span("kmc.stage0") as hist_span:
+            hist = torch.zeros(map_size(m), dtype=torch.int64,
+                               device=self.device)
+            for batch in self._batches(params,
+                                       max_bytes=defs.STATS_SAMPLE_BYTES):
+                stage0_accum(self._codes_on_device(batch), hist,
+                             s=params.batch_positions, k=params.kmer_len,
+                             sig_len=m)
+            hist = hist.cpu().numpy().astype(np.uint64)
+        with trace.span("kmc.map_build") as map_span:
+            self._sig_map = build_signature_map(hist, m, params.n_bins)
+            self._n_used_bins = n_used_bins(self._sig_map)
         if params.verbose:
-            print(f"[stage0] signature map: {time.perf_counter() - t0:.2f}s "
-                  f"(histogram {t1 - t0:.2f}s)")
+            print(f"[stage0] signature map: "
+                  f"{hist_span.seconds + map_span.seconds:.2f}s "
+                  f"(histogram {hist_span.seconds:.2f}s)")
 
     def _run_stage1_host_buckets(self, params: Stage1Params):
         """Unique rows of each batch (splitter scan + grouping sort on the
@@ -416,27 +424,30 @@ class Runner:
         k, m = params.kmer_len, params.signature_len
         s = params.batch_positions
         bs = BatchStream(s, k)
-        plan = self._memory_plan(params)
-        capacity = max(plan.device_store_rows, 2 * s)
-        # the card holds the whole store from the start; on the CPU (tests)
-        # it starts small and grows
-        init_rows = capacity if self.device.type == "cuda" else 2 * s
-        greedy = params.signature_map_policy == "greedy"
-        fold = greedy and greedy_defer_default()
-        store_kw = dict(map_mode=params.signature_map_policy,
-                        n_bins=params.n_bins)
-        if greedy:
-            store_kw["greedy_defer"] = fold
-            if not fold:  # eager: the map before the first batch
-                self._run_stage0(params)
-                store_kw["sig_map"] = self._sig_map
-        store = DeviceKmerStore(
-            capacity, k=k, sig_len=m, both_strands=params.canonical_kmers,
-            initial_rows=init_rows, spill_budget_bytes=plan.spill_budget_bytes,
-            device=self.device, **store_kw)
-        # the deferred fold's histogram, on the device, and its sample cap
-        hist = (torch.zeros(map_size(m), dtype=torch.int32, device=self.device)
-                if fold else None)
+        with trace.span("kmc.store_setup"):
+            plan = self._memory_plan(params)
+            capacity = max(plan.device_store_rows, 2 * s)
+            # the card holds the whole store from the start; on the CPU
+            # (tests) it starts small and grows
+            init_rows = capacity if self.device.type == "cuda" else 2 * s
+            greedy = params.signature_map_policy == "greedy"
+            fold = greedy and greedy_defer_default()
+            store_kw = dict(map_mode=params.signature_map_policy,
+                            n_bins=params.n_bins)
+            if greedy:
+                store_kw["greedy_defer"] = fold
+                if not fold:  # eager: the map before the first batch
+                    self._run_stage0(params)
+                    store_kw["sig_map"] = self._sig_map
+            store = DeviceKmerStore(
+                capacity, k=k, sig_len=m, both_strands=params.canonical_kmers,
+                initial_rows=init_rows,
+                spill_budget_bytes=plan.spill_budget_bytes,
+                device=self.device, **store_kw)
+            # the deferred fold's histogram, on the device
+            hist = (torch.zeros(map_size(m), dtype=torch.int32,
+                                device=self.device) if fold else None)
+            trace.add("rows", store.capacity)
         sample_cap = int(os.environ.get("KMC_TPU_STAGE0_SAMPLE_POSITIONS",
                                         str(1 << 27)))
         sampled = 0
@@ -447,8 +458,6 @@ class Runner:
         if ppo is not None:
             ppo.set_label("Stage 1: ")
         state_ref = None
-        t_host = t_queue = 0.0
-        t_prev = time.perf_counter()
         chunk_gen = self._chunks(params)
 
         def gen():
@@ -463,86 +472,110 @@ class Runner:
         # triggers; their errors reach this thread through `errors`)
         q: queue.Queue = queue.Queue(maxsize=3)
         errors: list = []
+        started_by = trace.current()
 
         def worker():
             nonlocal sampled
-            try:
-                while True:
-                    item = q.get()
-                    if item is None:
-                        return
-                    h = hist if fold and sampled < sample_cap else None
-                    if item[0] == "b":
-                        store.ingest_boundaries(item[1], item[2], s=s, hist=h)
-                    else:
-                        store.ingest_fused(item[1], s=s, hist=h)
-                    if h is not None:
-                        sampled += s
-            except BaseException as e:  # noqa: BLE001 - re-raised after join
-                errors.append(e)
-                while q.get() is not None:  # unblock the producer
-                    pass
+            with trace.span("kmc.ingest_worker", parent=started_by,
+                            usage=True):
+                try:
+                    while True:
+                        with trace.span("kmc.queue_get"):
+                            item = q.get()
+                        if item is None:
+                            return
+                        h = hist if fold and sampled < sample_cap else None
+                        if item[0] == "b":
+                            store.ingest_boundaries(item[1], item[2], s=s,
+                                                    hist=h)
+                        else:
+                            store.ingest_fused(item[1], s=s, hist=h)
+                        if h is not None:
+                            sampled += s
+                except BaseException as e:  # noqa: BLE001 - re-raised
+                    errors.append(e)
+                    while q.get() is not None:  # unblock the producer
+                        pass
 
         th = threading.Thread(target=worker, name="kmc-ingest", daemon=True)
         th.start()
+        batches = bs.batches(gen())
         try:
-            for batch in bs.batches(gen()):
+            while True:
+                # the stream's next batch: the wait on the reader pool, the
+                # batch assembly and the pool's start
+                with trace.span("kmc.next_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 # boundary-delta feed when sentinels are sparse; packed+mask
                 # for sentinel-dense batches
-                buf, ts = pack_codes_boundaries(batch)
-                item = ("b", buf, ts) if buf is not None else (
-                    "m", pack_codes_fused(batch))
-                t_now = time.perf_counter()
-                t_host += t_now - t_prev
+                with trace.span("kmc.pack"):
+                    buf, ts = pack_codes_boundaries(batch)
+                    if buf is not None:
+                        item = ("b", buf, ts)
+                        trace.add("boundary")
+                    else:
+                        item = ("m", pack_codes_fused(batch))
+                        trace.add("mask")
                 if errors:
                     break
-                q.put(item)
+                with trace.span("kmc.queue_put"):
+                    q.put(item)
                 if ppo is not None and total_bytes and state_ref is not None:
                     ppo.set_progress(
                         min(99, state_ref.consumed_bytes * 100 // total_bytes)
                     )
-                t_prev = time.perf_counter()
-                t_queue += t_prev - t_now
         finally:
             # always deliver the sentinel, so a parse error cannot leave the
             # worker blocked on the queue
-            q.put(None)
-            th.join()
+            with trace.span("kmc.ingest_drain"):
+                q.put(None)
+                th.join()
         if errors:
             raise errors[0]
         if ppo is not None:
             ppo.set_progress(100)
         if fold:
-            t0 = time.perf_counter()
-            counts = hist.cpu().numpy().view(np.uint32).astype(np.uint64)
-            store.set_sig_map(build_signature_map(counts, m, params.n_bins))
+            with trace.span("kmc.map_build") as map_span:
+                counts = hist.cpu().numpy().view(np.uint32).astype(np.uint64)
+                store.set_sig_map(build_signature_map(counts, m,
+                                                      params.n_bins))
             if params.verbose:
                 print(f"[stage0] folded signature map ({sampled} sampled "
-                      f"positions): {time.perf_counter() - t0:.2f}s")
-        if params.verbose:
-            print(f"[stage1] on {device_name(self.device)}: "
-                  f"host(parse+pack): {t_host:.2f}s "
-                  f"queue-wait: {t_queue:.2f}s "
-                  f"({store.total_appended_rows // max(s, 1)} batches, "
-                  f"{store.n_compactions} compactions, {store.n_spills} "
-                  f"spills of {store.spill_bytes} bytes, spill D2H "
-                  f"{store.t_spill_d2h:.2f}s, {store.n_remerges} re-merges "
-                  f"{store.t_remerge:.2f}s)")
+                      f"positions): {map_span.seconds:.2f}s")
         self._store = store
-        self.n_compactions = store.n_compactions
+        self.n_compactions = self._count.calls("kmc.compact")
         self.spill_stats = self._spill_stats(store)
+        if params.verbose:
+            c, st = self._count, self.spill_stats
+            host = c.seconds("kmc.parse_wait", "kmc.assemble", "kmc.pack")
+            print(f"[stage1] on {device_name(self.device)}: "
+                  f"host(parse+pack): {host:.2f}s "
+                  f"queue-wait: {c.seconds('kmc.queue_put'):.2f}s "
+                  f"({c.counter('positions') // max(s, 1)} batches, "
+                  f"{self.n_compactions} compactions, {st['n_spills']} "
+                  f"spills of {st['spill_bytes']} bytes, spill D2H "
+                  f"{st['t_spill_d2h']:.2f}s, {st['n_remerges']} re-merges "
+                  f"{st['t_remerge']:.2f}s)")
         self._sig_map = store.host_sig_map()
         self._n_used_bins = store.n_used_bins
         results.n_total_super_kmers = store.total_super_kmers()
 
-    @staticmethod
-    def _spill_stats(store) -> dict:
-        return dict(n_spills=store.n_spills, spill_bytes=store.spill_bytes,
-                    t_spill_d2h=store.t_spill_d2h,
-                    n_remerges=store.n_remerges, t_remerge=store.t_remerge,
-                    t_host_merge=store.t_host_merge,
-                    merge_launches=store.merge_launches,
-                    collect_launches=store.collect_launches,
+    def _spill_stats(self, store) -> dict:
+        """The spills, re-merges and merges of the count so far, from its
+        spans' totals, and the store's finalize route."""
+        c = self._count
+        return dict(n_spills=c.calls("kmc.spill"),
+                    spill_bytes=c.counter("bytes", "kmc.spill_d2h"),
+                    t_spill_d2h=c.seconds("kmc.spill_wait", "kmc.spill_d2h"),
+                    n_remerges=c.calls("kmc.remerge"),
+                    t_remerge=c.seconds("kmc.remerge"),
+                    t_host_merge=c.seconds("kmc.host_merge"),
+                    merge_launches=c.counter("sort_launches", "kmc.remerge",
+                                             "kmc.host_merge"),
+                    collect_launches=c.counter("sort_launches",
+                                               "kmc.collect"),
                     finalize_route=store.finalize_route)
 
     # ---------------- checkpoint / resume ----------------
@@ -574,6 +607,7 @@ class Runner:
         params.canonical_kmers = bool(meta["canonical"])
         params.validate()
         self._s1 = params
+        self._count = trace.Count()  # the resumed count's spans
         self._small_k = params.kmer_len < MIN_DEVICE_K
         self._n_reads = int(meta["n_reads"])
         self._store = DeviceKmerStore.load_checkpoint(
@@ -589,19 +623,19 @@ class Runner:
         params.validate()
         if self._s1 is None:
             raise RuntimeError("run_stage1 first")
-        t0 = time.perf_counter()
         results = Stage2Results()
         if self._s1.estimate_histogram_cfg == EstimateHistogramCfg.ONLY_ESTIMATE:
             return results  # kmc.h:1411-1412: no stage 2 under -e
-        if self._small_k:
-            self._run_stage2_small_k(params, results)
-        elif self._s1.device_store:
-            if self._store is None:
-                raise RuntimeError("run_stage1 first")
-            self._run_stage2_device_store(params, results)
-        else:
-            self._run_stage2_host_buckets(params, results)
-        results.time = time.perf_counter() - t0
+        with trace.span("kmc.stage2", count=self._count, usage=True):
+            if self._small_k:
+                self._run_stage2_small_k(params, results)
+            elif self._s1.device_store:
+                if self._store is None:
+                    raise RuntimeError("run_stage1 first")
+                self._run_stage2_device_store(params, results)
+            else:
+                self._run_stage2_host_buckets(params, results)
+        results.time = self._count.seconds("kmc.stage2")
         return results
 
     def _make_db_info(self, params: Stage2Params) -> DbInfo:
@@ -638,8 +672,11 @@ class Runner:
             bins, words, counts, (n_unique, n_below, n_above) = store.finalize(
                 cutoff_min=params.cutoff_min, cutoff_max=params.cutoff_max,
                 counter_max=params.counter_max)
-            results.time_finalize_exec = store.t_finalize_exec
-            results.time_finalize_d2h = store.t_finalize_d2h
+            # as kmc_tpu's words-path finalize times only the device routes
+            results.time_finalize_exec = self._count.seconds(
+                "kmc.finalize_exec")
+            results.time_finalize_d2h = self._count.seconds(
+                "kmc.finalize_d2h")
             self.spill_stats = self._spill_stats(store)
             self._store = None
             results.n_unique_kmers = n_unique
@@ -659,30 +696,35 @@ class Runner:
             lut_prefix_len=info.lut_prefix_len,
             counter_size=info.counter_size,
         )
-        results.time_finalize_exec = store.t_finalize_exec
-        results.time_finalize_d2h = store.t_finalize_d2h
+        # the host route's merge and completer count as its execution
+        c = self._count
+        results.time_finalize_exec = c.seconds("kmc.finalize_exec",
+                                               "kmc.host_route")
+        results.time_finalize_d2h = c.seconds("kmc.finalize_d2h")
         self.spill_stats = self._spill_stats(store)
         if self._s1.verbose:
             print(f"[stage2] finalize ({store.finalize_route}) exec: "
-                  f"{store.t_finalize_exec:.2f}s D2H: "
-                  f"{store.t_finalize_d2h:.2f}s host merge: "
-                  f"{store.t_host_merge:.2f}s ({len(rec)} rows)")
+                  f"{results.time_finalize_exec:.2f}s D2H: "
+                  f"{results.time_finalize_d2h:.2f}s host merge: "
+                  f"{self.spill_stats['t_host_merge']:.2f}s "
+                  f"({len(rec)} rows)")
         self._store = None
         results.n_unique_kmers = n_unique
         results.n_below_cutoff_min = n_below
         results.n_above_cutoff_max = n_above
         results.n_total_kmers = n_total
 
-        t0 = time.perf_counter()
-        writer = Kmc2DbWriter(params.output_file_name, info, self._sig_map)
-        writer.n_unique = n_unique
-        writer.n_below_min = n_below
-        writer.n_above_max = n_above
-        writer.n_total = n_total
-        writer.write_all_records(rec, lut)
-        writer.close()
+        with trace.span("kmc.write") as write_span:
+            writer = Kmc2DbWriter(params.output_file_name, info,
+                                  self._sig_map)
+            writer.n_unique = n_unique
+            writer.n_below_min = n_below
+            writer.n_above_max = n_above
+            writer.n_total = n_total
+            writer.write_all_records(rec, lut)
+            writer.close()
         if self._s1.verbose:
-            print(f"[stage2] db write: {time.perf_counter() - t0:.2f}s")
+            print(f"[stage2] db write: {write_span.seconds:.2f}s")
 
     def _kff_writer(self, params: Stage2Params):
         """A KFF writer for the output (KMC's completer KFF path,
@@ -740,10 +782,11 @@ class Runner:
             elif kff is not None:
                 kff.store_section(words_to_kmer_bytes(kw, k), kc)
             self._buckets[b] = None  # free as we go
-        if writer is not None:
-            writer.close()
-        if kff is not None:
-            kff.close()
+        with trace.span("kmc.write"):
+            if writer is not None:
+                writer.close()
+            if kff is not None:
+                kff.close()
 
     def _run_stage2_small_k(self, params: Stage2Params,
                             results: Stage2Results):
