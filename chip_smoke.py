@@ -1830,8 +1830,8 @@ def phase_spill_full():
     """The deployment: a 134 Mbp genome at 10x, about twice the default
     store's rows in unique k-mers, counted under -m 12.  The count runs
     once, under torch.profiler (the device's spans only), for the device's
-    idle share; its re-merge and its final merge run on the card, the
-    host completer on the host.  Returns the FASTQ, its reads and the
+    idle share; its re-merge, its final merge and the host route's
+    completer run on the card.  Returns the FASTQ, its reads and the
     non-spilling count's DB for phase 13, which deletes them."""
     from kmc_tpu_torch.memory import plan_memory
 

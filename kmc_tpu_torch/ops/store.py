@@ -41,9 +41,11 @@ after every live row.  Counts are implicitly 1 until the first compaction
             reduction and the completer: cutoffs, the exact KMC2 record
             bytes (suffix + little-endian counter) and the per-(bin, prefix)
             LUT, copied to the host in one piece.  When the replayed unique
-            set outgrows the store, the runs and the store are merged and
-            the host completer (NumPy) writes the records instead: the
-            "host" route.  KFF output and -w take the words-path
+            set outgrows the store, the runs and the store are merged on
+            the device a key range at a time and each range goes through
+            the same completer while it is there: the "host" route (deferred
+            greedy, which re-sorts across ranges, copies the groups back and
+            completes them in NumPy).  KFF output and -w take the words-path
             finalize (finalize) over the same three routes: the groups'
             bins, k-mer lanes and clamped counts in record order.
   merge     every merge of spilled runs (the re-merge and the host route's
@@ -51,12 +53,14 @@ after every live row.  Counts are implicitly 1 until the first compaction
             (merge_runs): the runs stay in host RAM and are cut at common
             column-0 values into key ranges that fit the device's free
             memory, each uploaded, sorted by the grouping-sort kernel and
-            reduced to exact int64 totals, then copied back.
+            reduced to exact int64 totals, then handed on (_merge_ranges) or
+            copied back.
 
 Count arithmetic follows kmc_tpu path by path: device group totals wrap mod
 2^32 (a group that wraps to 0 is dropped), the early re-merge of spilled
-runs clamps at 0xFFFFFFFF, and the host route's merge keeps u64 totals that
-the host completer clamps to counter_max.
+runs clamps at 0xFFFFFFFF, and the host route's merge keeps exact totals
+(int64 on the device, u64 on the host) that its completer clamps to
+counter_max.
 
 Columns are int32 tensors holding u32 bit patterns (torch's uint32 lacks the
 needed arithmetic); lane math runs in int64 (see ops/extract.py).  The
@@ -219,6 +223,18 @@ def _completer(bins, wr, totals, *, cutoff_min, cutoff_max, counter_max, k,
     return rec, lut, stats
 
 
+def _complete_groups(store, reps, totals, *, cutoff_min, cutoff_max,
+                     counter_max, lut_prefix_len, counter_size):
+    """_completer over a store's grouped rows: reps, its key columns in
+    (bin, k-mer) order, split by the store's fuse, r0 and k, and its
+    n_used_bins the valid bins."""
+    bins, wr = _split_bins(reps, fuse=store.fuse, r0=store.r0)
+    return _completer(bins, wr, totals, cutoff_min=cutoff_min,
+                      cutoff_max=cutoff_max, counter_max=counter_max,
+                      k=store.k, lut_prefix_len=lut_prefix_len,
+                      counter_size=counter_size, n_bins=store.n_used_bins)
+
+
 class _SpillOverflow(Exception):
     """The replayed unique set exceeds the device store: finalize falls
     back to the host merge of the spilled runs."""
@@ -241,15 +257,23 @@ def _host_u32(t: torch.Tensor) -> np.ndarray:
 # by the grouping-sort kernel and reduced in turn.
 
 
-def _merge_row_bytes(n_keys: int) -> int:
+def _merge_row_bytes(n_keys: int, caller: int = 96) -> int:
     """Device bytes a row of a merge may take: its key and count columns
     three times (the upload, the sort's output and scratch), the int64
-    prefix sums, group starts and totals, and room for what the caller does
-    with the groups."""
-    return 16 * (n_keys + 1) + 96
+    prefix sums, group starts and totals, and `caller` bytes for what the
+    caller does with the groups."""
+    return 16 * (n_keys + 1) + caller
 
 
-def _merge_rows(device, n_keys: int, max_bytes):
+def _completer_row_bytes(n_keys: int, W: int, rec_bytes: int) -> int:
+    """Device bytes _completer may take for a group of a merge: the group
+    held (key columns, int64 total), its bin and lanes split out as int64,
+    the cutoff masks, the kept copies, the record bytes built as int64
+    columns, stacked and narrowed, and the LUT's keys."""
+    return 4 * n_keys + 16 * W + 48 + 17 * rec_bytes
+
+
+def _merge_rows(device, n_keys: int, max_bytes, caller: int = 96):
     """Rows one key range may hold: max_bytes (default: the device memory
     free to torch; no limit on the CPU) over the bytes of a row."""
     if max_bytes is None:
@@ -258,7 +282,7 @@ def _merge_rows(device, n_keys: int, max_bytes):
         free, _ = torch.cuda.mem_get_info(device)
         max_bytes = (free + torch.cuda.memory_reserved(device)
                      - torch.cuda.memory_allocated(device))
-    return max(1, int(max_bytes) // _merge_row_bytes(n_keys))
+    return max(1, int(max_bytes) // _merge_row_bytes(n_keys, caller))
 
 
 def _live_run(cols, counts):
@@ -335,6 +359,50 @@ def _key_ranges(key0s, lo, hi, max_rows):
     return ranges
 
 
+def _live_runs(runs):
+    """The runs without their dead rows, as (key columns, counts) pairs,
+    and the number of dead rows."""
+    live = [_live_run(cols, counts) for cols, counts in runs]
+    return [(cols, counts) for cols, counts, _ in live], sum(
+        n_dead for _, _, n_dead in live)
+
+
+def _merge_ranges(live, n_keys: int, device, *, max_bytes=None, lo=None,
+                  hi=None, caller: int = 96):
+    """merge_runs a key range at a time: yields each range's (representative
+    key columns, exact int64 totals) on `device`, in key order.  live: runs
+    without their dead rows (_live_runs); caller: the device bytes a row
+    keeps for what the caller does with a range's groups (_merge_row_bytes).
+    The device memory is measured at the first range."""
+    device = torch.device(device)
+    if not live:
+        return
+    key0s = [c[0] if isinstance(c[0], np.ndarray) else i32_to_u32(c[0])
+             for c, _ in live]
+    for first, end in _key_ranges(
+            key0s, lo, hi, _merge_rows(device, n_keys, max_bytes, caller)):
+        n = int((end - first).sum())
+        if n == 0:
+            continue
+        cols = [torch.empty(n, dtype=torch.int32, device=device)
+                for _ in range(n_keys + 1)]
+        off = 0
+        for (run_cols, run_counts), a, b in zip(live, first, end):
+            a, b = int(a), int(b)
+            for dst, src in zip(cols, [*run_cols, run_counts]):
+                part = src[a:b]
+                if isinstance(part, np.ndarray):
+                    trace.add("h2d_bytes", part.nbytes)
+                    part = torch.from_numpy(part.view(np.int32))
+                dst[off:off + b - a].copy_(part)
+            off += b - a
+        reps, totals = _group_reduce(cols[:n_keys], cols[n_keys], n_keys,
+                                     drop_zero=False, wrap=False)
+        del cols
+        yield reps, totals
+        del reps, totals
+
+
 def merge_runs(runs, n_keys: int, device, emit, *, max_bytes=None, lo=None,
                hi=None) -> int:
     """Merge sorted runs of rows on `device` (the grouping-sort kernel on a
@@ -348,33 +416,9 @@ def merge_runs(runs, n_keys: int, device, emit, *, max_bytes=None, lo=None,
     a test passes a small limit to force many ranges).  For each range in
     key order, emit(representative key columns, exact int64 totals)
     receives its groups, on `device`.  Returns the number of dead rows."""
-    device = torch.device(device)
-    live = [_live_run(cols, counts) for cols, counts in runs]
-    n_dead = sum(x[2] for x in live)
-    if not live:
-        return 0
-    key0s = [c[0] if isinstance(c[0], np.ndarray) else i32_to_u32(c[0])
-             for c, _, _ in live]
-    for first, end in _key_ranges(key0s, lo, hi,
-                                  _merge_rows(device, n_keys, max_bytes)):
-        n = int((end - first).sum())
-        if n == 0:
-            continue
-        cols = [torch.empty(n, dtype=torch.int32, device=device)
-                for _ in range(n_keys + 1)]
-        off = 0
-        for (run_cols, run_counts, _), a, b in zip(live, first, end):
-            a, b = int(a), int(b)
-            for dst, src in zip(cols, [*run_cols, run_counts]):
-                part = src[a:b]
-                if isinstance(part, np.ndarray):
-                    trace.add("h2d_bytes", part.nbytes)
-                    part = torch.from_numpy(part.view(np.int32))
-                dst[off:off + b - a].copy_(part)
-            off += b - a
-        reps, totals = _group_reduce(cols[:n_keys], cols[n_keys], n_keys,
-                                     drop_zero=False, wrap=False)
-        del cols
+    live, n_dead = _live_runs(runs)
+    for reps, totals in _merge_ranges(live, n_keys, device,
+                                      max_bytes=max_bytes, lo=lo, hi=hi):
         emit(reps, totals)
     return n_dead
 
@@ -770,6 +814,17 @@ class DeviceKmerStore:
                     pos += take
                 self.spilled.pop(0)
 
+    def _take_runs(self):
+        """Compact the store and hand its rows and the spilled runs over as
+        the runs of a merge.  The store is consumed."""
+        self.compact()
+        n = self.n_used
+        runs = self.spilled + [([c[:n] for c in self.key_cols],
+                                self.counts[:n])]
+        self.spilled = []
+        self.key_cols = self.counts = None
+        return runs
+
     def _host_merge(self):
         """Merge the spilled runs and the compacted store by (bin, k-mer)
         on the store's device and copy the groups to host RAM (kmc_tpu's
@@ -777,15 +832,11 @@ class DeviceKmerStore:
         the valid groups in the output's key order: under deferred greedy
         each unique k-mer is remapped to its greedy bin on the host and
         the groups re-sorted there (kmc_tpu's host mirror of its collect;
-        this route exists because they do not fit the device).  The store
-        is consumed."""
+        this route exists because they do not fit the device).  The
+        words-path finalize and deferred greedy's records take it.  The
+        store is consumed."""
         with trace.span("kmc.host_merge"):
-            self.compact()
-            n = self.n_used
-            runs = self.spilled + [([c[:n] for c in self.key_cols],
-                                    self.counts[:n])]
-            self.spilled = []
-            self.key_cols = self.counts = None
+            runs = self._take_runs()
             launches = radix_sort_columns.launches
             cols, totals, _ = merge_runs_to_host(runs, self.n_cols,
                                                  self.device)
@@ -816,19 +867,80 @@ class DeviceKmerStore:
 
     def _finalize_records_host(self, *, cutoff_min, cutoff_max, counter_max,
                                lut_prefix_len, counter_size):
-        """Host completer over the host merge (kmc_tpu's
-        _finalize_records_host; same contract as finalize_records): the
-        host merge (kmc.host_merge), then the NumPy completer
+        """The host route (kmc_tpu's _finalize_records_host; same contract
+        as finalize_records), for a unique set that outgrows the store.
+        Where the merge's key order is the output's (prefix and eager
+        greedy stores), each merged key range goes through the completer
+        on the store's device (_complete_ranges).  Deferred greedy remaps
+        every k-mer and re-sorts across all ranges, so it takes the host
+        merge (kmc.host_merge) and the NumPy completer
         (kmc.host_completer)."""
+        kw = dict(cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                  counter_max=counter_max, lut_prefix_len=lut_prefix_len,
+                  counter_size=counter_size)
         with trace.span("kmc.host_route"):
+            if not self._g_defer:
+                return self._complete_ranges(**kw)
             bins, lanes, totals = self._host_merge()
             with trace.span("kmc.host_completer"):
-                out = self._host_completer(
-                    bins, lanes, totals, cutoff_min=cutoff_min,
-                    cutoff_max=cutoff_max, counter_max=counter_max,
-                    lut_prefix_len=lut_prefix_len, counter_size=counter_size)
+                out = self._host_completer(bins, lanes, totals, **kw)
                 trace.add("rows", len(out[0]))
+                trace.add("ranges", 0)
         return out
+
+    def _complete_ranges(self, **kw):
+        """The spilled runs and the compacted store merged on the store's
+        device a key range at a time (kmc.host_merge), and each range's
+        groups, in the output's order, through the completer while they
+        are on the device (kmc.host_completer [ranges, d2h_bytes]), with
+        the merge's exact int64 totals (kmc_tpu's u64 host merge); each
+        range's records are copied to the host as it completes, the summed
+        LUT and the stats after the last (kmc.host_completer [rows,
+        d2h_bytes]).  kw: finalize_records' cutoffs and sizes.  The store
+        is consumed."""
+        lpl = kw["lut_prefix_len"]
+        rb = ((self.k - lpl) // 4 if lpl else (self.k + 3) // 4
+              ) + kw["counter_size"]
+        with trace.span("kmc.host_merge"):
+            live, _ = _live_runs(self._take_runs())
+            ranges = _merge_ranges(
+                live, self.n_cols, self.device,
+                caller=_completer_row_bytes(self.n_cols, self.W, rb))
+            del live
+        lut = torch.zeros(self.n_used_bins << (2 * lpl), dtype=torch.int64,
+                          device=self.device)
+        stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+        recs = []
+        while True:
+            with trace.span("kmc.host_merge"):
+                launches = radix_sort_columns.launches
+                got = next(ranges, None)
+                launches = radix_sort_columns.launches - launches
+                self.merge_launches += launches
+                trace.add("sort_launches", launches)
+                if got is not None:
+                    trace.add("rows", len(got[1]))
+            if got is None:
+                break
+            with trace.span("kmc.host_completer"):
+                rec, lut_r, stats_r = _complete_groups(self, *got, **kw)
+                del got
+                lut += lut_r
+                stats += torch.stack(stats_r)
+                recs.append(rec.cpu().numpy())
+                del rec
+                trace.add("d2h_bytes", recs[-1].nbytes)
+                trace.add("ranges", 1)
+        with trace.span("kmc.host_completer"):
+            rec_h = (recs[0] if len(recs) == 1 else
+                     np.concatenate(recs) if recs else
+                     np.empty((0, rb), np.uint8))
+            del recs
+            lut_h = lut.cpu().numpy().astype(np.uint64)
+            stats_h = tuple(int(x) for x in stats.cpu())
+            trace.add("rows", len(rec_h))
+            trace.add("d2h_bytes", lut_h.nbytes + stats.nbytes)
+        return rec_h, lut_h, stats_h
 
     def _host_completer(self, bins, lanes, totals, *, cutoff_min, cutoff_max,
                         counter_max, lut_prefix_len, counter_size):
@@ -959,13 +1071,10 @@ class DeviceKmerStore:
                     counter_size=counter_size)
             self.finalize_route = "replay" if replayed else "device"
             with trace.span("kmc.finalize_exec"):  # ends with the device
-                reps, totals = self._reduce_live()
-                bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-                rec, lut, stats = _completer(
-                    bins, wr, totals, cutoff_min=cutoff_min,
-                    cutoff_max=cutoff_max, counter_max=counter_max, k=self.k,
-                    lut_prefix_len=lut_prefix_len, counter_size=counter_size,
-                    n_bins=self.n_used_bins)
+                rec, lut, stats = _complete_groups(
+                    self, *self._reduce_live(), cutoff_min=cutoff_min,
+                    cutoff_max=cutoff_max, counter_max=counter_max,
+                    lut_prefix_len=lut_prefix_len, counter_size=counter_size)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             with trace.span("kmc.finalize_d2h"):

@@ -112,8 +112,9 @@ from ..defs import MAX_K, STATS_SAMPLE_BYTES, calc_counter_size
 from ..io.readers import homopolymer_compress_stream
 from ..ops.extract import i32_to_u32, u32_to_i32
 from ..ops.sort_kernel import radix_sort_columns
-from ..ops.store import (DeviceKmerStore, _completer, _cutoffs, _group_reduce,
-                         _host_u32, _split_bins, merge_runs, remerge_runs)
+from ..ops.store import (DeviceKmerStore, _complete_groups, _cutoffs,
+                         _group_reduce, _host_u32, _split_bins, merge_runs,
+                         remerge_runs)
 from ..runner import MIN_DEVICE_K, n_cpus
 from .distributed import Fleet, resolve_devices
 from .exchange_kernel import (ragged_all_to_all, ragged_all_to_all_processes,
@@ -492,12 +493,10 @@ class ShardedKmerStore:
         parts = []
 
         def complete(reps, totals):
-            bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-            parts.append(_completer(
-                bins, wr, totals, cutoff_min=cutoff_min,
-                cutoff_max=cutoff_max, counter_max=counter_max, k=self.k,
-                lut_prefix_len=lut_prefix_len, counter_size=counter_size,
-                n_bins=self.n_used_bins))
+            parts.append(_complete_groups(
+                self, reps, totals, cutoff_min=cutoff_min,
+                cutoff_max=cutoff_max, counter_max=counter_max,
+                lut_prefix_len=lut_prefix_len, counter_size=counter_size))
 
         n_total, n_skm = self._owner_groups(complete)
         with trace.span("kmc.finalize_d2h", count=self._count):

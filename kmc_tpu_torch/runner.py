@@ -14,7 +14,8 @@ single-device routes:
              folds stage 0 into the first ingest launches and builds the
              map after the last;
     stage 2  finalize_records (spill replay, or the runs merged on the
-             device and the host completer) -> Kmc2DbWriter, or for KFF
+             device a key range at a time, each range completed there)
+             -> Kmc2DbWriter, or for KFF
              output and -w the words-path finalize -> KffWriter;
   host buckets (--no-device-store, k >= 14)
     stage 0  a sampled signature histogram (splitter-scan kernel) -> the

@@ -37,6 +37,7 @@ from kmc_tpu_torch import OutputFileType, Runner, Stage1Params, \
 from kmc_tpu_torch.io.readers import batch_len  # noqa: E402
 from kmc_tpu_torch.ops.extract import sig_of_word_cols  # noqa: E402
 from kmc_tpu_torch.ops.ingest_kernel import ingest, ingest_plain  # noqa: E402
+from kmc_tpu_torch.ops import store as store_mod  # noqa: E402
 from kmc_tpu_torch.ops.store import DeviceKmerStore, greedy_fuse  # noqa: E402
 from kmc_tpu_torch.signatures import (build_signature_map,  # noqa: E402
                                       kmer_signatures_numpy, map_size,
@@ -138,6 +139,28 @@ def test_greedy_spilling_count(spill_reads, tmp_path, monkeypatch, mode,
           cutoff_min=1, batch_positions=1 << 10, device_store_rows=1 << 16,
           signature_map_policy="greedy")
     _same_db(tmp_path / "torch", tmp_path / "big")
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_greedy_host_route_completer(spill_reads, tmp_path, monkeypatch,
+                                     mode):
+    """Deferred greedy remaps and re-sorts across all merged key ranges, so
+    its host route keeps the host merge and the NumPy completer (one
+    kmc.host_completer, no range completed on the device); eager greedy's
+    merge order is the output's, and it completes each range on the
+    device.  Both write kmc_tpu's bytes, cut into many ranges."""
+    monkeypatch.setattr(store_mod, "_merge_rows", lambda *a, **kw: 2000)
+    (r, _), _ = _both(spill_reads["host"], tmp_path, monkeypatch, mode, k=27,
+                      cutoff_min=1, batch_positions=1 << 10,
+                      device_store_rows=4096)
+    _same_db(tmp_path / "torch", tmp_path / "jax")
+    assert r.spill_stats["finalize_route"] == "host"
+    ranges = r._count.counter("ranges", "kmc.host_completer")
+    if mode == "deferred":
+        assert ranges == 0 and r._count.calls("kmc.host_completer") == 1
+    else:
+        assert ranges >= 3
+        assert r._count.calls("kmc.host_completer") == ranges + 1
 
 
 def _kff_bytes(path):

@@ -933,6 +933,35 @@ def test_spilling_count_on_card_matches_cpu(tmp_path, genome_len, route):
         assert stats["cuda"]["merge_launches"] >= 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [27, 33])
+def test_host_route_ranges_on_card_matches_cpu(tmp_path, monkeypatch, k):
+    """The host route's completer on the card, over a merge cut into many
+    key ranges, each range's records copied as it completes."""
+    _need_card()
+    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+    from kmc_tpu_torch.ops import store as store_mod
+
+    _card_fastq(tmp_path / "in.fastq", 60000, 4000, seed=2)
+    ranges = {}
+    for dev in ("cuda", "cpu"):
+        with monkeypatch.context() as m:
+            if dev == "cuda":
+                m.setattr(store_mod, "_merge_rows", lambda *a, **kw: 20000)
+            r = Runner(device=dev)
+            r.run_stage1(Stage1Params(
+                input_files=[str(tmp_path / "in.fastq")], kmer_len=k,
+                batch_positions=1 << 14, device_store_rows=1 << 15))
+            r.run_stage2(Stage2Params(output_file_name=str(tmp_path / dev),
+                                      cutoff_min=1))
+        assert r.spill_stats["finalize_route"] == "host"
+        ranges[dev] = r._count.counter("ranges", "kmc.host_completer")
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert (tmp_path / f"cuda{suf}").read_bytes() == \
+            (tmp_path / f"cpu{suf}").read_bytes()
+    assert ranges["cuda"] >= 3 and ranges["cpu"] == 1
+
+
 def _sorted_run(rng, n, n_keys, dead_tail=1):
     """A spilled run: unique rows sorted by their key columns (few column-0
     values, so runs share keys), counts up to 2^32 - 1, dead rows after."""

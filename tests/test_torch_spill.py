@@ -26,6 +26,7 @@ from kmc_tpu.ops.store import DeviceKmerStore as JaxStore  # noqa: E402
 from kmc_tpu.runner import count as jax_count  # noqa: E402
 from kmc_tpu_torch import Runner, Stage1Params, Stage2Params, count  # noqa: E402
 from kmc_tpu_torch.io.readers import batch_len  # noqa: E402
+from kmc_tpu_torch.ops import store as store_mod  # noqa: E402
 from kmc_tpu_torch.ops.store import DeviceKmerStore  # noqa: E402
 
 K, M, S = 27, 9, 1 << 10
@@ -80,6 +81,57 @@ def test_spilling_count_byte_identical(reads, tmp_path, route, k, m):
           cutoff_min=1, batch_positions=S, device_store_rows=1 << 16)
     _same_db(tmp_path / "torch", tmp_path / "big")
     assert res.n_total_kmers > 0
+
+
+def _cut_ranges(monkeypatch, ranges):
+    """ranges "many": make the host route's merge cut key ranges of at most
+    2000 rows; "one": leave it one range (the CPU sets no limit).  Returns
+    the list that gets each merge's count of non-empty ranges."""
+    if ranges == "many":
+        monkeypatch.setattr(store_mod, "_merge_rows", lambda *a, **kw: 2000)
+    cuts, real = [], store_mod._key_ranges
+
+    def key_ranges(*a, **kw):
+        got = real(*a, **kw)
+        cuts.append(sum(int((end - first).sum()) > 0 for first, end in got))
+        return got
+
+    monkeypatch.setattr(store_mod, "_key_ranges", key_ranges)
+    return cuts
+
+
+@pytest.fixture(scope="module")
+def jax_host_dbs(reads, tmp_path_factory):
+    """kmc_tpu's databases of the host-route input, by k."""
+    d = tmp_path_factory.mktemp("jax_host")
+    out = {}
+
+    def db(k):
+        if k not in out:
+            out[k] = d / f"k{k}"
+            jax_count([reads["host"]], str(out[k]), k=k, cutoff_min=1,
+                      batch_positions=S, device_store_rows=4096)
+        return out[k]
+    return db
+
+
+@pytest.mark.parametrize("ranges", ["one", "many"])
+@pytest.mark.parametrize("k", [27, 31, 33])
+def test_host_route_many_ranges_byte_identical(reads, jax_host_dbs, tmp_path,
+                                               monkeypatch, k, ranges):
+    """The host route completes each merged key range on the store's device:
+    in one range or cut into many, it writes kmc_tpu's bytes, and its
+    kmc.host_completer counts one range for each range the merge cut."""
+    cuts = _cut_ranges(monkeypatch, ranges)
+    r, res = _torch_count(reads["host"], tmp_path / "torch", kmer_len=k,
+                          cutoff_min=1, batch_positions=S,
+                          device_store_rows=4096)
+    _same_db(tmp_path / "torch", jax_host_dbs(k))
+    assert r.spill_stats["finalize_route"] == "host"
+    assert r.spill_stats["n_spills"] >= 2 and r.spill_stats["n_remerges"] == 0
+    assert cuts[-1] >= 3 if ranges == "many" else cuts[-1] == 1
+    assert r._count.counter("ranges", "kmc.host_completer") == cuts[-1]
+    assert res.n_unique_kmers > 0
 
 
 def _tight_plans(monkeypatch, budget):
