@@ -1,5 +1,6 @@
 """pytest set-up of the benchmark's own tests (python -m pytest kmcbench):
-the `gpu` marker, and a small cell on the CPU that spills."""
+the `gpu` marker, and small cells on the CPU: one that spills, and the
+same sample counted by four shards, as a cell of four chips would."""
 import pytest
 
 
@@ -23,6 +24,35 @@ def small_cell(genome_bp=1 << 15, coverage=10, repeats=()):
     traffic = dict(base.traffic, coverage=coverage)
     return Cell("small", config, traffic, 1, base.end_to_end,
                 base.per_layer)
+
+
+# the readers of the sharded count's layers (kmcbench/metrics/), which no
+# cell of BENCHMARK.json lists yet
+SHARDED_PER_LAYER = [
+    {"name": "exchange_s", "unit": "s", "better": "lower",
+     "source": "program_span", "moves": "kmers_per_s",
+     "layer": "sharded finalize: exchange and owner sort"},
+    {"name": "shard_ingest_s", "unit": "s", "better": "lower",
+     "source": "program_span", "moves": "kmers_per_s",
+     "layer": "sharded stage 1: feed and ingest"},
+    {"name": "exchange_roofline_pct", "unit": "%", "better": "higher",
+     "source": "device_trace", "moves": "kmers_per_s",
+     "layer": "kernel: exchange"},
+    {"name": "card_idle_pct", "unit": "%", "better": "lower",
+     "source": "device_trace", "moves": "kmers_per_s",
+     "layer": "device (four cards)"},
+]
+
+
+def small_sharded_cell(**kw):
+    """small_cell (the same keywords) as a cell of four chips, with the
+    sharded count's per-layer metrics: four shards of 2^13 rows, which
+    the tests put on the CPU (or on four cards)."""
+    from kmcbench.harness import Cell
+
+    small = small_cell(**kw)
+    return Cell("small_4card", small.config, small.traffic, 4,
+                small.end_to_end, SHARDED_PER_LAYER)
 
 
 @pytest.fixture

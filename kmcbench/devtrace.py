@@ -1,6 +1,7 @@
 """The device trace of a traced window: torch.profiler over whole jobs,
-reduced to device busy time, device time by kernel and the idle gaps,
-each gap named by the benchmark's host span that was open then.
+reduced to device busy time (of all cards together, and of each card),
+device time by kernel and the idle gaps, each gap named by the
+benchmark's host span that was open then.
 
 Device activity is the union of kernel, memcpy and memset spans (the
 port's chip_smoke.py `_union_us`), clipped to the profiled jobs' spans
@@ -56,6 +57,7 @@ class Trace:
     windows: list                 # (start, end) us of each profiled job
     device: list                  # (name, start, end) us, clipped
     host: list = field(default_factory=list)  # (name, start, end) us
+    cards: list = field(default_factory=list)  # each device event's card
 
     @property
     def window_s(self) -> float:
@@ -64,6 +66,15 @@ class Trace:
     @property
     def busy_s(self) -> float:
         return union_us((a, b) for _, a, b in self.device) / 1e6
+
+    def card_busy_s(self, n_cards: int) -> list:
+        """Busy seconds of each of n_cards cards, the union of its own
+        events; a card with no event reads 0."""
+        ids = sorted(set(self.cards), key=str)
+        busy = [union_us((a, b) for (_, a, b), c in zip(self.device,
+                                                        self.cards) if c == i)
+                / 1e6 for i in ids]
+        return busy + [0.0] * (n_cards - len(busy))
 
     def kernel_s(self, names) -> float:
         """Device seconds of the kernels whose name holds one of names as
@@ -126,10 +137,13 @@ def read(prof, path: Path, host_names) -> Trace | None:
             elif e.get("name") in host_names:
                 host.append((e["name"], a, b))
         elif cat in DEVICE_CATS:
-            dev.append((e.get("name", cat), a, b))
+            card = (e.get("args") or {}).get("device", e.get("pid"))
+            dev.append((e.get("name", cat), a, b, card))
     if not windows:
         return None
     windows.sort()
-    device = [(n, a, b) for n, (a, b) in
-              ((n, ab) for n, s, e in dev for ab in _clip([(s, e)], windows))]
-    return Trace(windows=windows, device=device, host=host)
+    clipped = [(n, ab, card) for n, s, e, card in dev
+               for ab in _clip([(s, e)], windows)]
+    device = [(n, a, b) for n, (a, b), _ in clipped]
+    return Trace(windows=windows, device=device, host=host,
+                 cards=[card for _, _, card in clipped])

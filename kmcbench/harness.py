@@ -4,10 +4,13 @@ back to back, the check against the plain reference, and the result.
 A job is what a user of a k-mer counter runs: a fresh
 kmc_tpu_torch.Runner counts the sample's FASTQ (run_stage1, run_stage2,
 as count() and the CLI do) into a KMC2 database under the run's work
-directory, over the previous job's files.  The loop is closed: one job at
-a time, the next as soon as the last ends; no job starts after the run's
-seconds, and the one running then finishes and counts.  The window runs
-from the first job's start to the last job's end.
+directory, over the previous job's files.  A cell of several chips
+counts it instead by one call of kmc_tpu_torch.distributed_count, one
+process holding a shard of the store on each of its cards, into the same
+database.  The loop is closed: one job at a time, the next as soon as
+the last ends; no job starts after the run's seconds, and the one running
+then finishes and counts.  The window runs from the first job's start to
+the last job's end.
 
 Set-up (setup_s: from the process's start to the first job of the
 window) imports torch and the port, writes the FASTQ (hot in the page
@@ -108,7 +111,9 @@ class Job:
     stats: dict = None         # stage 2's counts, as reference.stats names
     stage1_s: float = 0.0
     stage2_s: float = 0.0
-    spill: dict = None         # Runner.spill_stats
+    spill: dict = None         # Runner.spill_stats; sharded: the spill
+    #                            counts, exchange_route and exchange_bytes
+    timings: dict = None       # sharded: distributed_count's "timings"
     n_compactions: int = 0
     host_peak_bytes: int = 0
     host_start_bytes: int = 0  # resident set as the job starts
@@ -207,6 +212,13 @@ def _params(knobs: dict, fastq: Path, out: Path, work: Path):
     return p1, p2
 
 
+def _db_bytes(out: Path) -> int:
+    """Bytes of the KMC2 database at prefix out."""
+    return sum(Path(str(out) + s).stat().st_size
+               for s in (".kmc_pre", ".kmc_suf")
+               if Path(str(out) + s).exists())
+
+
 def run_job(index: int, knobs: dict, fastq: Path, out: Path, work: Path,
             device: torch.device, probes: Probes = None) -> Job:
     """One count job; its errors are recorded, not raised."""
@@ -245,10 +257,86 @@ def run_job(index: int, knobs: dict, fastq: Path, out: Path, work: Path,
     job.host_peak_bytes = peak.stop()
     if cuda:
         job.device_peak_bytes = torch.cuda.max_memory_allocated(device)
-    job.db_bytes = sum(Path(str(out) + s).stat().st_size
-                       for s in (".kmc_pre", ".kmc_suf")
-                       if Path(str(out) + s).exists())
+    job.db_bytes = _db_bytes(out)
     return job
+
+
+# a configuration's knob -> distributed_count's argument
+SHARDED_KNOBS = {"kmer_len": "k", "canonical_kmers": "both_strands",
+                 "cutoff_min": "cutoff_min", "cutoff_max": "cutoff_max",
+                 "counter_max": "counter_max", "max_ram_gb": "max_ram_gb",
+                 "batch_positions": "batch_positions",
+                 "device_store_rows": "capacity_rows_per_device"}
+
+
+def _sharded_args(knobs: dict) -> dict:
+    """distributed_count's arguments from the configuration's knobs: the
+    batch, the signature and the bins at the single-device runner's
+    defaults (Stage1Params), and each shard's rows from the -m plan; a
+    knob the sharded count cannot take stops the run."""
+    from kmc_tpu_torch import Stage1Params
+
+    d = Stage1Params()
+    args = dict(batch_positions=d.batch_positions, sig_len=d.signature_len,
+                n_bins=d.n_bins, capacity_rows_per_device=None)
+    for key, value in knobs.items():
+        if key not in SHARDED_KNOBS:
+            raise SystemExit(f"knob {key!r} in the configuration: the "
+                             "sharded count takes no such knob")
+        args[SHARDED_KNOBS[key]] = value
+    return args
+
+
+def run_sharded_job(index: int, knobs: dict, fastq: Path, out: Path,
+                    devices: list) -> Job:
+    """One count job of a cell of several chips: one call of
+    distributed_count with a shard on each of devices; its errors are
+    recorded, not raised.  stage1_s is the count's ingest loop (its
+    "ingest_wall_s" timing, 0 where the count returns no timings, as on
+    the small-k route) and stage2_s the rest of the job's wall time."""
+    from kmc_tpu_torch.parallel import multihost
+
+    args = _sharded_args(knobs)
+    cards = sorted({d for d in devices if d.type == "cuda"},
+                   key=lambda d: d.index)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    peak = HostPeak()
+    start_rss = _vm_rss()
+    peak.start()
+    job = Job(index, time.perf_counter(), 0.0, host_start_bytes=start_rss)
+    try:
+        res = multihost.distributed_count(
+            [str(fastq)], str(out), devices=list(devices), **args)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        job.stats = {key: res[key] for key in
+                     ("n_total", "n_unique", "n_below", "n_above")}
+        job.timings = dict(res.get("timings", {}))
+        job.n_compactions = res.get("n_compactions", 0)
+        job.spill = {key: res.get(key, 0) for key in
+                     ("n_spills", "n_remerges", "merge_launches",
+                      "exchange_bytes")}
+        job.spill["exchange_route"] = job.timings.get("exchange_route")
+    except Exception as e:  # noqa: BLE001 - a failed job is a result
+        job.error = f"{type(e).__name__}: {e}"
+    job.end = time.perf_counter()
+    if job.timings:
+        job.stage1_s = job.timings.get("ingest_wall_s", 0.0)
+        job.stage2_s = job.wall_s - job.stage1_s
+    job.host_peak_bytes = peak.stop()
+    job.device_peak_bytes = max(
+        [torch.cuda.max_memory_allocated(d) for d in cards] + [0])
+    job.db_bytes = _db_bytes(out)
+    return job
+
+
+def cell_devices(device: torch.device, chips: int) -> list:
+    """The devices of a cell's shards: the first `chips` cards, or on the
+    CPU (tests) `chips` shards of it."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [device] * chips
 
 
 def forbidden_modules() -> list:
@@ -305,7 +393,17 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
         f"{sample.n_kmers(knobs['kmer_len'])} k-mers, {written} bytes of "
         f"FASTQ ({time.perf_counter() - t_setup0:.3f} s); resident set "
         f"{_vm_rss()} bytes")
-    warm = run_job(-1, knobs, fastq, out, work, device)
+    if cell.chips == 1:
+        devices = [device]
+
+        def job_run(i, probes=None):
+            return run_job(i, knobs, fastq, out, work, device, probes)
+    else:
+        devices = cell_devices(device, cell.chips)
+
+        def job_run(i, probes=None):
+            return run_sharded_job(i, knobs, fastq, out, devices)
+    warm = job_run(-1)
     written += warm.db_bytes
     log(f"warm-up job: {warm.wall_s:.4f} s, host peak "
         f"{warm.host_peak_bytes} bytes (at its start "
@@ -318,9 +416,10 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
     if traced:
         warm_prof = devtrace.profiler(device.type)  # its own start-up
         warm_prof.start()
-        torch.ones(1, device=device).add_(1)
-        if cuda:
-            torch.cuda.synchronize(device)
+        for d in devices:
+            torch.ones(1, device=d).add_(1)
+            if cuda:
+                torch.cuda.synchronize(d)
         warm_prof.stop()
         run.probes = Probes()
         run.probes.install()
@@ -339,7 +438,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
                 run.probes.job = i
             label = record_function("job") if prof is not None else None
             with label or nullcontext():
-                job = run_job(i, knobs, fastq, out, work, device, run.probes)
+                job = job_run(i, run.probes)
             if prof is not None:
                 run.profiled.append(i)
                 profiled_s += job.wall_s
@@ -374,6 +473,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
             f"bytes, host peak {j.host_peak_bytes} bytes (at its start "
             f"{j.host_start_bytes}), "
             f"{j.n_compactions} compactions, spill {j.spill}"
+            + (f", timings {j.timings}" if j.timings else "")
             + (f", failed: {j.error}" if j.error else ""))
     log(f"jobs: {len(run.jobs)} in a window of {run.window_s:.4f} s; bytes "
         f"written: {written}; device peak of a job: {mem_peak} bytes")
@@ -403,14 +503,16 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     failed = sum(j.error is not None for j in run.jobs)
-    dev = {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": 1,
-           "memory_peak_bytes": mem_peak}
+    dev = {"platform": "gpu" if cuda else "cpu", "kind": kind,
+           "count": cell.chips, "memory_peak_bytes": mem_peak}
     result = {"correct": (not failed and warm.error is None
                           and compare.passed(numbers)),
               "attempted": len(run.jobs), "failed": failed,
               "metrics": metrics, "device": dev}
     if traced and run.trace is not None:
-        dev["busy_s"] = run.trace.busy_s
+        # several cards: the mean card's busy seconds
+        dev["busy_s"] = (run.trace.busy_s if cell.chips == 1 else
+                         sum(run.trace.card_busy_s(cell.chips)) / cell.chips)
         dev["window_s"] = run.trace.window_s
         result["breakdown"] = {"device_ops": run.trace.device_ops(),
                                "idle_gaps": run.trace.idle_gaps()}

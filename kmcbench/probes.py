@@ -12,9 +12,13 @@ kernels, the bytes of each call (roofline.py).
   ingest, compact, spill, remerge, replay, host_merge, host_route,
   finalize     DeviceKmerStore's methods of those steps (ops/store.py)
   write        Kmc2DbWriter's record write and close (formats/kmc_db.py)
+
+Where the sharded count is loaded (kmc_tpu_torch.parallel.multihost), the
+exchange's calls record their bytes too (roofline.exchange_bytes).
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import defaultdict
@@ -126,6 +130,16 @@ class Probes:
         self._patch(store, "ingest", counted_ingest)
         self._patch(store, "radix_sort_columns",
                     _SortProbe(store.radix_sort_columns, self))
+        multihost = sys.modules.get("kmc_tpu_torch.parallel.multihost")
+        if multihost is not None:
+            a2a = multihost.ragged_all_to_all
+
+            def counted_a2a(xs, n_rows):
+                probes.add("exchange", roofline.exchange_bytes(
+                    n_rows, xs[0].shape[-1]))
+                return a2a(xs, n_rows)
+
+            self._patch(multihost, "ragged_all_to_all", counted_a2a)
 
     def remove(self):
         while self._undo:

@@ -30,6 +30,14 @@ def sort_bytes(rows: int, n_cols: int) -> int:
     return 2 * 4 * int(rows) * int(n_cols)
 
 
+def exchange_bytes(counts, n_cols: int) -> int:
+    """One exchange of the sharded finalize: counts[j][o] rows from sender
+    j to owner o, each row n_cols int32 columns, read once and written
+    once."""
+    return 2 * 4 * int(n_cols) * int(sum(int(n) for row in counts
+                                         for n in row))
+
+
 def share_pct(nbytes: int, device_s: float, device_kind: str):
     """nbytes at the peak rate over the measured device seconds, in %;
     None where nothing was measured or the card's peak is unknown."""

@@ -1,5 +1,6 @@
 """The benchmark's command on a card: a short run of each cell, traced
-and not, correct, with its metrics (marked gpu: skips without a card)."""
+and not, correct, with its metrics; and the harness's job of a cell of
+four chips on four cards (marked gpu: skips without the cards)."""
 import json
 import subprocess
 import sys
@@ -34,3 +35,30 @@ def test_short_run_on_the_card(traced):
     if traced:
         assert res["device"]["busy_s"] > 0
         assert 0 < res["metrics"]["ingest_roofline_pct"]["value"] <= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("traced", [False, True])
+def test_sharded_job_on_four_cards(traced):
+    """The harness's job of a cell of four chips, on four cards: a small
+    sample counted by distributed_count over cuda:0..3, correct, with the
+    exchange on its kernel and the sharded readers' metrics."""
+    import torch
+
+    from kmcbench.conftest import small_sharded_cell
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    logs = []
+    res = harness.run_cell(small_sharded_cell(), 2**33 + 7, 2,
+                           traced, device="cuda", log=logs.append)
+    assert res["correct"], logs[-20:]
+    assert res["device"]["count"] == 4
+    jobs = [line for line in logs if line.startswith("job ")]
+    assert jobs and all("'exchange_route': 'kernel'" in line
+                        for line in jobs)
+    if traced:
+        assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
+        names = {m["name"] for m in small_sharded_cell().per_layer}
+        assert names <= set(res["metrics"])
+        assert 0 < res["metrics"]["exchange_roofline_pct"]["value"] <= 100

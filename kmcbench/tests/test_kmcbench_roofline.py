@@ -1,5 +1,6 @@
 """The roofline readers' byte formulas, and the probes that record each
 kernel call's bytes from the program's shapes."""
+import numpy as np
 import pytest
 import torch
 
@@ -74,3 +75,47 @@ def test_probes_record_each_call_from_its_shapes(tmp_path):
     assert probes.spans["host_input"][0] > 0
     assert probes.spans["compact"][0] > 0
     assert probes.spans["write"][0] > 0
+
+
+def test_exchange_bytes_and_share():
+    # four senders, four owners, 3 int32 columns (two keys and counts)
+    counts = np.array([[10, 20, 30, 40], [5, 5, 5, 5], [0, 0, 0, 0],
+                       [1, 2, 3, 4]])
+    assert roofline.exchange_bytes(counts, 3) == 2 * 4 * 3 * 130
+    assert roofline.exchange_bytes(np.zeros((4, 4), np.int64), 3) == 0
+    # 185M rows of 12 bytes, read and written, in 4 ms summed over cards
+    nbytes = roofline.exchange_bytes([[185_000_000]], 3)
+    assert roofline.share_pct(nbytes, 4e-3, "NVIDIA H100 80GB HBM3") == \
+        pytest.approx(100.0 * 4.44e9 / 3.35e12 / 4e-3)
+
+
+def test_probes_record_the_exchange_as_the_program_counts_it(tmp_path):
+    """A sharded count on four CPU shards under the probes and a profile:
+    the exchange's bytes from its shapes equal the program's kmc.exchange
+    "bytes" counter and the count's exchange_bytes."""
+    from kmc_tpu_torch import trace
+    from kmc_tpu_torch.parallel import multihost
+
+    from kmcbench import devtrace
+    from kmcbench.reads import Sample, write_fastq
+
+    s = Sample(genome_bp=1 << 13, coverage=10, read_len=150,
+               substitution_rate=0.005, reverse_share=0.5)
+    fq = tmp_path / "r.fq"
+    write_fastq(fq, s, 7, "cpu")
+    probes = Probes()
+    probes.job = 0
+    a2a = multihost.ragged_all_to_all
+    probes.install()
+    try:
+        with devtrace.profiler("cpu"):
+            res = multihost.distributed_count(
+                [str(fq)], str(tmp_path / "db"), k=27, devices=["cpu"] * 4,
+                batch_positions=1 << 10, capacity_rows_per_device=1 << 12)
+            spans = [sp for sp in trace.records() if sp.name == "kmc.exchange"]
+    finally:
+        probes.remove()
+    assert multihost.ragged_all_to_all is a2a
+    assert res["exchange_bytes"] > 0
+    assert probes.bytes["exchange"][0] == res["exchange_bytes"] == sum(
+        sp.counters["bytes"] for sp in spans)

@@ -39,11 +39,23 @@ def test_names_and_files():
 def test_cell_loads(cell):
     c = harness.load_cell(cell)
     assert {m["name"] for m in c.end_to_end} >= {"setup_s"}
-    assert c.per_layer and c.chips == 1
+    assert c.per_layer and c.chips in (1, 4)
     for m in c.end_to_end + c.per_layer:
         assert hasattr(harness.load_reader(m["name"]), "read")
     s = c.sample
     assert s.n_kmers(c.knobs["kmer_len"]) > 0
+
+
+def test_at_most_one_cell_asks_for_four_chips():
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4} and chips.count(4) <= 1
+
+
+def test_sharded_readers_load():
+    from kmcbench.conftest import SHARDED_PER_LAYER
+
+    for m in SHARDED_PER_LAYER:
+        assert hasattr(harness.load_reader(m["name"]), "read")
 
 
 def test_cell_sizes():
@@ -52,6 +64,25 @@ def test_cell_sizes():
     assert (iso.n_reads, iso.n_kmers(27)) == (3_094_434, 383_709_816)
     assert (big.n_reads, big.n_kmers(27)) == (6_710_886, 832_149_864)
     assert isinstance(iso, Sample)
+
+
+def test_command_with_too_few_cards_fails_and_prints_nothing(monkeypatch,
+                                                             capsys):
+    """A cell of four chips where one card is visible."""
+    import torch
+
+    from kmcbench import run
+    from kmcbench.conftest import small_sharded_cell
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cell = small_sharded_cell()
+    monkeypatch.setattr(harness, "load_cell", lambda name: cell)
+    rc = run.main(["--workload", "small_4card",
+                   "--seed", str(2**40), "--seconds", "1", "--trace", "0"])
+    out = capsys.readouterr()
+    assert rc != 0 and out.out == ""
+    assert "needs 4 CUDA devices" in out.err
 
 
 def test_command_without_a_card_fails_and_prints_nothing():
