@@ -382,10 +382,11 @@ class ShardedKmerStore:
             local_edges = np.stack([e.cpu().numpy() for e in edges])
             edges = self.fleet.all_rows(local_edges)
             cap, bounds = self._owner_plan(np.diff(edges, axis=1))
+            counts = np.diff(edges[:, bounds], axis=1)  # n[j][o], every sender
+            trace.add("rows_max", int(counts.sum(0).max()))
 
         with trace.span("kmc.exchange", count=self._count):
             C = self.n_cols + int(has_counts)
-            counts = np.diff(edges[:, bounds], axis=1)  # n[j][o], every sender
             if int(np.maximum(counts - cap, 0).sum()):
                 raise MemoryError("all_to_all capacity exceeded: the owner "
                                   "plan's segments disagree with the rows")
@@ -432,6 +433,14 @@ class ShardedKmerStore:
         hi = int(bounds[o + 1]) << shift if o < self.D - 1 else None
         return lo, hi
 
+    def _owner_sort(self, cols, counts, dev):
+        """One owner's grouping sort of the rows it received, in a span of
+        its own: rows, and card (its device's index, -1 on the CPU)."""
+        with trace.span("kmc.owner"):
+            trace.add("rows", int(cols[0].numel()))
+            trace.add("card", -1 if dev.index is None else dev.index)
+            return _group_reduce(cols, counts, self.n_cols)
+
     def _owner_groups(self, emit):
         """Exchange, then per owner of this process the grouping sort and,
         when the store spilled, the merge with the spilled rows of its
@@ -445,8 +454,8 @@ class ShardedKmerStore:
         n_skm = self.total_super_kmers()
         received, bounds = self._received_rows()
         with trace.span("kmc.owner_sort", count=self._count):
-            grouped = [_group_reduce(cols, counts, self.n_cols)
-                       for cols, counts in received]
+            grouped = [self._owner_sort(cols, counts, dev)
+                       for (cols, counts), dev in zip(received, self.devices)]
             del received
             _sync(self.devices)
         with trace.span("kmc.finalize_exec", count=self._count):
@@ -739,10 +748,12 @@ def _pack_batch(batch):
                                                    pack_codes_fused(batch))
 
 
-def _prefetch_groups(gen, depth: int = 2):
+def _prefetch_groups(gen, *, s: int, batches=len, depth: int = 2):
     """Producer thread for the ingest loop (mirrors kmc_tpu's
     _prefetch_groups): parse and pack of group g+1 overlap the upload and
-    ingest of group g."""
+    ingest of group g.  Its span, kmc.ingest_feed, counts the batches
+    (batches(group) a group) and their positions (s a batch); a put that
+    finds the queue full waits inside kmc.feed_put."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list = []
     stop = threading.Event()
@@ -751,12 +762,21 @@ def _prefetch_groups(gen, depth: int = 2):
     def feed():
         try:
             for item in gen:
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.2)
-                        break
-                    except queue.Full:
-                        continue
+                n = batches(item)
+                trace.add("batches", n)
+                trace.add("positions", n * s)
+                try:
+                    q.put_nowait(item)
+                    continue
+                except queue.Full:
+                    pass
+                with trace.span("kmc.feed_put"):
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
                 if stop.is_set():
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
@@ -918,7 +938,7 @@ def _distributed_smallk(input_files, output_file_name, *, k, devices,
                                                      pack_codes_fused))
     else:
         groups = _fused_groups(batches, len(devices))
-    for group in _prefetch_groups(groups):
+    for group in _prefetch_groups(groups, s=s):
         for buf, hist in zip(group, hists):
             smallk_batch(torch.from_numpy(buf).to(hist.device), hist, s=s,
                          k=k, both_strands=both_strands)
@@ -1108,16 +1128,18 @@ def distributed_count(
             batches = bs.batches(gen)
             if not fleet.multi:
                 groups = ((items, None) for items in _prefetch_groups(
-                    _groups(batches, D)))
+                    _groups(batches, D), s=s))
             elif shard_input:
                 groups = ((items, None) for items in _lockstep_groups(
-                    _prefetch_groups(_local_groups(batches, len(devices))),
+                    _prefetch_groups(_local_groups(batches, len(devices)),
+                                     s=s),
                     fleet, len(devices), bs.batch_bytes))
             else:
                 groups = _prefetch_groups(_serial_deal(
                     batches, fleet, _pack_batch, lambda batch: _last_signature(
                         batch, s=s, k=k, sig_len=sig_len,
-                        both_strands=both_strands)))
+                        both_strands=both_strands)), s=s,
+                    batches=lambda group: len(group[0]))
             for items, carry in groups:
                 store.ingest_group(items, s=s, carry=carry)
             _sync(devices)

@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 import threading
+import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import pytest
@@ -15,7 +17,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).parent))
 from util import random_reads, write_fastq  # noqa: E402
 
-from kmc_tpu_torch import Runner, Stage1Params, Stage2Params, trace  # noqa: E402
+from kmc_tpu_torch import (Runner, Stage1Params, Stage2Params,  # noqa: E402
+                           distributed_count, make_mesh, trace)
+from kmc_tpu_torch.ops.store import DeviceKmerStore  # noqa: E402
+from kmc_tpu_torch.parallel.multihost import _prefetch_groups  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 K, S = 27, 1 << 10
@@ -163,6 +168,67 @@ def test_profiled_count_records_the_span_tree(reads, tmp_path, route):
     events = json.loads(path.read_text())["traceEvents"]
     marked = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert names <= marked
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_sharded_count_records_its_feed_and_owners(reads, tmp_path, route):
+    """distributed_count on four CPU shards: the feed thread counts the
+    batches it packs and their positions, each owner's grouping sort
+    counts the rows it received (all the rows exchanged), and the owner
+    plan the fullest owner's planned rows."""
+    D = 4
+    with _profiler():
+        res = distributed_count([reads[route]], str(tmp_path / "db"), k=K,
+                                devices=make_mesh(D, device="cpu"),
+                                cutoff_min=1, batch_positions=S,
+                                capacity_rows_per_device=1 << 12)
+    recs = trace.records()
+    (stage1,) = [x for x in recs if x.name == "kmc.stage1"]
+    (feed,) = [x for x in recs if x.name == "kmc.ingest_feed"]
+    assert feed.thread != stage1.thread and stage1 in _ancestors(feed)
+    launches = [x for x in recs if x.name == "kmc.ingest_launch"]
+    assert feed.counters["batches"] == len(launches) > D
+    assert feed.counters["positions"] == sum(
+        x.counters["positions"] for x in launches) == S * len(launches)
+    for x in recs:
+        if x.name == "kmc.feed_put":
+            assert x.parent is feed and x.thread == feed.thread
+    owners = [x for x in recs if x.name == "kmc.owner"]
+    assert len(owners) == D
+    assert all(x.parent.name == "kmc.owner_sort" and x.counters["card"] == -1
+               for x in owners)
+    rows = [x.counters["rows"] for x in owners]
+    n_cols = DeviceKmerStore(64, k=K, sig_len=9, both_strands=True,
+                             n_bins=512, device="cpu").n_cols
+    # every exchanged row is read once and written once: key columns and
+    # its count, 4 bytes each
+    assert res["exchange_bytes"] == 2 * 4 * (n_cols + 1) * sum(rows) > 0
+    (plan,) = [x for x in recs if x.name == "kmc.owner_hist"]
+    assert plan.counters["rows_max"] == max(rows)
+
+
+def test_feed_waits_on_a_full_queue_inside_feed_put():
+    """A consumer slower than the feed: the feed's puts that find the queue
+    full wait inside kmc.feed_put, a child of kmc.ingest_feed on the feed
+    thread; without a profile the count's totals still hold them."""
+    groups = [["batch"] * 3 for _ in range(8)]
+    count = trace.Count()
+    for profiled in (False, True):
+        with _profiler() if profiled else nullcontext():
+            with trace.span("kmc.ingest", count=count) as root:
+                for group in _prefetch_groups(iter(groups), s=5):
+                    time.sleep(0.02)
+    assert count.counter("batches", "kmc.ingest_feed") == 2 * 24
+    assert count.counter("positions", "kmc.ingest_feed") == 2 * 120
+    assert count.calls("kmc.feed_put") >= 2 and \
+        count.seconds("kmc.feed_put") > 0
+    recs = trace.records()
+    (feed,) = [x for x in recs if x.name == "kmc.ingest_feed"]
+    assert feed.parent is root and feed.thread != root.thread
+    assert feed.counters == dict(feed.counters, batches=24, positions=120)
+    puts = [x for x in recs if x.name == "kmc.feed_put"]
+    assert puts and all(x.parent is feed and x.thread == feed.thread
+                        for x in puts)
 
 
 def test_serial_stream_waits_on_its_own_parse(reads, tmp_path):
