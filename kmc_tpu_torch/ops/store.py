@@ -135,20 +135,44 @@ def _group_reduce(cols, counts, n_keys: int, drop_zero: bool = True,
     columns in key order, int64 totals), totals taken mod 2^32 like the
     u32 arithmetic of kmc_tpu's store (exact when wrap is False); groups
     whose total is 0 are dropped unless drop_zero is False."""
+    return _group_totals(*_group_sort(cols, counts, n_keys), n_keys,
+                         drop_zero=drop_zero, wrap=wrap)
+
+
+def _group_sort(cols, counts, n_keys: int):
+    """_group_reduce's first half, which waits on nothing: the grouping
+    sort of the live rows (counts, when given, ride as the last column)
+    and a flag on each group's first row.  Returns (sorted columns,
+    flags); no sort is launched for no rows."""
     n = cols[0].shape[0]
     dev = cols[0].device
+    cols = cols + ([counts] if counts is not None else [])
     if n == 0:
-        return cols, torch.zeros(0, dtype=torch.int64, device=dev)
-    sorted_cols = radix_sort_columns(
-        cols + ([counts] if counts is not None else []), n_keys)
-    keys = sorted_cols[:n_keys]
+        return cols, torch.zeros(0, dtype=torch.bool, device=dev)
+    sorted_cols = radix_sort_columns(cols, n_keys)
     new = torch.zeros(n, dtype=torch.bool, device=dev)
-    new[0] = True
-    for c in keys:
+    # fill_: assigning a Python scalar to an element copies it from the
+    # host, which waits for the device (the sort just launched)
+    new[0].fill_(True)
+    for c in sorted_cols[:n_keys]:
         new[1:] |= c[1:] != c[:-1]
+    return sorted_cols, new
+
+
+def _group_totals(sorted_cols, new, n_keys: int, drop_zero: bool = True,
+                  wrap: bool = True):
+    """_group_reduce's second half on _group_sort's output: the group
+    starts (torch.nonzero, which waits for the sort), the totals (of the
+    counts column where there is one, else of the rows) and the
+    representatives."""
+    keys = sorted_cols[:n_keys]
+    n = new.shape[0]
+    dev = new.device
+    if n == 0:
+        return keys, torch.zeros(0, dtype=torch.int64, device=dev)
     starts = torch.nonzero(new).squeeze(1)
-    ends = torch.cat([starts[1:], torch.tensor([n], device=dev)])
-    if counts is None:
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    if len(sorted_cols) == n_keys:
         totals = ends - starts
     else:
         cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
@@ -698,14 +722,32 @@ class DeviceKmerStore:
         in kmc_tpu, a group whose total wraps to 0 stays as a dead row of
         count 0, and one dead row follows the groups whenever the store
         held a dead row, so n_used and every spilled run match kmc_tpu's
-        row for row."""
+        row for row.  Its two halves, run back to back."""
+        self._compact_finish(self._compact_issue())
+
+    def _compact_issue(self):
+        """compact's first half: the live rows (torch.nonzero, which waits
+        only for the store's queued ingest) and the launch of their
+        grouping sort.  Returns what _compact_finish takes; the store is
+        unchanged until then, so the sharded store issues every shard's
+        sort before it waits on any."""
         with trace.span("kmc.compact"):
             launches = radix_sort_columns.launches
             cols, counts = self._live_rows()
             n_live = cols[0].shape[0]
-            reps, totals = _group_reduce(cols, counts, self.n_cols,
+            sorted_cols, new = _group_sort(cols, counts, self.n_cols)
+            trace.add("rows", n_live)
+            trace.add("sort_launches", radix_sort_columns.launches - launches)
+            return sorted_cols, new, n_live
+
+    def _compact_finish(self, issued):
+        """compact's second half: the groups' totals and representatives
+        (torch.nonzero waits for the sort), written over the front of the
+        store."""
+        sorted_cols, new, n_live = issued
+        with trace.span("kmc.compact_finish"):
+            reps, totals = _group_totals(sorted_cols, new, self.n_cols,
                                          drop_zero=False)
-            del cols, counts
             zero = totals == 0
             g = totals.shape[0]
             if self.counts is None:
@@ -715,15 +757,14 @@ class DeviceKmerStore:
                 dst[:g] = torch.where(zero, _DEAD, src)
             self.counts[:g] = u32_to_i32(totals)
             if n_live < self.capacity:  # the group of the dead rows
+                # fill_, not an assignment, which would wait for the device
                 for dst in self.key_cols:
-                    dst[g] = _DEAD
-                self.counts[g] = 0
+                    dst[g].fill_(_DEAD)
+                self.counts[g].fill_(0)
                 g += 1
             self.n_used = g
             self.n_compactions += 1
             self._since_compact = 0
-            trace.add("rows", n_live)
-            trace.add("sort_launches", radix_sort_columns.launches - launches)
 
     # -- spill to host RAM under the -m budget --
 

@@ -13,7 +13,8 @@ process may drive every shard (D below), or several processes theirs
             runner's.
   compact   when the fullest shard cannot take another batch, every shard
             merges its duplicates (grouping-sort kernel), kmc_tpu's
-            schedule.
+            schedule; every shard's sort is launched before the host waits
+            on any shard's groups.
   spill     when the fullest shard still cannot take the batch after that,
             every shard's live rows go to host RAM, each shard's sorted by
             its key columns as a run of its own, and every shard starts
@@ -246,9 +247,17 @@ class ShardedKmerStore:
         self._rows_per_device += s
 
     def compact(self):
-        """Merge duplicates on every shard (materializes the counts)."""
-        for shard in self.shards:
-            shard.compact()
+        """Merge duplicates on every shard (materializes the counts): every
+        shard's grouping sort is issued before the host waits on any
+        shard's groups, so the shards' sorts run at once, each on its own
+        device (shards that share a device hold their sorted rows there
+        together until each is finished)."""
+        with trace.span("kmc.shard_compact", count=self._count):
+            issued = [shard._compact_issue() for shard in self.shards]
+            trace.add("shards", len(self.shards))
+            trace.add("rows", sum(n_live for _, _, n_live in issued))
+            for shard in self.shards:
+                shard._compact_finish(issued.pop(0))
         self.n_compactions += 1
         self._rows_per_device = self.fleet.allmax(
             max(sh.n_used for sh in self.shards))

@@ -207,6 +207,33 @@ def test_sharded_count_records_its_feed_and_owners(reads, tmp_path, route):
     assert plan.counters["rows_max"] == max(rows)
 
 
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_count_records_each_store_wide_compaction(reads, tmp_path,
+                                                          D):
+    """One kmc.shard_compact a store-wide compaction, on the counting
+    thread inside kmc.ingest, counting its shards and their live rows;
+    under it each shard's two halves, every shard's sort issued
+    (kmc.compact) before any shard is finished (kmc.compact_finish)."""
+    with _profiler():
+        res = distributed_count([reads["replay"]], str(tmp_path / "db"), k=K,
+                                devices=make_mesh(D, device="cpu"),
+                                cutoff_min=1, batch_positions=S,
+                                capacity_rows_per_device=1 << 12)
+    recs = trace.records()
+    passes = [x for x in recs if x.name == "kmc.shard_compact"]
+    assert len(passes) == res["n_compactions"] > 0
+    for sc in passes:
+        assert sc.parent.name == "kmc.ingest" and sc.thread == sc.parent.thread
+        assert sc.counters["shards"] == D
+        halves = sorted((x for x in recs if x.parent is sc),
+                        key=lambda x: x.start)
+        assert [x.name for x in halves] == (["kmc.compact"] * D
+                                            + ["kmc.compact_finish"] * D)
+        assert sc.counters["rows"] == sum(x.counters["rows"]
+                                          for x in halves[:D])
+    assert sum(x.name == "kmc.compact" for x in recs) == D * len(passes)
+
+
 def test_feed_waits_on_a_full_queue_inside_feed_put():
     """A consumer slower than the feed: the feed's puts that find the queue
     full wait inside kmc.feed_put, a child of kmc.ingest_feed on the feed
