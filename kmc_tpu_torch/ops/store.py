@@ -38,16 +38,18 @@ after every live row.  Counts are implicitly 1 until the first compaction
             empty; runs whose bytes cross the -m spill budget are re-merged
             into one.
   finalize  spilled runs are replayed into the store first; then the same
-            reduction and the completer: cutoffs, the exact KMC2 record
-            bytes (suffix + little-endian counter) and the per-(bin, prefix)
-            LUT, copied to the host in one piece.  When the replayed unique
-            set outgrows the store, the runs and the store are merged on
-            the device a key range at a time and each range goes through
-            the same completer while it is there: the "host" route (deferred
-            greedy, which re-sorts across ranges, copies the groups back and
-            completes them in NumPy).  KFF output and -w take the words-path
-            finalize (finalize) over the same three routes: the groups'
-            bins, k-mer lanes and clamped counts in record order.
+            reduction and an emitter chosen by the output, on the device:
+            _complete_groups (cutoffs, the exact KMC2 record bytes, suffix +
+            little-endian counter, and the per-(bin, prefix) LUT) or
+            _word_groups (KFF output and -w: the groups' bins, k-mer lanes
+            and clamped counts in record order), copied to the host in one
+            piece.  When the replayed unique set outgrows the store, the
+            "host" route hands the groups to the same emitter a piece at a
+            time, each piece's rows copied to the host as it completes: the
+            runs and the store merged on the device a key range at a time,
+            or, under deferred greedy (which re-sorts across ranges), the
+            host merge's remapped groups uploaded back in chunks.  Both
+            finalizes run one route skeleton (_finalize).
   merge     every merge of spilled runs (the re-merge and the host route's
             merge; the sharded store's too) runs on the store's device
             (merge_runs): the runs stay in host RAM and are cut at common
@@ -259,6 +261,20 @@ def _complete_groups(store, reps, totals, *, cutoff_min, cutoff_max,
                       counter_size=counter_size, n_bins=store.n_used_bins)
 
 
+def _word_groups(store, reps, totals, *, cutoff_min, cutoff_max,
+                 counter_max):
+    """The words path's emitter (KFF output and -w) over a store's grouped
+    rows in (bin, k-mer) order: (kept bins int32, their k-mer lanes
+    int32[n_keep, W] and counts clamped to counter_max, both u32 bit views,
+    (n_unique, n_below, n_above) tensors)."""
+    bins, wr = _split_bins(reps, fuse=store.fuse, r0=store.r0)
+    keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
+                           cutoff_max=cutoff_max, n_bins=store.n_used_bins)
+    return (bins[keep].to(torch.int32),
+            torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1),
+            u32_to_i32(torch.clamp(totals[keep], max=counter_max)), stats)
+
+
 class _SpillOverflow(Exception):
     """The replayed unique set exceeds the device store: finalize falls
     back to the host merge of the spilled runs."""
@@ -295,6 +311,14 @@ def _completer_row_bytes(n_keys: int, W: int, rec_bytes: int) -> int:
     the cutoff masks, the kept copies, the record bytes built as int64
     columns, stacked and narrowed, and the LUT's keys."""
     return 4 * n_keys + 16 * W + 48 + 17 * rec_bytes
+
+
+def _word_row_bytes(n_keys: int, W: int) -> int:
+    """Device bytes _word_groups may take for a group of a merge: the group
+    held, its bin and lanes split out and the cutoff masks (as in
+    _completer_row_bytes), the kept bin, lanes and total as int64, and
+    their int32 narrowings, the lanes twice while they are stacked."""
+    return 4 * n_keys + 16 * W + 48 + 8 * (W + 2) + 4 * (2 * W + 2)
 
 
 def _merge_rows(device, n_keys: int, max_bytes, caller: int = 96):
@@ -650,6 +674,14 @@ class DeviceKmerStore:
         (io/native.py::pack_codes_fused); hist as in ingest_boundaries."""
         self._ingest(buf, None, s, hist)
 
+    def ingest_packed(self, item, *, s: int,
+                      hist: torch.Tensor | None = None):
+        """Ingest one packed batch as the feeds hand it over: ("b", buf,
+        tail_start) in the boundary-delta feed or ("m", buf) in the
+        packed+mask feed; hist as in ingest_boundaries."""
+        self._ingest(item[1], int(item[2]) if item[0] == "b" else None, s,
+                     hist)
+
     def _ingest(self, buf, tail_start, s: int, hist=None):
         """The fused ingest (ops/ingest_kernel.py: decode, splitter scan,
         bin, append; mirrors kmc_tpu's _ingest_prefix_* and, for an eager
@@ -873,9 +905,9 @@ class DeviceKmerStore:
         the valid groups in the output's key order: under deferred greedy
         each unique k-mer is remapped to its greedy bin on the host and
         the groups re-sorted there (kmc_tpu's host mirror of its collect;
-        this route exists because they do not fit the device).  The
-        words-path finalize and deferred greedy's records take it.  The
-        store is consumed."""
+        this route exists because they do not fit the device).  Deferred
+        greedy's host route takes it, for both outputs (_remapped_groups).
+        The store is consumed."""
         with trace.span("kmc.host_merge"):
             runs = self._take_runs()
             launches = radix_sort_columns.launches
@@ -906,52 +938,63 @@ class DeviceKmerStore:
             trace.add("rows", len(bins))
             return bins, lanes, totals
 
-    def _finalize_records_host(self, *, cutoff_min, cutoff_max, counter_max,
-                               lut_prefix_len, counter_size):
-        """The host route (kmc_tpu's _finalize_records_host; same contract
-        as finalize_records), for a unique set that outgrows the store.
-        Where the merge's key order is the output's (prefix and eager
-        greedy stores), each merged key range goes through the completer
-        on the store's device (_complete_ranges).  Deferred greedy remaps
-        every k-mer and re-sorts across all ranges, so it takes the host
-        merge (kmc.host_merge) and the NumPy completer
-        (kmc.host_completer)."""
-        kw = dict(cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                  counter_max=counter_max, lut_prefix_len=lut_prefix_len,
-                  counter_size=counter_size)
+    def _finalize_records_host(self, emit, n_rows: int, row_bytes: int):
+        """The host route of both finalizes (kmc_tpu's
+        _finalize_records_host and its words-path twin), for a unique set
+        that outgrows the store; emit, n_rows and row_bytes as in
+        _finalize.  A group source hands the groups over in the output's
+        order a piece at a time, on the store's device: each key range of
+        the merge where its key order is the output's (prefix and eager
+        greedy stores, _merged_groups), else chunks of the host merge's
+        remapped groups (deferred greedy, which re-sorts across all ranges,
+        _remapped_groups).  Each piece goes through emit while it is there
+        and its rows are copied to the host as it completes
+        (kmc.host_completer [ranges, d2h_bytes]); the summed tensors and
+        the stats follow the last (kmc.host_completer [rows, d2h_bytes]).
+        Returns what _finalize returns."""
         with trace.span("kmc.host_route"):
-            if not self._g_defer:
-                return self._complete_ranges(**kw)
-            bins, lanes, totals = self._host_merge()
+            source = (self._remapped_groups if self._g_defer
+                      else self._merged_groups)
+            stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+            sums, parts = None, []
+            for got in source(row_bytes):
+                with trace.span("kmc.host_completer"):
+                    *out, stats_r = emit(*got)
+                    del got
+                    if sums is None:
+                        sums = [torch.zeros_like(x) for x in out[n_rows:]]
+                    for acc, x in zip(sums, out[n_rows:]):
+                        acc += x
+                    stats += torch.stack(stats_r)
+                    parts.append([x.cpu().numpy() for x in out[:n_rows]])
+                    del out
+                    trace.add("d2h_bytes", sum(x.nbytes for x in parts[-1]))
+                    trace.add("ranges", 1)
             with trace.span("kmc.host_completer"):
-                out = self._host_completer(bins, lanes, totals, **kw)
-                trace.add("rows", len(out[0]))
-                trace.add("ranges", 0)
-        return out
+                rows = [x[0] if len(x) == 1 else np.concatenate(x)
+                        for x in zip(*parts)]
+                del parts
+                sums = [x.cpu().numpy() for x in sums]
+                stats_h = tuple(int(x) for x in stats.cpu())
+                trace.add("rows", len(rows[0]))
+                trace.add("d2h_bytes",
+                          sum(x.nbytes for x in sums) + stats.nbytes)
+        return rows + sums, stats_h
 
-    def _complete_ranges(self, **kw):
-        """The spilled runs and the compacted store merged on the store's
-        device a key range at a time (kmc.host_merge), and each range's
-        groups, in the output's order, through the completer while they
-        are on the device (kmc.host_completer [ranges, d2h_bytes]), with
-        the merge's exact int64 totals (kmc_tpu's u64 host merge); each
-        range's records are copied to the host as it completes, the summed
-        LUT and the stats after the last (kmc.host_completer [rows,
-        d2h_bytes]).  kw: finalize_records' cutoffs and sizes.  The store
-        is consumed."""
-        lpl = kw["lut_prefix_len"]
-        rb = ((self.k - lpl) // 4 if lpl else (self.k + 3) // 4
-              ) + kw["counter_size"]
+    def _merged_groups(self, row_bytes: int):
+        """The host route's group source where the merge's key order is the
+        output's: the spilled runs and the compacted store merged on the
+        store's device a key range at a time (kmc.host_merge, once to take
+        the runs, then once a range [rows, sort_launches]), each range sized
+        to leave row_bytes a group for the emitter, with the merge's exact
+        int64 totals (kmc_tpu's u64 host merge).  Yields (key columns,
+        totals) a range, at least one.  The store is consumed."""
         with trace.span("kmc.host_merge"):
             live, _ = _live_runs(self._take_runs())
-            ranges = _merge_ranges(
-                live, self.n_cols, self.device,
-                caller=_completer_row_bytes(self.n_cols, self.W, rb))
+            ranges = _merge_ranges(live, self.n_cols, self.device,
+                                   caller=row_bytes)
             del live
-        lut = torch.zeros(self.n_used_bins << (2 * lpl), dtype=torch.int64,
-                          device=self.device)
-        stats = torch.zeros(3, dtype=torch.int64, device=self.device)
-        recs = []
+        n = 0
         while True:
             with trace.span("kmc.host_merge"):
                 launches = radix_sort_columns.launches
@@ -963,65 +1006,38 @@ class DeviceKmerStore:
                     trace.add("rows", len(got[1]))
             if got is None:
                 break
-            with trace.span("kmc.host_completer"):
-                rec, lut_r, stats_r = _complete_groups(self, *got, **kw)
-                del got
-                lut += lut_r
-                stats += torch.stack(stats_r)
-                recs.append(rec.cpu().numpy())
-                del rec
-                trace.add("d2h_bytes", recs[-1].nbytes)
-                trace.add("ranges", 1)
-        with trace.span("kmc.host_completer"):
-            rec_h = (recs[0] if len(recs) == 1 else
-                     np.concatenate(recs) if recs else
-                     np.empty((0, rb), np.uint8))
-            del recs
-            lut_h = lut.cpu().numpy().astype(np.uint64)
-            stats_h = tuple(int(x) for x in stats.cpu())
-            trace.add("rows", len(rec_h))
-            trace.add("d2h_bytes", lut_h.nbytes + stats.nbytes)
-        return rec_h, lut_h, stats_h
+            n += 1
+            yield got
+        if not n:  # no live row: one empty range, for the output's shapes
+            yield ([torch.empty(0, dtype=torch.int32, device=self.device)]
+                   * self.n_cols,
+                   torch.empty(0, dtype=torch.int64, device=self.device))
 
-    def _host_completer(self, bins, lanes, totals, *, cutoff_min, cutoff_max,
-                        counter_max, lut_prefix_len, counter_size):
-        """The NumPy completer over the host merge's groups: the record
-        bytes, the LUT and (n_unique, n_below, n_above)."""
-        below = totals < cutoff_min
-        above = totals > cutoff_max
-        keep = ~below & ~above
-        stats = (len(bins), int(below.sum()), int(above.sum()))
-        bins_k = bins[keep]
-        lanes_k = lanes[keep]
-        cnt = np.minimum(totals[keep], np.uint64(counter_max))
-
-        k, W, r0 = self.k, self.W, self.r0
-        suffix_bytes = (k - lut_prefix_len) // 4 if lut_prefix_len \
-            else (k + 3) // 4
-        n = len(bins_k)
-        rec = np.empty((n, suffix_bytes + counter_size), np.uint8)
-        all_bytes = np.ascontiguousarray(lanes_k).astype(">u4").view(
-            np.uint8).reshape(n, 4 * W)
-        rec[:, :suffix_bytes] = all_bytes[:, 4 * W - suffix_bytes:]
-        for j in range(counter_size):  # little-endian counter
-            rec[:, suffix_bytes + j] = (
-                (cnt >> np.uint64(8 * j)) & np.uint64(0xFF)).astype(np.uint8)
-        if lut_prefix_len:
-            if lut_prefix_len <= r0:
-                prefix = lanes_k[:, 0] >> np.uint32(2 * (r0 - lut_prefix_len))
-            else:
-                need = lut_prefix_len - r0  # bases from lane 1
-                prefix = ((lanes_k[:, 0].astype(np.uint64) << np.uint64(
-                    2 * need)) | (lanes_k[:, 1] >> np.uint32(
-                        2 * (16 - need)))).astype(np.uint32)
-            prefix &= np.uint32((1 << (2 * lut_prefix_len)) - 1)
-        else:
-            prefix = np.zeros(n, np.uint32)
-        keys = (bins_k.astype(np.uint64) << np.uint64(2 * lut_prefix_len)) \
-            | prefix
-        lut = np.bincount(keys.astype(np.int64),
-                          minlength=self.n_used_bins << (2 * lut_prefix_len))
-        return rec, lut.astype(np.uint64), stats
+    def _remapped_groups(self, row_bytes: int):
+        """Deferred greedy's group source: the host merge's groups
+        (_host_merge: remapped to greedy bins and re-sorted on the host)
+        uploaded back to the store's device in chunks sized as a merge's
+        key ranges are (_merge_rows, row_bytes a group for the emitter; an
+        emitter works row by row, so any cut is exact), as greedy key
+        columns and exact int64 totals (kmc.host_merge a chunk
+        [h2d_bytes]).  Yields at least one chunk.  The store is
+        consumed."""
+        bins, lanes, totals = self._host_merge()
+        n = len(totals)
+        step = _merge_rows(self.device, self.n_cols, None,
+                           row_bytes) or max(n, 1)
+        for a in range(0, max(n, 1), step):
+            with trace.span("kmc.host_merge"):
+                part = (bins[a:a + step].view(np.int32),
+                        lanes[a:a + step].view(np.int32),
+                        totals[a:a + step].view(np.int64))
+                trace.add("h2d_bytes", sum(x.nbytes for x in part))
+                b, w, t = (torch.from_numpy(x).to(self.device) for x in part)
+                lanes_d = [i32_to_u32(w[:, j]) for j in range(self.W)]
+                cols = _fused_cols(i32_to_u32(b), lanes_d, fuse=self.fuse,
+                                   r0=self.r0)
+                del b, w, lanes_d
+            yield cols, t
 
     def total_occurrences(self) -> int:
         return int(self.occ_acc)
@@ -1091,14 +1107,19 @@ class DeviceKmerStore:
             trace.add("rows", len(totals))
         return out[:-1], i32_to_u32(out[-1])
 
-    def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
-                         counter_max: int, lut_prefix_len: int,
-                         counter_size: int):
-        """Completer: returns (rec u8[N, record_bytes] in final record
-        order, cutoff-filtered; lut uint64[n_bins << 2*lpl]; (n_unique,
-        n_below, n_above)).  Spilled runs are replayed into the store
-        first; when they do not fit, the host merge and the host completer
-        take over (kmc_tpu's route).  The store is consumed."""
+    def _finalize(self, emit, n_rows: int, row_bytes: int):
+        """The route skeleton of both finalizes.  emit(reps, totals) takes
+        grouped rows in the output's key order on the store's device and
+        returns (*row tensors, *summed tensors, (n_unique, n_below,
+        n_above) tensors), its first n_rows tensors a row per kept group;
+        row_bytes: the device bytes it may take for a group.  Spilled runs
+        are replayed into the store first; the live rows' groups
+        (_reduce_live) then go through emit and are copied to the host in
+        one piece (the device and replay routes; kmc.finalize_exec ends
+        with the device, then kmc.finalize_d2h).  When they do not fit, the
+        host route takes over (_finalize_records_host).  Returns ([row
+        arrays, summed arrays] on the host, the stats as ints).  The store
+        is consumed."""
         with trace.span("kmc.finalize"):
             self._require_sig_map()
             replayed = bool(self.spilled)
@@ -1106,77 +1127,52 @@ class DeviceKmerStore:
                 self._replay_spills()
             except _SpillOverflow:
                 self.finalize_route = "host"
-                return self._finalize_records_host(
-                    cutoff_min=cutoff_min, cutoff_max=cutoff_max,
-                    counter_max=counter_max, lut_prefix_len=lut_prefix_len,
-                    counter_size=counter_size)
+                return self._finalize_records_host(emit, n_rows, row_bytes)
             self.finalize_route = "replay" if replayed else "device"
             with trace.span("kmc.finalize_exec"):  # ends with the device
-                rec, lut, stats = _complete_groups(
-                    self, *self._reduce_live(), cutoff_min=cutoff_min,
-                    cutoff_max=cutoff_max, counter_max=counter_max,
-                    lut_prefix_len=lut_prefix_len, counter_size=counter_size)
+                *out, stats = emit(*self._reduce_live())
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             with trace.span("kmc.finalize_d2h"):
-                rec_h = rec.cpu().numpy()
-                lut_h = lut.cpu().numpy().astype(np.uint64)
-                stats_h = tuple(int(x) for x in torch.stack(stats).cpu())
-                trace.add("rows", len(rec_h))
-                trace.add("bytes", rec_h.nbytes + lut_h.nbytes)
+                out = [x.cpu().numpy() for x in out]
+                stats = tuple(int(x) for x in torch.stack(stats).cpu())
+                trace.add("rows", len(out[0]))
+                trace.add("bytes", sum(x.nbytes for x in out))
             self.key_cols = self.counts = None
-            return rec_h, lut_h, stats_h
+            return out, stats
+
+    def finalize_records(self, *, cutoff_min: int, cutoff_max: int,
+                         counter_max: int, lut_prefix_len: int,
+                         counter_size: int):
+        """KMC2 finalize: _finalize with the completer (_complete_groups).
+        Returns (rec u8[N, record_bytes] in final record order,
+        cutoff-filtered; lut uint64[n_bins << 2*lpl]; (n_unique, n_below,
+        n_above)).  The store is consumed."""
+        kw = dict(cutoff_min=cutoff_min, cutoff_max=cutoff_max,
+                  counter_max=counter_max, lut_prefix_len=lut_prefix_len,
+                  counter_size=counter_size)
+        rb = ((self.k - lut_prefix_len) // 4 if lut_prefix_len
+              else (self.k + 3) // 4) + counter_size
+        (rec, lut), stats = self._finalize(
+            lambda reps, totals: _complete_groups(self, reps, totals, **kw),
+            1, _completer_row_bytes(self.n_cols, self.W, rb))
+        return rec, lut.view(np.uint64), stats
 
     def finalize(self, *, cutoff_min: int, cutoff_max: int,
                  counter_max: int):
         """Words-path finalize (KFF output and -w; kmc_tpu's finalize):
-        returns (bins int32, words uint32[N, W], counts uint32, (n_unique,
-        n_below, n_above)) as host arrays in final record order,
-        cutoff-filtered and clamped to counter_max.  Same three routes and
-        count arithmetics as finalize_records: the device and replay
-        routes take u32 group totals (a group that wraps to 0 is dropped),
-        the host route u64 totals.  The store is consumed."""
-        with trace.span("kmc.finalize"):
-            self._require_sig_map()
-            replayed = bool(self.spilled)
-            try:
-                self._replay_spills()
-            except _SpillOverflow:
-                self.finalize_route = "host"
-                with trace.span("kmc.host_route"):
-                    bins, lanes, totals = self._host_merge()
-                    with trace.span("kmc.host_completer"):
-                        below = totals < cutoff_min
-                        above = totals > cutoff_max
-                        keep = ~below & ~above
-                        cnt = np.minimum(totals[keep], np.uint64(counter_max))
-                        out = (bins[keep].astype(np.int32), lanes[keep],
-                               cnt.astype(np.uint32),
-                               (len(bins), int(below.sum()),
-                                int(above.sum())))
-                        trace.add("rows", len(cnt))
-                return out
-            self.finalize_route = "replay" if replayed else "device"
-            with trace.span("kmc.finalize_exec"):  # ends with the device
-                reps, totals = self._reduce_live()
-                bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-                keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
-                                       cutoff_max=cutoff_max,
-                                       n_bins=self.n_used_bins)
-                out_bins = bins[keep].to(torch.int32)
-                words = torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1)
-                cnt = u32_to_i32(torch.clamp(totals[keep], max=counter_max))
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            with trace.span("kmc.finalize_d2h"):
-                out = (out_bins.cpu().numpy(), _host_u32(words),
-                       _host_u32(cnt),
-                       tuple(int(x) for x in torch.stack(stats).cpu()))
-                trace.add("rows", len(out[0]))
-                trace.add("bytes", out[0].nbytes + out[1].nbytes
-                          + out[2].nbytes)
-            self.key_cols = self.counts = None
-            return out
+        _finalize with the words emitter (_word_groups).  Returns (bins
+        int32, words uint32[N, W], counts uint32, (n_unique, n_below,
+        n_above)) as host arrays in final record order, cutoff-filtered and
+        clamped to counter_max.  The device and replay routes take u32
+        group totals (a group that wraps to 0 is dropped), the host route
+        exact totals, as finalize_records.  The store is consumed."""
+        (bins, words, counts), stats = self._finalize(
+            lambda reps, totals: _word_groups(
+                self, reps, totals, cutoff_min=cutoff_min,
+                cutoff_max=cutoff_max, counter_max=counter_max),
+            3, _word_row_bytes(self.n_cols, self.W))
+        return bins, words.view(np.uint32), counts.view(np.uint32), stats
 
     # -- stage-1 checkpoints, in kmc_tpu's file format --
 

@@ -113,9 +113,8 @@ from ..defs import MAX_K, STATS_SAMPLE_BYTES, calc_counter_size
 from ..io.readers import homopolymer_compress_stream
 from ..ops.extract import i32_to_u32, u32_to_i32
 from ..ops.sort_kernel import radix_sort_columns
-from ..ops.store import (DeviceKmerStore, _complete_groups, _cutoffs,
-                         _group_reduce, _host_u32, _split_bins, merge_runs,
-                         remerge_runs)
+from ..ops.store import (DeviceKmerStore, _complete_groups, _group_reduce,
+                         _host_u32, _word_groups, merge_runs, remerge_runs)
 from ..runner import MIN_DEVICE_K, n_cpus
 from .distributed import Fleet, resolve_devices
 from .exchange_kernel import (ragged_all_to_all, ragged_all_to_all_processes,
@@ -239,10 +238,7 @@ class ShardedKmerStore:
         for shard, item in zip(self.shards, items):
             if self._carry is not None:
                 shard.prev_sig = self._carry.to(shard.device)
-            if item[0] == "b":
-                shard.ingest_boundaries(item[1], item[2], s=s)
-            else:
-                shard.ingest_fused(item[1], s=s)
+            shard.ingest_packed(item, s=s)
             self._carry = shard.prev_sig
         self._rows_per_device += s
 
@@ -554,15 +550,9 @@ class ShardedKmerStore:
         parts = []
 
         def collect(reps, totals):
-            bins, wr = _split_bins(reps, fuse=self.fuse, r0=self.r0)
-            keep, stats = _cutoffs(bins, totals, cutoff_min=cutoff_min,
-                                   cutoff_max=cutoff_max,
-                                   n_bins=self.n_used_bins)
-            parts.append((
-                bins[keep].to(torch.int32),
-                torch.stack([u32_to_i32(w[keep]) for w in wr], dim=1),
-                u32_to_i32(torch.clamp(totals[keep], max=counter_max)),
-                torch.stack(stats)))
+            parts.append(_word_groups(
+                self, reps, totals, cutoff_min=cutoff_min,
+                cutoff_max=cutoff_max, counter_max=counter_max))
 
         n_total, n_skm = self._owner_groups(collect)
         with trace.span("kmc.finalize_d2h", count=self._count):
@@ -574,7 +564,7 @@ class ShardedKmerStore:
                 bins.append(b.cpu().numpy())
                 words.append(_host_u32(w))
                 counts.append(_host_u32(c))
-                stats += st.cpu().numpy()
+                stats += torch.stack(st).cpu().numpy()
                 trace.add("bytes", bins[-1].nbytes + words[-1].nbytes
                           + counts[-1].nbytes)
             del parts
@@ -633,17 +623,11 @@ def _process_chunk_gen(input_files, fmt, state, *, shard_input,
 
 
 def _groups(batches, D: int):
-    """Pack batches and yield them in groups of up to D, one per shard in
-    deal order: ("b", buf, tail_start) in the boundary-delta feed when the
-    batch's sentinels are sparse, else ("m", buf) packed+mask (the
-    single-device runner's choice, made per batch)."""
-    from ..io.native import pack_codes_boundaries, pack_codes_fused
-
+    """Pack batches (_pack_batch) and yield them in groups of up to D, one
+    per shard in deal order."""
     group = []
     for batch in batches:
-        buf, ts = pack_codes_boundaries(batch)
-        group.append(("b", buf, ts) if buf is not None
-                     else ("m", pack_codes_fused(batch)))
+        group.append(_pack_batch(batch))
         if len(group) == D:
             yield group
             group = []
@@ -749,7 +733,9 @@ def _serial_deal(batches, fleet, pack, carry_of=None):
 
 
 def _pack_batch(batch):
-    """One batch in the single-device runner's feed choice (see _groups)."""
+    """One batch packed as the single-device runner packs it, choosing per
+    batch: ("b", buf, tail_start) in the boundary-delta feed when the
+    batch's sentinels are sparse, else ("m", buf) packed+mask."""
     from ..io.native import pack_codes_boundaries, pack_codes_fused
 
     buf, ts = pack_codes_boundaries(batch)

@@ -486,11 +486,7 @@ class Runner:
                         if item is None:
                             return
                         h = hist if fold and sampled < sample_cap else None
-                        if item[0] == "b":
-                            store.ingest_boundaries(item[1], item[2], s=s,
-                                                    hist=h)
-                        else:
-                            store.ingest_fused(item[1], s=s, hist=h)
+                        store.ingest_packed(item, s=s, hist=h)
                         if h is not None:
                             sampled += s
                 except BaseException as e:  # noqa: BLE001 - re-raised

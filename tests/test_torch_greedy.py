@@ -144,11 +144,11 @@ def test_greedy_spilling_count(spill_reads, tmp_path, monkeypatch, mode,
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_greedy_host_route_completer(spill_reads, tmp_path, monkeypatch,
                                      mode):
-    """Deferred greedy remaps and re-sorts across all merged key ranges, so
-    its host route keeps the host merge and the NumPy completer (one
-    kmc.host_completer, no range completed on the device); eager greedy's
-    merge order is the output's, and it completes each range on the
-    device.  Both write kmc_tpu's bytes, cut into many ranges."""
+    """Both modes complete their host route on the device a piece at a
+    time: eager greedy each key range of the merge (its merge order is the
+    output's), deferred greedy, which remaps and re-sorts across all merged
+    key ranges, chunks of the host merge's groups uploaded back.  Both write
+    kmc_tpu's bytes, cut into many pieces."""
     monkeypatch.setattr(store_mod, "_merge_rows", lambda *a, **kw: 2000)
     (r, _), _ = _both(spill_reads["host"], tmp_path, monkeypatch, mode, k=27,
                       cutoff_min=1, batch_positions=1 << 10,
@@ -156,11 +156,8 @@ def test_greedy_host_route_completer(spill_reads, tmp_path, monkeypatch,
     _same_db(tmp_path / "torch", tmp_path / "jax")
     assert r.spill_stats["finalize_route"] == "host"
     ranges = r._count.counter("ranges", "kmc.host_completer")
-    if mode == "deferred":
-        assert ranges == 0 and r._count.calls("kmc.host_completer") == 1
-    else:
-        assert ranges >= 3
-        assert r._count.calls("kmc.host_completer") == ranges + 1
+    assert ranges >= 3
+    assert r._count.calls("kmc.host_completer") == ranges + 1
 
 
 def _kff_bytes(path):

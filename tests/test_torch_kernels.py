@@ -934,14 +934,24 @@ def test_spilling_count_on_card_matches_cpu(tmp_path, genome_len, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [27, 33])
-def test_host_route_ranges_on_card_matches_cpu(tmp_path, monkeypatch, k):
-    """The host route's completer on the card, over a merge cut into many
-    key ranges, each range's records copied as it completes."""
+@pytest.mark.parametrize("k,case", [(27, "kmc2"), (33, "kmc2"), (27, "kff"),
+                                    (27, "greedy")])
+def test_host_route_ranges_on_card_matches_cpu(tmp_path, monkeypatch, k,
+                                               case):
+    """The host route's emitter on the card, over a merge cut into many
+    key ranges, each range's rows copied as it completes: KMC2 records, KFF
+    output (the words emitter), and deferred greedy (the host merge's
+    remapped groups uploaded back in chunks)."""
     _need_card()
-    from kmc_tpu_torch import Runner, Stage1Params, Stage2Params
+    from kmc_tpu_torch import (OutputFileType, Runner, Stage1Params,
+                               Stage2Params)
     from kmc_tpu_torch.ops import store as store_mod
 
+    monkeypatch.setenv("KMC_TPU_GREEDY_DEFER", "1")
+    s1 = dict(signature_map_policy="greedy") if case == "greedy" else {}
+    s2 = (dict(output_file_type=OutputFileType.KFF) if case == "kff"
+          else {})
+    sufs = (".kff",) if case == "kff" else (".kmc_pre", ".kmc_suf")
     _card_fastq(tmp_path / "in.fastq", 60000, 4000, seed=2)
     ranges = {}
     for dev in ("cuda", "cpu"):
@@ -951,12 +961,12 @@ def test_host_route_ranges_on_card_matches_cpu(tmp_path, monkeypatch, k):
             r = Runner(device=dev)
             r.run_stage1(Stage1Params(
                 input_files=[str(tmp_path / "in.fastq")], kmer_len=k,
-                batch_positions=1 << 14, device_store_rows=1 << 15))
+                batch_positions=1 << 14, device_store_rows=1 << 15, **s1))
             r.run_stage2(Stage2Params(output_file_name=str(tmp_path / dev),
-                                      cutoff_min=1))
+                                      cutoff_min=1, **s2))
         assert r.spill_stats["finalize_route"] == "host"
         ranges[dev] = r._count.counter("ranges", "kmc.host_completer")
-    for suf in (".kmc_pre", ".kmc_suf"):
+    for suf in sufs:
         assert (tmp_path / f"cuda{suf}").read_bytes() == \
             (tmp_path / f"cpu{suf}").read_bytes()
     assert ranges["cuda"] >= 3 and ranges["cpu"] == 1

@@ -22,6 +22,7 @@ from kmc_tpu.runner import count as jax_count  # noqa: E402
 from kmc_tpu_torch import (OutputFileType, Runner, Stage1Params,  # noqa: E402
                            Stage2Params)
 from kmc_tpu_torch.formats import kff as torch_kff  # noqa: E402
+from kmc_tpu_torch.ops import store as store_mod  # noqa: E402
 from kmc_tpu_torch.ops.store import DeviceKmerStore  # noqa: E402
 
 _TIMES = {"time", "time_strict_mem", "time_finalize_exec", "time_finalize_d2h"}
@@ -145,15 +146,23 @@ def _same_kff(tmp_path):
     return got
 
 
-@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("route", sorted(ROUTES) + ["host_ranges"])
 @pytest.mark.parametrize("k", [16, 27, 33, 129])
-def test_count_kff_byte_identical(reads, tmp_path, route, k):
+def test_count_kff_byte_identical(reads, tmp_path, monkeypatch, route, k):
+    """Each route; host_ranges: the host route with its merge cut into key
+    ranges of at most 2000 rows, each range's words completed on the
+    device and copied as it completes."""
+    if route == "host_ranges":
+        monkeypatch.setattr(store_mod, "_merge_rows", lambda *a, **kw: 2000)
+    route, ranges = route.split("_")[0], route == "host_ranges"
     glen, rows = ROUTES[route]
     r, res = _both_counts(reads[glen], tmp_path, k, cutoff_min=1,
                           batch_positions=1 << 10, device_store_rows=rows,
                           output_file_type=OutputFileType.KFF)
     _same_kff(tmp_path)
     assert r.spill_stats["finalize_route"] == route
+    if ranges:
+        assert r._count.counter("ranges", "kmc.host_completer") >= 3
     data = torch_kff.read_kff(str(tmp_path / "torch.kff"))
     assert len(data.kmers) == res.n_unique_kmers - res.n_below_cutoff_min \
         - res.n_above_cutoff_max > 0
