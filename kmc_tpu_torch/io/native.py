@@ -1,11 +1,12 @@
 """ctypes bindings for the native host runtime (native/kmc_host.cpp).
 
 The port's counterpart of kmc_tpu/io/native.py.  The shared library is built
-on first use from the same source with the same g++ command, into the port's
-own build directory (kmc_tpu_torch/_build/native/), keyed on a hash of the
-source (the build is -march=native, so a copied binary must not mask a
-source change).  The port has no NumPy parser: a machine that cannot build
-the runtime raises when input is first read.
+on first use from the same source with the same g++ command, together with
+the port's chunk reader (csrc/read_parse.cpp), into the port's own build
+directory (kmc_tpu_torch/_build/native/), keyed on a hash of the sources
+(the build is -march=native, so a copied binary must not mask a source
+change).  The port has no NumPy parser: a machine that cannot build the
+runtime raises when input is first read.
 """
 from __future__ import annotations
 
@@ -21,18 +22,22 @@ import numpy as np
 _lock = threading.Lock()
 _lib = None
 
-_SRC = Path(__file__).resolve().parent.parent.parent / "native" / "kmc_host.cpp"
+_SRCS = (Path(__file__).resolve().parent.parent.parent / "native" / "kmc_host.cpp",
+         Path(__file__).resolve().parent.parent / "csrc" / "read_parse.cpp")
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build" / "native"
+# read_parse_chunk's source of last resort: fill(buf, n) -> bytes written
+FILL = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64)
 
 
 def _load() -> ctypes.CDLL:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(p.read_bytes()
+                                     for p in _SRCS)).hexdigest()[:16]
     so = _BUILD_DIR / f"libkmc_host-{digest}.so"
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(".so.tmp%d" % os.getpid())
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               str(_SRC), "-o", str(tmp), "-lz"]
+               *map(str, _SRCS), "-o", str(tmp), "-lz"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if r.returncode:
             raise RuntimeError(
@@ -53,6 +58,10 @@ def _load() -> ctypes.CDLL:
     lib.gz_read.argtypes = [ctypes.c_void_p, u8p, ctypes.c_int64]
     lib.gz_close.restype = None
     lib.gz_close.argtypes = [ctypes.c_void_p]
+    lib.read_parse_chunk.restype = ctypes.c_int64
+    lib.read_parse_chunk.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, FILL, ctypes.c_int, u8p,
+        ctypes.c_int64, ctypes.c_int64, u8p, i64p, i64p]
     lib.pack_codes_fused.restype = None
     lib.pack_codes_fused.argtypes = [u8p, ctypes.c_int64, u8p]
     lib.pack_codes_boundaries.restype = ctypes.c_int64
@@ -85,6 +94,8 @@ class NativeParser:
             self._fn = lib.parse_fasta
         else:
             raise ValueError(fmt)
+        self._lib = lib
+        self._fasta = fmt != "fastq"
         self.state = np.zeros(2, dtype=np.int64)
 
     @property
@@ -100,6 +111,43 @@ class NativeParser:
             self.state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
         return out[:n]
+
+    def read_chunk(self, reader, buf: np.ndarray, want: int):
+        """One chunk: at most `want` input bytes read from reader in pieces
+        of at most len(buf), the read buffer, each parsed as soon as it is
+        read, its codes written at the running offset of one output for the
+        chunk; all in one native call (csrc/read_parse.cpp), which holds
+        the interpreter lock only to call a Python reader back.  reader: a
+        raw file, read from its offset; a NativeGzReader; or anything with
+        read_into(view), called for each piece.  Returns (codes, input
+        bytes read, whether they end in a newline, pieces, seconds spent
+        reading)."""
+        out = np.empty(want + 1, dtype=np.uint8)  # at most a code a byte
+        io = np.zeros(4, dtype=np.int64)
+        fd, gz, errors = -1, None, []
+        if isinstance(reader, NativeGzReader):
+            gz = reader.handle
+        elif hasattr(reader, "fileno"):
+            fd = reader.fileno()
+
+        def fill(_, n):
+            try:
+                return reader.read_into(buf[:n])
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+                return -1
+
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        callback = FILL(fill)  # alive for the call
+        m = self._lib.read_parse_chunk(
+            fd, gz, callback, self._fasta, _u8ptr(buf), len(buf), want,
+            _u8ptr(out), self.state.ctypes.data_as(i64p),
+            io.ctypes.data_as(i64p))
+        if m < 0:
+            if errors:
+                raise errors[0]
+            raise OSError("gzip inflate error" if gz else "input read error")
+        return out[:m], int(io[0]), io[1] == 10, int(io[2]), io[3] / 1e9
 
 
 class NativeBamParser:

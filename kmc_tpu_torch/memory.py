@@ -11,8 +11,11 @@ The device design has different pools, so the carve is different, but the
 semantics are the same: `-m` is a HOST-RAM budget every sized buffer
 derives from.
 
-  parse pool   native reader chunk buffers (CHUNK_BYTES per live chunk,
-               one in flight per parser thread plus the packer copy)
+  parse pool   the parsed chunks: one output of CHUNK_BYTES + 1 a chunk
+               (only the pages its codes fill are touched), one being
+               filled per parser thread, the queued ones and the one the
+               batches are cut from; beside them each parser thread's
+               read buffer of io.readers.PIECE_BYTES (1 MiB)
   host pool    everything row-shaped on the host: spilled compacted runs,
                the external-merge window, and the finalize D2H record
                assembly

@@ -46,15 +46,15 @@ def test_parser_exception_does_not_hang_consumer(tmp_path, monkeypatch):
                              random_reads(2000, 90, seed=i)))
              for i in range(4)]
     calls = []
-    real_parse = native.NativeParser.parse
+    real_read_chunk = native.NativeParser.read_chunk
 
-    def exploding(self, buf):
+    def exploding(self, *args):
         calls.append(1)
         if len(calls) == 2:
             raise RuntimeError("injected parser fault")
-        return real_parse(self, buf)
+        return real_read_chunk(self, *args)
 
-    monkeypatch.setattr(native.NativeParser, "parse", exploding)
+    monkeypatch.setattr(native.NativeParser, "read_chunk", exploding)
     monkeypatch.setattr(readers, "CHUNK_BYTES", 1 << 12)
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="injected parser fault"):

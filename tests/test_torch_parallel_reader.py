@@ -287,3 +287,83 @@ def test_batchstream_tail_interval_no_window_loss():
             starts = np.flatnonzero(run[1:] >= k) - (k - 1)
             got += int(((starts >= 0) & (starts < s)).sum())
         assert got == n - k + 1, (n, got)
+
+
+def _chunk_inputs(tmp_path, kind):
+    """Two input files of one kind, ~70 KB each: plain FASTQ, FASTQ whose
+    last line has no newline, multi-line FASTA, plain gzip of two members
+    split mid-record, and BGZF."""
+    paths = []
+    for i in range(2):
+        reads = random_reads(300, 110, seed=60 + i)
+        if kind == "fasta":
+            paths.append(write_fasta(tmp_path / f"in{i}.fa", reads,
+                                     line_width=50))
+            continue
+        text = "".join(f"@r{j}\n{r}\n+\n{'I' * len(r)}\n"
+                       for j, r in enumerate(reads)).encode()
+        if kind == "fastq_unterminated":
+            text = text[:-1]
+        p = tmp_path / (f"in{i}.fastq" + (".gz" if kind in ("gz", "bgzf")
+                                          else ""))
+        if kind == "gz":
+            cut = len(text) // 2 + 7
+            p.write_bytes(gzip.compress(text[:cut]) + gzip.compress(text[cut:]))
+        elif kind == "bgzf":
+            _write_bgzf_gz(p, text, block_bytes=1000)
+        else:
+            p.write_bytes(text)
+        paths.append(str(p))
+    return paths
+
+
+def _stream_chunks(module, stream, paths, fmt):
+    """(chunks, ParseState) of one package's stream over paths."""
+    st = module.ParseState()
+    if stream == "serial":
+        return list(module.file_code_stream(paths, fmt, st)), st
+    if stream == "parallel":
+        return list(module.parallel_code_stream(paths, fmt, st,
+                                                n_threads=3)), st
+    chunks = []
+    for part in module.process_input_shards(paths, fmt, 2,
+                                            min_shard_bytes=4096):
+        chunks += list(module.shard_code_stream(part, fmt, st, n_threads=2))
+    return chunks, st
+
+
+# (chunk bytes, piece bytes): the chunk below one piece, equal to one, and
+# two pieces and a part
+CHUNK_PIECES = {"below": (700, 1024), "equal": (1024, 1024),
+                "ragged": (2500, 1024)}
+
+
+@pytest.mark.parametrize("sizes", sorted(CHUNK_PIECES))
+@pytest.mark.parametrize("kind", ["fastq", "fastq_unterminated", "fasta",
+                                  "gz", "bgzf"])
+@pytest.mark.parametrize("stream", ["serial", "parallel", "shard"])
+def test_chunks_read_in_pieces_are_kmc_tpus(tmp_path, monkeypatch, stream,
+                                            kind, sizes):
+    """Each stream reads and parses a chunk a piece at a time, yet yields
+    kmc_tpu's chunks one for one (lengths and codes), with its read count
+    and consumed bytes."""
+    chunk, piece = CHUNK_PIECES[sizes]
+    monkeypatch.setattr(readers, "CHUNK_BYTES", chunk)
+    monkeypatch.setattr(jax_readers, "CHUNK_BYTES", chunk)
+    monkeypatch.setattr(readers, "PIECE_BYTES", piece)
+    for module in (readers, jax_readers):  # shards of a few KB
+        orig = module._file_shards
+        monkeypatch.setattr(
+            module, "_file_shards",
+            lambda path, fmt, n, min_shard_bytes=4096, _orig=orig: _orig(
+                path, fmt, n, min_shard_bytes=min_shard_bytes))
+    fmt = "fasta" if kind == "fasta" else "fastq"
+    paths = _chunk_inputs(tmp_path, kind)
+    got, s_got = _stream_chunks(readers, stream, paths, fmt)
+    want, s_want = _stream_chunks(jax_readers, stream, paths, fmt)
+    assert [len(c) for c in got] == [len(c) for c in want]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert sum(len(c) for c in got) > 60000
+    assert (s_got.n_reads, s_got.consumed_bytes) == (
+        s_want.n_reads, s_want.consumed_bytes)
+    assert s_got.n_reads == 600

@@ -17,8 +17,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).parent))
 from util import random_reads, write_fastq  # noqa: E402
 
-from kmc_tpu_torch import (Runner, Stage1Params, Stage2Params,  # noqa: E402
+from kmc_tpu_torch import (EstimateHistogramCfg, Runner,  # noqa: E402
+                           Stage1Params, Stage2Params,
                            distributed_count, make_mesh, trace)
+from kmc_tpu_torch.io import readers  # noqa: E402
 from kmc_tpu_torch.ops.store import DeviceKmerStore  # noqa: E402
 from kmc_tpu_torch.parallel.multihost import _prefetch_groups  # noqa: E402
 
@@ -104,7 +106,7 @@ def test_profiled_count_records_the_span_tree(reads, tmp_path, route):
     names = {x.name for x in recs}
     assert all(n.startswith("kmc.") for n in names)
     assert {"kmc.stage1", "kmc.stage2", "kmc.store_setup", "kmc.parse_wait",
-            "kmc.read", "kmc.parse", "kmc.assemble", "kmc.pack",
+            "kmc.parse", "kmc.assemble", "kmc.pack",
             "kmc.queue_put", "kmc.queue_get", "kmc.h2d",
             "kmc.ingest_launch", "kmc.compact", "kmc.spill",
             "kmc.spill_wait", "kmc.spill_d2h", "kmc.replay", "kmc.finalize",
@@ -117,8 +119,8 @@ def test_profiled_count_records_the_span_tree(reads, tmp_path, route):
     # their own, descend from the count's stage 1
     others = [x for x in recs if x.thread != stage1.thread]
     assert {x.name for x in others} >= {"kmc.ingest_worker", "kmc.reader",
-                                        "kmc.queue_get", "kmc.read",
-                                        "kmc.parse", "kmc.spill"}
+                                        "kmc.queue_get", "kmc.parse",
+                                        "kmc.spill"}
     assert all(stage1 in _ancestors(x) for x in others)
     for x in recs:
         if x.name in ("kmc.spill_wait", "kmc.spill_d2h"):
@@ -132,6 +134,10 @@ def test_profiled_count_records_the_span_tree(reads, tmp_path, route):
             assert x.parent.parent is stage1
         if x.name in ("kmc.ingest_worker", "kmc.reader"):
             assert {"user_s", "sys_s", "minflt"} <= set(x.counters)
+        if x.name == "kmc.parse":  # a chunk, read and parsed in one call
+            assert x.parent.name == "kmc.reader"
+            assert {"bytes", "read_s", "user_s", "sys_s",
+                    "minflt"} <= set(x.counters)
     if route == "host":
         assert {"kmc.host_route", "kmc.host_merge",
                 "kmc.host_completer"} <= names
@@ -271,6 +277,46 @@ def test_serial_stream_waits_on_its_own_parse(reads, tmp_path):
     assert sum((x.counters or {}).get("bytes", 0) for x in waits) == Path(
         reads["replay"]).stat().st_size
     assert not any(x.name in ("kmc.read", "kmc.parse") for x in recs)
+
+
+@pytest.mark.parametrize("estimate", [False, True])
+@pytest.mark.parametrize("n_readers", [1, 2])
+def test_readers_keep_one_read_buffer(tmp_path, monkeypatch, n_readers,
+                                      estimate):
+    """Each reader allocates one read buffer for the count, whatever the
+    number of shards it ran (five files on two pool threads; the serial
+    stream counts on kmc.parse_wait), and reads and parses each chunk in
+    pieces; the pieces leave the database and the -e estimate as one
+    piece a chunk writes them."""
+    paths = [write_fastq(tmp_path / f"in{i}.fastq",
+                         random_reads(300, 100, seed=40 + i, genome_len=3000))
+             for i in range(5)]
+    kw = dict(input_files=paths, n_reader_threads=n_readers)
+    if estimate:
+        kw["estimate_histogram_cfg"] = \
+            EstimateHistogramCfg.ESTIMATE_AND_COUNT_KMERS
+    _, whole, _ = _count(paths[0], tmp_path / "whole", **kw)
+    monkeypatch.setattr(readers, "PIECE_BYTES", 4096)
+    with _profiler():
+        r, r1, _ = _count(paths[0], tmp_path / "pieces", **kw)
+    recs = trace.records()
+    pieces = sum(-(-Path(p).stat().st_size // 4096) for p in paths)
+    if n_readers == 1:
+        owners = [x for x in recs if x.name == "kmc.parse_wait"]
+        assert not any(x.name == "kmc.reader" for x in recs)
+    else:
+        owners = [x for x in recs if x.name == "kmc.reader"]
+        assert len(owners) == 2
+        assert all(x.counters["buffers"] == 1 for x in owners)
+    assert sum((x.counters or {}).get("buffers", 0) for x in owners) == \
+        n_readers
+    assert sum((x.counters or {}).get("pieces", 0) for x in owners) == \
+        pieces > r._count.counter("chunks", "kmc.parse_wait") >= 5
+    for suf in (".kmc_pre", ".kmc_suf"):
+        assert Path(f"{tmp_path / 'whole'}{suf}").read_bytes() == \
+            Path(f"{tmp_path / 'pieces'}{suf}").read_bytes()
+    assert r1.estimated_histogram == whole.estimated_histogram
+    assert bool(r1.estimated_histogram) == estimate
 
 
 def test_new_profile_drops_the_last_records():
