@@ -26,22 +26,15 @@ def small_cell(genome_bp=1 << 15, coverage=10, repeats=()):
                 base.per_layer)
 
 
-# the readers of the sharded count's layers (kmcbench/metrics/), which no
-# cell of BENCHMARK.json lists yet
-SHARDED_PER_LAYER = [
-    {"name": "exchange_s", "unit": "s", "better": "lower",
-     "source": "program_span", "moves": "kmers_per_s",
-     "layer": "sharded finalize: exchange and owner sort"},
-    {"name": "shard_ingest_s", "unit": "s", "better": "lower",
-     "source": "program_span", "moves": "kmers_per_s",
-     "layer": "sharded stage 1: feed and ingest"},
-    {"name": "exchange_roofline_pct", "unit": "%", "better": "higher",
-     "source": "device_trace", "moves": "kmers_per_s",
-     "layer": "kernel: exchange"},
-    {"name": "card_idle_pct", "unit": "%", "better": "lower",
-     "source": "device_trace", "moves": "kmers_per_s",
-     "layer": "device (four cards)"},
-]
+def _sharded_per_layer() -> list:
+    """The per-layer metrics of BENCHMARK.json's cell of four chips: the
+    readers of the sharded count's layers (kmcbench/metrics/)."""
+    from kmcbench.harness import load_cell
+
+    return load_cell("celegans_k27.fastq30x.x4").per_layer
+
+
+SHARDED_PER_LAYER = _sharded_per_layer()
 
 
 def small_sharded_cell(**kw):

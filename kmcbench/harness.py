@@ -3,20 +3,20 @@ back to back, the check against the plain reference, and the result.
 
 A job is what a user of a k-mer counter runs: a fresh
 kmc_tpu_torch.Runner counts the sample's FASTQ (run_stage1, run_stage2,
-as count() and the CLI do) into a KMC2 database under the run's work
-directory, over the previous job's files.  A cell of several chips
+as count() and the CLI do) into a new KMC2 database under the run's work
+directory, the previous job's deleted once it ends.  A cell of several chips
 counts it instead by one call of kmc_tpu_torch.distributed_count, one
-process holding a shard of the store on each of its cards, into the same
-database.  The loop is closed: one job at a time, the next as soon as
+process holding a shard of the store on each of its cards, into a new
+database the same way.  The loop is closed: one job at a time, the next as soon as
 the last ends; no job starts after the run's seconds, and the one running
 then finishes and counts.  The window runs from the first job's start to
 the last job's end.
 
 Set-up (setup_s: from the process's start to the first job of the
-window) imports torch and the port, writes the FASTQ (hot in the page
-cache from then on) and runs one whole job, which builds the port's CUDA
-and native libraries on a checkout's first run (kmc_tpu_torch/_build/)
-and loads them.
+window) imports torch and the port, writes the FASTQ, compressed where
+the traffic mix says so (hot in the page cache from then on), and runs
+one whole job, which builds the port's CUDA and native libraries on a
+checkout's first run (kmc_tpu_torch/_build/) and loads them.
 
 With trace on, the probes (probes.py) wrap the program for the window,
 and torch.profiler covers its first whole jobs, up to TRACE_JOB_SECONDS
@@ -28,6 +28,7 @@ import gc
 import importlib.util
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -41,7 +42,7 @@ from pathlib import Path
 import torch
 from torch.profiler import record_function
 
-from . import compare, devtrace, reference
+from . import compare, compress, devtrace, reference
 from .probes import STORE_SPANS, WRITER_SPANS, Probes
 from .reads import Sample, write_fastq
 
@@ -69,6 +70,15 @@ class Cell:
     @property
     def sample(self) -> Sample:
         return Sample.of(self.config, self.traffic)
+
+    @property
+    def compression(self):
+        """The traffic's input file's compression: None for plain FASTQ;
+        a compression the harness cannot write stops the run."""
+        kind = self.traffic.get("compression")
+        if kind is not None:
+            compress.check(kind)
+        return kind
 
 
 def _in_cell(metric: dict, cell: str) -> bool:
@@ -153,6 +163,12 @@ def process_age_s() -> float:
     return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
+def process_cpu_s() -> float:
+    """User and system CPU seconds of every thread of this process."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
 def _vm_hwm() -> int:
     with open("/proc/self/status") as f:
         for line in f:
@@ -210,6 +226,21 @@ def _params(knobs: dict, fastq: Path, out: Path, work: Path):
         for p in hit:
             setattr(p, key, value)
     return p1, p2
+
+
+def _db_path(work: Path, index: int) -> Path:
+    """The database prefix of job index (the warm-up job's index is -1).
+    Each job writes a new database, as the count of a new sample does, and
+    the last job's is deleted once the next ends (_remove_db), so that no
+    database lives long enough for the page cache to write it out: one
+    written over the last would truncate it, which a file system such as
+    ext4 answers by writing the new one out as it is closed."""
+    return work / f"db{index + 1}"
+
+
+def _remove_db(out: Path):
+    for s in (".kmc_pre", ".kmc_suf"):
+        Path(str(out) + s).unlink(missing_ok=True)
 
 
 def _db_bytes(out: Path) -> int:
@@ -385,24 +416,30 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
     cuda = device.type == "cuda"
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     knobs, sample = cell.knobs, cell.sample
-    fastq, out = work / "reads.fastq", work / "db"
+    compression = cell.compression
+    # the port takes its gzip routes by the suffix
+    fastq = work / ("reads.fastq" if compression is None
+                    else "reads.fastq.gz")
     # the resident set at each step of set-up: what a job starts from
     log(f"resident set before the input: {_vm_rss()} bytes")
-    written = write_fastq(fastq, sample, seed, device)
+    n_fastq = write_fastq(fastq, sample, seed, device, compression, log)
     log(f"input: {sample.n_reads} reads of {sample.read_len} bp, "
-        f"{sample.n_kmers(knobs['kmer_len'])} k-mers, {written} bytes of "
+        f"{sample.n_kmers(knobs['kmer_len'])} k-mers, {n_fastq} bytes of "
         f"FASTQ ({time.perf_counter() - t_setup0:.3f} s); resident set "
         f"{_vm_rss()} bytes")
+    written = fastq.stat().st_size  # bytes of the files the run wrote
     if cell.chips == 1:
         devices = [device]
 
         def job_run(i, probes=None):
-            return run_job(i, knobs, fastq, out, work, device, probes)
+            return run_job(i, knobs, fastq, _db_path(work, i), work, device,
+                           probes)
     else:
         devices = cell_devices(device, cell.chips)
 
         def job_run(i, probes=None):
-            return run_sharded_job(i, knobs, fastq, out, devices)
+            return run_sharded_job(i, knobs, fastq, _db_path(work, i),
+                                   devices)
     warm = job_run(-1)
     written += warm.db_bytes
     log(f"warm-up job: {warm.wall_s:.4f} s, host peak "
@@ -426,6 +463,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
         prof = devtrace.profiler(device.type)
     t0 = time.perf_counter()
     run.setup_s = age0 + (t0 - t_setup0)
+    cpu0 = process_cpu_s()
     profiled_s = 0.0
     try:
         if prof is not None:
@@ -446,6 +484,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
                     prof.stop()
                     prof_done, prof = prof, None
             run.jobs.append(job)
+            _remove_db(_db_path(work, i - 1))
             written += job.db_bytes
             if job.error:
                 break
@@ -455,6 +494,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
     finally:
         if run.probes is not None:
             run.probes.remove()
+    cpu_s = process_cpu_s() - cpu0  # the host's slow spells raise it
     last = run.jobs[-1]
     run.window_s = last.end - run.jobs[0].start
     bad = forbidden_modules()
@@ -475,7 +515,8 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
             f"{j.n_compactions} compactions, spill {j.spill}"
             + (f", timings {j.timings}" if j.timings else "")
             + (f", failed: {j.error}" if j.error else ""))
-    log(f"jobs: {len(run.jobs)} in a window of {run.window_s:.4f} s; bytes "
+    log(f"jobs: {len(run.jobs)} in a window of {run.window_s:.4f} s, "
+        f"{cpu_s:.3f} s of the process's CPU; bytes "
         f"written: {written}; device peak of a job: {mem_peak} bytes")
     if prof_done is not None:
         run.trace = devtrace.read(prof_done, work / "trace.json", HOST_SPANS)
@@ -490,7 +531,7 @@ def _run(cell, seed, seconds, traced, device, work, log, t_setup0, age0):
     log(f"reference: {ref.keys.numel()} distinct k-mers, {kept} kept, "
         f"{int((ref.counts > knobs['counter_max']).sum())} counted past "
         "counter_max")
-    numbers = compare.judge_db(out, ref, knobs,
+    numbers = compare.judge_db(_db_path(work, last.index), ref, knobs,
                                [warm.stats] + [j.stats for j in run.jobs],
                                device)
     del ref

@@ -3,9 +3,10 @@ reads of a sequencing run over it, as 2-bit codes and as FASTQ bytes.
 
 The configuration gives the genome (length, repeat families), the
 traffic mix the sample (coverage, read length, substitution rate, share of reads from the
-reverse strand).  Reads come in blocks of BLOCK_READS, each drawn from a
-generator seeded by (seed, block index), so any block can be made again
-alone and the same seed gives the same reads on the same device type.
+reverse strand) and whether its file is compressed (compress.py).  Reads
+come in blocks of BLOCK_READS, each drawn from a generator seeded by
+(seed, block index), so any block can be made again alone and the same
+seed gives the same reads on the same device type.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import hashlib
 from dataclasses import dataclass
 
 import torch
+
+from . import compress
 
 BLOCK_READS = 1 << 19
 ID_DIGITS = 10  # "@" + a zero-padded read number: every record one length
@@ -134,13 +137,22 @@ def fastq_block(first: int, codes: torch.Tensor) -> torch.Tensor:
     return rec.reshape(-1)
 
 
-def write_fastq(path, sample: Sample, seed: int, device) -> int:
-    """Write the sample's reads to path as FASTQ, block by block; returns
-    the bytes written."""
+def write_fastq(path, sample: Sample, seed: int, device,
+                compression: str = None, log=None) -> int:
+    """Write the sample's reads to path as FASTQ, block by block, or with
+    compression ("gzip" or "bgzf") as a compressed file of those bytes
+    (compress.Writer); returns the FASTQ's bytes, before any compression.
+    log, if given, gets a line of the compressed bytes and the
+    compression's seconds."""
     total = 0
-    with open(path, "wb") as f:
+    gz = None if compression is None else compress.Writer(path, compression)
+    with gz or open(path, "wb") as f:
         for first, codes in read_blocks(sample, seed, device):
             data = fastq_block(first, codes).cpu().numpy()
-            data.tofile(f)
+            f.write(data)
             total += data.nbytes
+    if gz is not None and log is not None:
+        log(f"compressed: {gz.compressed_bytes} bytes of {compression} at "
+            f"level {compress.LEVEL} from {total}; the pool's compression "
+            f"{gz.cpu_s:.3f} s of CPU, set-up waiting on it {gz.wait_s:.3f} s")
     return total

@@ -38,7 +38,8 @@ def test_sample_is_chromosomes_one_to_three_at_30x():
     assert cell.knobs == load_cell("large_genome_k27.fastq30x").knobs
     assert {m["name"] for m in cell.per_layer} == {
         "exchange_s", "shard_ingest_s", "exchange_roofline_pct",
-        "card_idle_pct", "feed_blocked_s", "owner_skew_pct"}
+        "card_idle_pct", "feed_blocked_s", "owner_skew_pct",
+        "shard_compact_s", "input_read_s"}
 
 
 def _span(name, a, b, thread, parent=None, **counters):

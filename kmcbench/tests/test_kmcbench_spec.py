@@ -62,6 +62,10 @@ def test_cell_sizes():
     iso = harness.load_cell("isolate_k27.fastq100x").sample
     big = harness.load_cell("large_genome_k27.fastq30x").sample
     assert (iso.n_reads, iso.n_kmers(27)) == (3_094_434, 383_709_816)
+    for name in ("isolate_k27.fastq100x_gz", "isolate_k27.fastq100x_bgzf"):
+        gz = harness.load_cell(name).sample
+        assert gz == iso
+        assert (gz.n_reads, gz.n_kmers(27)) == (3_094_434, 383_709_816)
     assert (big.n_reads, big.n_kmers(27)) == (6_710_886, 832_149_864)
     assert isinstance(iso, Sample)
 
